@@ -1,0 +1,86 @@
+"""Carry statistics, datasets and engine ledgers across from numpy arrays.
+
+Everything here goes through ``np.asarray``, so any object whose arrays
+convert to numpy (the reference package's arrays included) can be handed
+over without this package importing the framework that made it. bfloat16
+arrays (numpy's ``ml_dtypes`` extension type) are carried bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Hashable, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.sufficient_stats import SuffStats
+from repro_torch.data.synthetic import FederatedDataset
+from repro_torch.server.engine import FusionEngine
+
+
+def tensor_from_numpy(x, *, dtype=None, device="cuda") -> torch.Tensor:
+    """``np.asarray(x)`` as a tensor on ``device`` (bf16 kept bit-exact)."""
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(arr).copy())
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def stats_from_numpy(gram, moment, count, yty=None, *, dtype=None,
+                     device="cuda") -> SuffStats:
+    """SuffStats from numpy-convertible (G, h, n[, yty])."""
+    G = tensor_from_numpy(gram, dtype=dtype, device=device)
+    return SuffStats(
+        gram=G,
+        moment=tensor_from_numpy(moment, dtype=G.dtype, device=device),
+        count=torch.tensor(int(np.asarray(count)), dtype=torch.int32,
+                           device=device),
+        yty=None if yty is None
+        else tensor_from_numpy(yty, dtype=G.dtype, device=device))
+
+
+def suffstats_from(obj, *, dtype=None, device="cuda") -> SuffStats:
+    """SuffStats from any object with ``.gram/.moment/.count/.yty`` arrays."""
+    return stats_from_numpy(obj.gram, obj.moment, obj.count,
+                            getattr(obj, "yty", None), dtype=dtype,
+                            device=device)
+
+
+def dataset_from_numpy(clients: Sequence[tuple], test_A, test_b, w_star,
+                       gamma: float, *, dtype=None,
+                       device="cuda") -> FederatedDataset:
+    """FederatedDataset from numpy-convertible client (A_k, b_k) pairs."""
+    def t(x):
+        return tensor_from_numpy(x, dtype=dtype, device=device)
+
+    return FederatedDataset(
+        clients=tuple((t(A), t(b)) for A, b in clients),
+        test_A=t(test_A), test_b=t(test_b), w_star=t(w_star),
+        gamma=float(gamma))
+
+
+def engine_from_ledger(clients: Mapping[Hashable, object],
+                       dropped: Mapping[Hashable, object], *,
+                       dtype=None, device="cuda", **engine_kwargs
+                       ) -> FusionEngine:
+    """A port engine rebuilt from an exported ``(clients, dropped)`` ledger.
+
+    The fused state is the active clients' statistics ingested in ledger
+    order; the per-client ledger (active and dropped) is installed beside
+    it, so drop/restore/LOCO continue from where the exporting engine was.
+    """
+    active = {cid: suffstats_from(s, dtype=dtype, device=device)
+              for cid, s in clients.items()}
+    gone = {cid: suffstats_from(s, dtype=dtype, device=device)
+            for cid, s in dropped.items()}
+    any_stats = next(iter({**active, **gone}.values()), None)
+    if any_stats is None:
+        raise ValueError("empty ledger: no client statistics to rebuild from")
+    eng = FusionEngine(any_stats.dim, dtype=any_stats.gram.dtype,
+                       device=device, **engine_kwargs)
+    for s in active.values():
+        eng.ingest(s)
+    eng.import_ledger(active, gone)
+    return eng

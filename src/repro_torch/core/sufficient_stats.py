@@ -1,0 +1,178 @@
+"""Sufficient statistics for ridge regression (paper §III-D, Theorem 1).
+
+The ridge solution w_sigma = (A^T A + sigma I)^{-1} A^T b depends on the data
+only through G = A^T A (d x d) and h = A^T b (d), and both decompose
+additively over any row partition of (A, b) — Theorem 1. This module
+provides:
+
+  * ``compute_stats``           — local (G_k, h_k) on one client's data
+                                  (kernel K1 for CUDA tensors)
+  * ``compute_stats_streaming`` — chunked pass over rows (bounded memory)
+  * ``fuse_stats``              — Phase-2 server aggregation (a tree-sum)
+  * ``streaming_update``        — §VI-C: fold new rows into old statistics
+
+The on-mesh ``distributed_stats`` of the reference waits for the
+distributed slice of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+from repro_torch.kernels import ops as kernel_ops
+
+
+@dataclasses.dataclass(frozen=True)
+class SuffStats:
+    """Sufficient statistics of ridge regression (Definition 1).
+
+    Attributes:
+      gram:   G = A^T A, shape (d, d), symmetric PSD.
+      moment: h = A^T b, shape (d,).
+      count:  number of rows n (0-d int32 tensor on the stats' device).
+      yty:    residual second moment sum b_i^2 (0-d tensor), or None when
+              unknown. Combining a None with anything degrades the result to
+              None: point estimates are untouched, inference fields degrade.
+    """
+
+    gram: torch.Tensor
+    moment: torch.Tensor
+    count: torch.Tensor
+    yty: torch.Tensor | None = None
+
+    @property
+    def dim(self) -> int:
+        return self.gram.shape[-1]
+
+    @staticmethod
+    def _combine_yty(a, b, op):
+        if a is None or b is None:
+            return None
+        return op(a, b)
+
+    def __add__(self, other: "SuffStats") -> "SuffStats":
+        # Theorem 1: additivity over row partitions.
+        return SuffStats(
+            gram=self.gram + other.gram,
+            moment=self.moment + other.moment,
+            count=self.count + other.count,
+            yty=self._combine_yty(self.yty, other.yty, lambda a, b: a + b),
+        )
+
+    def __sub__(self, other: "SuffStats") -> "SuffStats":
+        # Additivity also licenses removal (Thm 8 dropout, Prop 5 LOCO).
+        return SuffStats(
+            gram=self.gram - other.gram,
+            moment=self.moment - other.moment,
+            count=self.count - other.count,
+            yty=self._combine_yty(self.yty, other.yty, lambda a, b: a - b),
+        )
+
+    def scale(self, s) -> "SuffStats":
+        """Scale a client's contribution (0/1 masks give Thm 8 dropout)."""
+        return SuffStats(self.gram * s, self.moment * s, self.count * s,
+                         yty=None if self.yty is None else self.yty * s)
+
+    def without_moments(self) -> "SuffStats":
+        """The same statistics with the second moment dropped (yty=None)."""
+        return SuffStats(self.gram, self.moment, self.count, yty=None)
+
+
+def _count(n: int, device) -> torch.Tensor:
+    return torch.tensor(n, dtype=torch.int32, device=device)
+
+
+def zeros_like_stats(d: int, dtype=torch.float32, *,
+                     device="cuda") -> SuffStats:
+    return SuffStats(
+        gram=torch.zeros((d, d), dtype=dtype, device=device),
+        moment=torch.zeros((d,), dtype=dtype, device=device),
+        count=_count(0, device),
+        yty=torch.zeros((), dtype=dtype, device=device),
+    )
+
+
+def compute_stats(A: torch.Tensor, b: torch.Tensor) -> SuffStats:
+    """Local Phase-1 computation: G_k = A_k^T A_k, h_k = A_k^T b_k.
+
+    (G, h) come from ``kernels.ops.gram_moment``: kernel K1 for CUDA
+    tensors, its plain version for CPU tensors. Accumulation is float32 for
+    bf16/f16 inputs, else the input dtype.
+
+    Args:
+      A: (n_k, d) feature matrix of one client.
+      b: (n_k,) target vector.
+    """
+    if A.ndim != 2:
+        raise ValueError(f"A must be (n, d), got {tuple(A.shape)}")
+    if tuple(b.shape) != (A.shape[0],):
+        raise ValueError(f"b must be ({A.shape[0]},), got {tuple(b.shape)}")
+    gram, moment = kernel_ops.gram_moment(A, b)
+    acc = torch.float32 if b.dtype in (torch.bfloat16, torch.float16) \
+        else b.dtype
+    bb = b.to(acc)
+    yty = torch.dot(bb, bb).to(gram.dtype)
+    return SuffStats(gram=gram, moment=moment,
+                     count=_count(A.shape[0], A.device), yty=yty)
+
+
+def _promote_f32(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
+def compute_stats_streaming(A: torch.Tensor, b: torch.Tensor, *,
+                            chunk: int = 1024) -> SuffStats:
+    """Streaming Phase-1 over row chunks (bounded working set).
+
+    Mirrors a memory-constrained edge client: G accumulates in a d x d
+    buffer while rows stream through one (chunk, d) window at a time. Only
+    the ragged tail chunk is zero-padded — zero rows contribute zero to G,
+    h and yty, so padding is exact.
+    """
+    n, d = A.shape
+    out = zeros_like_stats(d, _promote_f32(A.dtype), device=A.device)
+    n_main = (n // chunk) * chunk
+    for i in range(0, n_main, chunk):
+        out = out + compute_stats(A[i:i + chunk], b[i:i + chunk])
+    if n_main < n:
+        tail = n - n_main
+        a_t = torch.nn.functional.pad(A[n_main:], (0, 0, 0, chunk - tail))
+        b_t = torch.nn.functional.pad(b[n_main:], (0, chunk - tail))
+        out = out + compute_stats(a_t, b_t)
+    # chunk-sized steps over-count padded rows; fix the true count.
+    return SuffStats(out.gram, out.moment, _count(n, A.device), yty=out.yty)
+
+
+def fuse_stats(stats: Sequence[SuffStats], *, chunk: int = 8) -> SuffStats:
+    """Phase-2 server aggregation: G = sum_k G_k, h = sum_k h_k (Thm 1).
+
+    A chunked tree reduction: at most ``chunk`` Grams are stacked into one
+    buffer and summed, and the chunk partials recurse, so peak extra memory
+    is O(chunk * d^2 + K/chunk * d^2) rather than O(K * d^2).
+    """
+    if not stats:
+        raise ValueError("need at least one client's statistics")
+    if any(s.yty is None for s in stats) and \
+            any(s.yty is not None for s in stats):
+        stats = [s if s.yty is None else s.without_moments() for s in stats]
+    if len(stats) == 1:
+        return stats[0]
+    if len(stats) <= chunk:
+        def total(field):
+            return torch.stack([getattr(s, field) for s in stats]).sum(dim=0)
+
+        return SuffStats(
+            gram=total("gram"), moment=total("moment"),
+            count=total("count").to(stats[0].count.dtype),
+            yty=None if stats[0].yty is None else total("yty"))
+    partials = [fuse_stats(stats[i:i + chunk], chunk=chunk)
+                for i in range(0, len(stats), chunk)]
+    return fuse_stats(partials, chunk=chunk)
+
+
+def streaming_update(old: SuffStats, delta_A: torch.Tensor,
+                     delta_b: torch.Tensor) -> SuffStats:
+    """§VI-C streaming extension: fold newly arrived rows into existing stats."""
+    return old + compute_stats(delta_A, delta_b)

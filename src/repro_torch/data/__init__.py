@@ -1,0 +1,3 @@
+from repro_torch.data.synthetic import NOISE_STD, FederatedDataset, generate
+
+__all__ = ["FederatedDataset", "generate", "NOISE_STD"]

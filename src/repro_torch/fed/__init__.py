@@ -1,0 +1,24 @@
+from repro_torch.fed.comm import (
+    CommRecord,
+    ShardedCommRecord,
+    crossover_rounds,
+    fedavg_comm,
+    measured_one_shot,
+    one_shot_comm,
+    sharded_oneshot_record,
+)
+from repro_torch.fed.protocol import (
+    PackedStats,
+    RunResult,
+    client_phase,
+    run_centralized,
+    run_loco_cv,
+    run_one_shot,
+)
+
+__all__ = [
+    "CommRecord", "ShardedCommRecord", "crossover_rounds", "fedavg_comm",
+    "measured_one_shot", "one_shot_comm", "sharded_oneshot_record",
+    "PackedStats", "RunResult", "client_phase", "run_centralized",
+    "run_loco_cv", "run_one_shot",
+]

@@ -1,0 +1,180 @@
+"""Process-level federated runtime: clients, server, protocol executions.
+
+The paper-faithful K-client simulation: every execution returns the model
+and a CommRecord measured from the payloads that moved. The executions are
+thin protocol adapters over ``server.FusionEngine``: they emulate the client
+side (local statistics, dropout masks) and hand everything server-side —
+aggregation, factorization, solving, LOCO CV — to one engine, returned in
+``extras["engine"]`` so callers can keep serving from the fused state.
+
+What travels between the two sides is :class:`PackedStats`, the Theorem-4
+wire format: the d(d+1)/2 lower triangle of the client Gram
+(``kernels.ops.pack_lower``) plus the d-float moment.
+
+This slice of the port runs the dense backend only. Differential privacy and
+PSD repair wait for ROADMAP queue 1 item 14, meshes and ``backend="auto"``
+for item 15, and the projected protocol for item 11.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Sequence
+
+import torch
+
+from repro_torch.core.sufficient_stats import SuffStats, compute_stats
+from repro_torch.data.synthetic import FederatedDataset
+from repro_torch.fed import comm
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.server import FusionEngine, LinalgBackend
+
+_DP = ("is not ported yet: privacy (DP noise, clipping, PSD repair) waits "
+       "for ROADMAP queue 1, item 14")
+_MESH = ("is not ported yet: the sharded backend and backend='auto' wait "
+         "for ROADMAP queue 1, item 15")
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedStats:
+    """One client's upload in the Theorem-4 wire encoding.
+
+    ``tri`` is the row-major lower triangle of the client Gram, ``moment``
+    the d-float moment vector; ``count`` rides along as metadata and
+    ``yty`` (sum b^2) closes the inference algebra server-side (``None``
+    for a moments-less payload). ``pack``/``unpack`` are exact.
+    """
+
+    tri: torch.Tensor       # (d(d+1)/2,)
+    moment: torch.Tensor    # (d,)
+    count: torch.Tensor
+    dim: int
+    yty: torch.Tensor | None = None
+
+    @classmethod
+    def pack(cls, stats: SuffStats) -> "PackedStats":
+        return cls(kernel_ops.pack_lower(stats.gram), stats.moment,
+                   stats.count, stats.dim, yty=stats.yty)
+
+    def unpack(self) -> SuffStats:
+        return SuffStats(kernel_ops.unpack_lower(self.tri, self.dim),
+                         self.moment, self.count,
+                         yty=None if self.yty is None
+                         else self.yty.to(self.tri.dtype))
+
+    @property
+    def wire_floats(self) -> int:
+        """Floats on the wire for this upload (what the ledger measures)."""
+        return int(self.tri.numel() + self.moment.numel())
+
+
+@dataclasses.dataclass
+class RunResult:
+    weights: torch.Tensor
+    comm: comm.CommRecord
+    wall_time_s: float
+    rounds: int
+    extras: dict = dataclasses.field(default_factory=dict)
+
+
+def _sync(t: torch.Tensor) -> None:
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+def client_phase(ds: FederatedDataset, *,
+                 participating: Sequence[bool] | None = None,
+                 dp=None, dp_clip=None, dp_key=None,
+                 client_stats: Sequence[SuffStats] | None = None,
+                 ) -> dict[int, PackedStats]:
+    """Phase 1 on every participating client: what each one uploads.
+
+    ``client_stats`` short-circuits the (deterministic) local computation
+    with already-computed statistics.
+    """
+    if dp is not None or dp_clip is not None or dp_key is not None:
+        raise NotImplementedError(f"dp {_DP}")
+    uploads: dict[int, PackedStats] = {}
+    for k, (A_k, b_k) in enumerate(ds.clients):
+        if participating is not None and not participating[k]:
+            continue
+        s = client_stats[k] if client_stats is not None \
+            else compute_stats(A_k, b_k)
+        uploads[k] = PackedStats.pack(s)
+    return uploads
+
+
+def run_one_shot(ds: FederatedDataset, sigma: float, *,
+                 participating: Sequence[bool] | None = None,
+                 dp=None, dp_clip=None, dp_key=None,
+                 psd_repair: bool = False,
+                 client_stats: Sequence[SuffStats] | None = None,
+                 backend: LinalgBackend | None = None,
+                 mesh=None) -> RunResult:
+    """Algorithm 1 over process clients, on the dense backend.
+
+    Args:
+      participating: Thm 8 dropout mask; dropped clients transmit nothing.
+      client_stats: reuse already-computed per-client statistics.
+      backend: linalg backend for the engine; defaults to dense on the
+        clients' device.
+    """
+    if psd_repair:
+        raise NotImplementedError(f"psd_repair {_DP}")
+    if mesh is not None or isinstance(backend, str):
+        raise NotImplementedError(f"mesh / backend={backend!r} {_MESH}")
+    t0 = time.perf_counter()
+    uploads = client_phase(ds, participating=participating, dp=dp,
+                           dp_clip=dp_clip, dp_key=dp_key,
+                           client_stats=client_stats)
+    engine = FusionEngine.from_clients(
+        {k: p.unpack() for k, p in uploads.items()}, backend=backend)
+    w = engine.solve(sigma)
+    _sync(w)
+    dt = time.perf_counter() - t0
+    record = comm.measured_one_shot(list(uploads.values()),
+                                    download_floats=ds.dim)
+    return RunResult(
+        weights=w, comm=record, wall_time_s=dt, rounds=1,
+        extras={"engine": engine, "participating_clients": len(uploads),
+                "fused_stats": engine.stats})
+
+
+def run_centralized(ds: FederatedDataset, sigma: float) -> RunResult:
+    """Oracle: centralized ridge with access to all data."""
+    t0 = time.perf_counter()
+    A, b = ds.stacked()
+    engine = FusionEngine.from_stats(compute_stats(A, b))
+    w = engine.solve(sigma)
+    _sync(w)
+    return RunResult(
+        weights=w,
+        comm=comm.CommRecord(0, 0, ds.num_clients, 0),
+        wall_time_s=time.perf_counter() - t0,
+        rounds=0,
+        extras={"engine": engine},
+    )
+
+
+def run_loco_cv(ds: FederatedDataset, sigmas: Sequence[float]
+                ) -> tuple[float, RunResult]:
+    """Prop 5 sigma selection followed by final fusion at sigma*.
+
+    The engine solves all K * |Sigma| held-out systems in one vectorized
+    pass, and the final fusion reuses the statistics the CV already received.
+    """
+    stats = [compute_stats(A_k, b_k) for A_k, b_k in ds.clients]
+    engine = FusionEngine.from_clients(stats)
+    best, losses = engine.loco_cv(list(ds.clients), sigmas)
+    res = run_one_shot(ds, best, client_stats=stats)
+    res.extras["cv_losses"] = losses
+    res.extras["sigma_grid"] = list(sigmas)
+    # Prop 5 overhead: K * |Sigma| scalars on top of the one-shot payload.
+    rep = {"upload_floats_per_client":
+           res.comm.upload_floats_per_client + len(sigmas)}
+    if res.comm.upload_wire_bytes_per_client is not None:
+        rep["upload_wire_bytes_per_client"] = (
+            res.comm.upload_wire_bytes_per_client
+            + len(sigmas) * comm.FLOAT_BYTES)
+    res.comm = dataclasses.replace(res.comm, **rep)
+    return best, res

@@ -1,0 +1,169 @@
+"""ctypes wrappers of the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
+contiguity and raises on anything its kernel does not take, allocates the
+outputs (and scratch) with ``torch.empty`` on the inputs' device, launches
+on PyTorch's current stream without synchronising, and raises if the launch
+returned a CUDA error. Each keeps a plain integer ``launches`` count, raised
+by one where it launches its kernel and nowhere else.
+
+  K1 ``gram_moment_cuda``     — (A^T A, A^T b); replaces ``gram_moment_pallas``
+  K2 ``gemm_nt_cuda``         — C + alpha A B^T; replaces ``gemm_nt_pallas``
+  P  ``panel_transform_cuda`` — one panel of the blocked Cholesky update
+
+The libraries are compiled on the first call (``kernels._build``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+_VP, _INT, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_INT32_MAX = 2**31 - 1
+
+_GRAM_DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2,
+                torch.float16: 3}
+_FLOAT_DTYPES = {torch.float32: 0, torch.float64: 1}
+
+_SIGNATURES = {
+    "gram_moment": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
+    "gemm_nt": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _DBL, _INT, _VP],
+    "panel_transform": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _DBL, _INT, _VP],
+}
+
+
+def _fn(name: str):
+    lib = _build.load(name)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = _INT
+        lib.kernel_error_string.argtypes = [_INT]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def _check(name: str, tensors: dict[str, torch.Tensor], dtypes) -> torch.device:
+    """Common argument checks; returns the one CUDA device of all tensors."""
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devices))}")
+    (device,) = devices
+    if device.type != "cuda":
+        raise ValueError(f"{name} is the CUDA kernel and takes CUDA tensors, got "
+                         f"{device}; the plain version serves CPU tensors")
+    for arg, t in tensors.items():
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, kernel takes "
+                            f"{sorted(map(str, dtypes))}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if t.numel() > _INT32_MAX:
+            raise ValueError(f"{name}: {arg} has {t.numel()} elements, more "
+                             "than the kernel's int32 extents allow")
+    return device
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    lib, fn = _fn(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        what = ("bad argument" if rc < 0
+                else lib.kernel_error_string(rc).decode())
+        raise RuntimeError(f"{name} kernel launch failed: {what} (code {rc})")
+
+
+def gram_moment_cuda(A: torch.Tensor, b: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1: (G, h) = (A^T A, A^T b) in one pass over A, deterministic.
+
+    A: (n, d), b: (n,), both f32 / f64 / bf16 / f16 of one dtype. G (d, d)
+    and h (d,) are float64 for float64 input, float32 otherwise.
+    """
+    device = _check("gram_moment", {"A": A, "b": b}, _GRAM_DTYPES)
+    if A.ndim != 2 or b.shape != (A.shape[0],):
+        raise ValueError(f"gram_moment: A must be (n, d) and b (n,), got "
+                         f"{tuple(A.shape)} and {tuple(b.shape)}")
+    if A.dtype != b.dtype:
+        raise TypeError(f"gram_moment: A is {A.dtype} but b is {b.dtype}")
+    n, d = A.shape
+    acc = torch.float64 if A.dtype == torch.float64 else torch.float32
+    G = torch.empty((d, d), dtype=acc, device=device)
+    h = torch.empty((d,), dtype=acc, device=device)
+    if d == 0:
+        return G, h
+    _launch("gram_moment", device, A.data_ptr(), b.data_ptr(), G.data_ptr(),
+            h.data_ptr(), n, d, _GRAM_DTYPES[A.dtype])
+    gram_moment_cuda.launches += 1
+    return G, h
+
+
+def gemm_nt_cuda(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *,
+                 alpha: float = -1.0) -> torch.Tensor:
+    """K2: C + alpha * A @ B^T. C: (m, n), A: (m, k), B: (n, k); f32 or f64."""
+    device = _check("gemm_nt", {"C": C, "A": A, "B": B}, _FLOAT_DTYPES)
+    if not (C.ndim == A.ndim == B.ndim == 2) or A.shape[0] != C.shape[0] \
+            or B.shape[0] != C.shape[1] or A.shape[1] != B.shape[1]:
+        raise ValueError(f"gemm_nt: need C (m, n), A (m, k), B (n, k), got "
+                         f"{tuple(C.shape)}, {tuple(A.shape)}, {tuple(B.shape)}")
+    if not C.dtype == A.dtype == B.dtype:
+        raise TypeError(f"gemm_nt: mixed dtypes {C.dtype}, {A.dtype}, {B.dtype}")
+    m, n = C.shape
+    k = A.shape[1]
+    out = torch.empty_like(C)
+    if m == 0 or n == 0:
+        return out
+    _launch("gemm_nt", device, C.data_ptr(), A.data_ptr(), B.data_ptr(),
+            out.data_ptr(), m, n, k, float(alpha), _FLOAT_DTYPES[C.dtype])
+    gemm_nt_cuda.launches += 1
+    return out
+
+
+def panel_transform_cuda(L11: torch.Tensor, X1: torch.Tensor, *,
+                         sign: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """P: ``(L11', T)`` of one diagonal panel against all r update vectors.
+
+    L11: (bw, bw) lower-triangular with 1 <= bw <= 32, X1: (r, bw) with
+    r >= 1; f32 or f64. T is (bw + r, bw + r).
+    """
+    device = _check("panel_transform", {"L11": L11, "X1": X1}, _FLOAT_DTYPES)
+    bw = L11.shape[0] if L11.ndim == 2 else -1
+    if L11.shape != (bw, bw) or not 1 <= bw <= 32 or X1.ndim != 2 \
+            or X1.shape[1] != bw or X1.shape[0] < 1:
+        raise ValueError(f"panel_transform: need L11 (bw, bw) with bw <= 32 and "
+                         f"X1 (r >= 1, bw), got {tuple(L11.shape)}, "
+                         f"{tuple(X1.shape)}")
+    if L11.dtype != X1.dtype:
+        raise TypeError(f"panel_transform: L11 is {L11.dtype}, X1 is {X1.dtype}")
+    r = X1.shape[0]
+    L11o = torch.empty_like(L11)
+    T = torch.empty((bw + r, bw + r), dtype=L11.dtype, device=device)
+    table = torch.empty((2, bw, r), dtype=L11.dtype, device=device)
+    _launch("panel_transform", device, L11.data_ptr(), X1.data_ptr(),
+            L11o.data_ptr(), T.data_ptr(), table.data_ptr(), bw, r,
+            float(sign), _FLOAT_DTYPES[L11.dtype])
+    panel_transform_cuda.launches += 1
+    return L11o, T
+
+
+gram_moment_cuda.launches = 0
+gemm_nt_cuda.launches = 0
+panel_transform_cuda.launches = 0
+
+KERNELS = {"gram_moment": gram_moment_cuda, "gemm_nt": gemm_nt_cuda,
+           "panel_transform": panel_transform_cuda}
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each kernel since the last :func:`reset_launch_counts`."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

@@ -1,0 +1,104 @@
+"""Public kernel entry points: dispatch by device, plus the Theorem-4 codec.
+
+``gram_moment`` and ``gemm_nt`` run the hand-written CUDA kernel for CUDA
+tensors and the plain PyTorch version (``kernels.ref``) for CPU tensors; any
+other device raises. There is no switch between the two: the tensor's device
+decides, and a failing kernel raises rather than falling back.
+
+``pack_lower``/``unpack_lower`` (the Theorem-4 triangular wire codec for
+client Gram uploads) are a static-index gather/scatter, not kernels.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import gram as gram_kernel
+from repro_torch.kernels import ref
+
+
+def pow2_bucket(n: int, *, floor: int = 1) -> int:
+    """Smallest power of two >= max(n, floor).
+
+    The blocked factor update pads its rank to this bucket with zero rows
+    (exact identities of the recurrence), as the reference does.
+    """
+    return max(floor, 1 << (max(int(n), 1) - 1).bit_length())
+
+
+def _on(device: torch.device, name: str) -> bool:
+    """True for CUDA (kernel), False for CPU (plain version); else raise."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel or plain path for device {device}")
+
+
+def gram_moment(A: torch.Tensor, b: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused (G, h) = (A^T A, A^T b): kernel K1 on CUDA, plain on CPU.
+
+    Accumulates in float32 for bf16/f16 input, else in the input dtype.
+    """
+    if _on(A.device, "gram_moment"):
+        return gram_kernel.gram_moment_cuda(A, b)
+    return ref.gram_moment_ref(A, b)
+
+
+def gemm_nt(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *,
+            alpha: float = -1.0) -> torch.Tensor:
+    """C + alpha * A @ B^T: kernel K2 on CUDA, plain on CPU."""
+    if _on(C.device, "gemm_nt"):
+        return gram_kernel.gemm_nt_cuda(C, A, B, alpha=alpha)
+    return ref.gemm_nt_ref(C, A, B, alpha=alpha)
+
+
+_TRIL_IDX: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+
+def _tril(d: int, device: torch.device) -> torch.Tensor:
+    """Static (2, d(d+1)/2) row-major lower-triangle indices (cached)."""
+    key = (d, torch.device(device))
+    idx = _TRIL_IDX.get(key)
+    if idx is None:
+        idx = torch.tril_indices(d, d, device=device)
+        _TRIL_IDX[key] = idx
+    return idx
+
+
+def tri_len(d: int) -> int:
+    """Packed lower-triangle length for dimension d: d(d+1)/2 (Thm 4)."""
+    return d * (d + 1) // 2
+
+
+def tri_dim(length: int) -> int:
+    """Inverse of :func:`tri_len`; ValueError if no d satisfies d(d+1)/2 = L."""
+    d = (math.isqrt(8 * length + 1) - 1) // 2
+    if tri_len(d) != length:
+        raise ValueError(f"{length} is not a triangular length d(d+1)/2")
+    return d
+
+
+def pack_lower(G: torch.Tensor) -> torch.Tensor:
+    """(..., d, d) symmetric -> (..., d(d+1)/2) row-major lower triangle."""
+    i, j = _tril(G.shape[-1], G.device)
+    return G[..., i, j]
+
+
+def unpack_lower(tri: torch.Tensor, d: int) -> torch.Tensor:
+    """(..., d(d+1)/2) packed lower triangle -> full symmetric (..., d, d).
+
+    Exact roundtrip with :func:`pack_lower` for symmetric input: scatter the
+    triangle, then add the mirrored strict lower part (zeros elsewhere), as
+    the reference codec does.
+    """
+    if tri.shape[-1] != tri_len(d):
+        raise ValueError(f"packed length {tri.shape[-1]} != d(d+1)/2 "
+                         f"for d={d}")
+    i, j = _tril(d, tri.device)
+    low = torch.zeros((*tri.shape[:-1], d, d), dtype=tri.dtype,
+                      device=tri.device)
+    low[..., i, j] = tri
+    return low + torch.tril(low, -1).transpose(-1, -2)

@@ -1,0 +1,111 @@
+"""The port's CUDA kernels and its main path on the card, at test sizes.
+
+Marked ``cuda``: each test asks the ``card`` fixture, which skips when there
+is no CUDA device (decided at run time, never at import). On a machine with
+a card, run them with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Each kernel is held against its plain PyTorch version on the same CUDA
+tensors, and the CUDA path of the port against its own CPU path.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import core, server
+from repro_torch.kernels import gram, ref
+from repro_torch.server import cholesky
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _randn(shape, dtype=torch.float32, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g, dtype=torch.float64).to(dtype)
+
+
+def _rel(x, y):
+    x, y = x.double().cpu(), y.double().cpu()
+    return float((x - y).abs().max() / y.abs().max())
+
+
+@pytest.mark.parametrize("n,d,dtype", [(1, 40, torch.float32), (300, 129, torch.float32),
+                                       (1000, 256, torch.bfloat16),
+                                       (77, 65, torch.float16), (200, 70, torch.float64)])
+def test_gram_moment_matches_plain(card, n, d, dtype):
+    A, b = _randn((n, d), dtype).to(card), _randn((n,), dtype, seed=1).to(card)
+    before = gram.gram_moment_cuda.launches
+    G, h = gram.gram_moment_cuda(A, b)
+    G2, h2 = gram.gram_moment_cuda(A, b)
+    Gr, hr = ref.gram_moment_ref(A, b)
+    torch.cuda.synchronize()
+    assert gram.gram_moment_cuda.launches == before + 2
+    assert torch.equal(G, G2) and torch.equal(h, h2) and torch.equal(G, G.T)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert _rel(G, Gr) <= tol and _rel(h, hr) <= tol
+
+
+@pytest.mark.parametrize("m,n,k,dtype", [(100, 37, 13, torch.float32),
+                                         (4064, 96, 96, torch.float32),
+                                         (65, 64, 1, torch.float64)])
+def test_gemm_nt_matches_plain(card, m, n, k, dtype):
+    C, A, B = (_randn(s, dtype, seed=i).to(card)
+               for i, s in enumerate(((m, n), (m, k), (n, k))))
+    out = gram.gemm_nt_cuda(C, A, B, alpha=-0.5)
+    tol = 1e-13 if dtype == torch.float64 else 1e-5
+    assert _rel(out, ref.gemm_nt_ref(C, A, B, alpha=-0.5)) <= tol
+
+
+@pytest.mark.parametrize("bw,r", [(1, 1), (7, 3), (32, 64), (32, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_panel_transform_matches_plain(card, bw, r, dtype):
+    M = _randn((4 * bw, bw), torch.float64)
+    L11 = torch.linalg.cholesky(M.T @ M + 0.1 * torch.eye(bw, dtype=torch.float64))
+    L11 = L11.to(dtype).to(card).contiguous()
+    X1 = (0.5 * _randn((r, bw), dtype, seed=2)).to(card)
+    Lk, Tk = gram.panel_transform_cuda(L11, X1)
+    Lp, Tp = cholesky.panel_transform_ref(L11, X1)
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    assert _rel(Lk, Lp) <= tol and _rel(Tk, Tp) <= tol
+
+
+def test_wrappers_reject_bad_arguments(card):
+    A = torch.zeros(4, 3, device=card)
+    with pytest.raises(TypeError):
+        gram.gram_moment_cuda(A.int(), torch.zeros(4, device=card).int())
+    with pytest.raises(ValueError):
+        gram.gram_moment_cuda(A.T, torch.zeros(3, device=card))
+    with pytest.raises(ValueError):
+        gram.panel_transform_cuda(torch.eye(33, device=card), torch.zeros(2, 33, device=card))
+
+
+def test_engine_on_card_matches_cpu_path(card):
+    rng = np.random.default_rng(0)
+    data = [(rng.standard_normal((200, 48)).astype(np.float32),
+             rng.standard_normal(200).astype(np.float32)) for _ in range(3)]
+    rows = rng.standard_normal((20, 48)).astype(np.float32)
+    engines = {}
+    for dev in ("cpu", card):
+        stats = [core.compute_stats(torch.from_numpy(A).to(dev), torch.from_numpy(b).to(dev))
+                 for A, b in data]
+        eng = server.FusionEngine.from_clients(
+            stats, max_update_rank=64, coalesce=server.CoalescerPolicy(max_rank=16))
+        eng.solve(0.1)
+        for i in range(len(rows)):
+            r = torch.from_numpy(rows[i:i + 1]).to(dev)
+            eng.ingest_rows_async(r, r.sum(1), client_id=1)
+        eng.flush()
+        eng.drop(0)
+        engines[str(dev)] = eng
+    gpu, cpu = engines[str(card)], engines["cpu"]
+    assert gpu.incremental_updates == cpu.incremental_updates > 0
+    assert _rel(gpu.solve(0.1), cpu.solve(0.1)) <= 1e-4
+    assert gpu.inference(0.1) is not None
