@@ -7,12 +7,22 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
 sm_90a), holds each against its plain PyTorch version on the card, then
-drives the port's main path through its public entry points at d = 4096,
-K = 8 clients of 16384 rows each, float32, and checks the results against
-float64 references. It prints one JSON line per phase, then the kernel
-table, the card's name and power limit, and as the last line
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
-so does a machine without a CUDA card, and a directory without the port.
+drives two paths through the port's public entry points, each with the
+kernels' launch counts set to 0 just before it and read just after:
+
+- the dense main path at d = 4096, K = 8 clients of 16384 rows each,
+  float32 (one-shot, engine, streamed rows, drop/restore, inference);
+- the §IV-F feature tenants at full width: a Gaussian sketch of the same
+  data to m = 1024 and random Fourier features (D = 4096) of d = 128 data,
+  each through Phase 1 on kernels K3 / K4, the packed upload, the engine in
+  the m-dimensional solve space, streamed featurized rows and inference;
+  plus ``run_one_shot_projected``.
+
+Results are checked against float64 references. It prints one JSON line
+per phase, then the kernel table, the card's name and power limit, and as
+the last line ``{"ok": true, "device": {...}}``. Any failure raises and
+exits non-zero; so does a machine without a CUDA card, and a directory
+without the port.
 """
 from __future__ import annotations
 
@@ -35,6 +45,12 @@ SIGMAS = (0.01, 0.1, 1.0, 10.0)
 STREAM_ROWS, COALESCE_RANK = 256, 64
 PANEL = 32                          # DenseBackend.update_block_size
 REPS = 10
+# §IV-F feature tenants: a sketch of the dense data to m = 1024, and RFF on
+# d = 128 data at D = 4096 with the unit-variance lengthscale sqrt(d).
+SKETCH_M = 1024
+RFF_DIM, RFF_M = 128, 4096
+FEATURE_SEED = 11
+FEATURE_STREAM_ROWS = 64
 
 # Published peaks, NVIDIA data sheets: memory bytes/s and FP32 operations/s
 # outside the tensor cores (the kernels run float32 on the CUDA cores).
@@ -245,23 +261,133 @@ def kernel_phase(peaks) -> tuple[dict, dict]:
         max_abs_err=max(k3["up_max_abs_err"], k3["down_max_abs_err"]),
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
     detail["panel_transform"] = {**k3, "shape": [bw, r], "tolerance": "rel 1e-4 (f32), 1e-12 (f64)"}
+    del M, L11, X1
+
+    for kind in ("sketch", "rff"):
+        row, det = feature_kernel_row(kind, g, peaks)
+        rows[row["name"]] = row
+        detail[row["name"]] = det
     return ({"phase": "kernels", "detail": detail,
              "seconds": time.perf_counter() - t0}, rows)
 
 
+def fro_rel(x: torch.Tensor, ref: torch.Tensor) -> float:
+    """||x - ref||_F / ||ref||_F, in float64."""
+    x, ref = x.double(), ref.double()
+    return float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref).clamp_min(1e-300))
+
+
+def feature_close(G, h, Gr, hr) -> bool:
+    """tests/test_sketch_kernels.py's tolerance: |x - ref| <= 2e-3 |ref| +
+    2e-4 max|G_ref| (float32 sums in other orders)."""
+    scale = max(1.0, float(Gr.abs().max()))
+    return all(bool(((x.double() - r.double()).abs()
+                     <= 2e-3 * r.double().abs() + 2e-4 * scale).all())
+               for x, r in ((G, Gr), (h, hr)))
+
+
+def feature_kernel_row(kind: str, g, peaks) -> tuple[dict, dict]:
+    """K3 (sketch) or K4 (rff) at the feature tenant's Phase-1 shape, plus
+    ragged, bf16, row-mask and true-D cases, against the plain version and
+    float64."""
+    from repro_torch.kernels import gram as K
+    from repro_torch.kernels import ref
+
+    def inputs(n, d, m, dtype=torch.float32):
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device="cuda")
+
+        X, b = randn(n, d), randn(n)
+        if kind == "sketch":
+            M, c = randn(d, m) / m ** 0.5, None
+        else:
+            M = randn(d, m) / d ** 0.5
+            c = 2 * np.pi * torch.rand(m, generator=g, device="cuda")
+        return [t if t is None else t.to(dtype) for t in (X, b, M, c)]
+
+    def kernel(X, b, M, c):
+        return (K.sketch_gram_cuda(X, b, M) if c is None
+                else K.rff_gram_cuda(X, b, M, c))
+
+    def plain(X, b, M, c):
+        return (ref.sketch_gram_ref(X, b, M) if c is None
+                else ref.rff_gram_ref(X, b, M, c))
+
+    def f64(X, b, M, c):
+        return plain(*(t if t is None else t.double() for t in (X, b, M, c)))
+
+    name = "sketch_gram" if kind == "sketch" else "rff_gram"
+    # the plain and library yardsticks must run in full float32
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for matmuls")
+    n, d, m = (ROWS, DIM, SKETCH_M) if kind == "sketch" else (ROWS, RFF_DIM, RFF_M)
+    det = {"shape": [n, d, m],
+           "tolerance": "plain: 2e-3 rel + 2e-4 max|G|; float64: 1e-4 Frobenius"}
+    cases = {"full": (n, d, m, torch.float32),
+             "ragged": (1000, 100, 12, torch.float32),
+             "bf16": (n, d, m, torch.bfloat16),
+             "row_mask": (4095, d, m, torch.float32)}
+    full = None
+    for case, (cn, cd, cm, dtype) in cases.items():
+        args = inputs(cn, cd, cm, dtype)
+        G, h = kernel(*args)
+        Gp, hp = plain(*args)
+        G64, h64 = f64(*args)
+        torch.cuda.synchronize()
+        check(feature_close(G, h, Gp, hp), f"{name} {case}: kernel vs plain")
+        det[f"{case}_G_fro_f64"], det[f"{case}_h_fro_f64"] = fro_rel(G, G64), fro_rel(h, h64)
+        check(det[f"{case}_G_fro_f64"] <= 1e-4 and det[f"{case}_h_fro_f64"] <= 1e-4,
+              f"{name} {case}: {det}")
+        det[f"{case}_G_rel_plain"] = rel_err(G, Gp)
+        if case == "ragged" and kind == "rff":
+            # D = 12: a scale from any other D would move trace(G) by far more
+            det["true_D_trace_ratio"] = float(torch.trace(G) / torch.trace(G64))
+            check(abs(det["true_D_trace_ratio"] - 1) <= 1e-4, f"{name} scale: {det}")
+        if case == "full":
+            G2, h2 = kernel(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(G, G2) and torch.equal(h, h2),
+                  f"{name} is not bitwise deterministic across two runs")
+            check(torch.equal(G, G.T), f"{name} G is not exactly symmetric")
+            det["bitwise_repeat"] = True
+            det["max_abs_err"] = float(max((G - Gp).abs().max(), (h - hp).abs().max()))
+            full = args
+        del G, h, Gp, hp, G64, h64, args
+    X, b, M, c = full
+    scale = (2.0 / m) ** 0.5
+
+    def library():
+        T = X @ M if c is None else scale * torch.cos(X @ M + c)
+        return T.T @ T, T.T @ b
+
+    ms = cuda_ms(lambda: kernel(X, b, M, c))
+    plain_ms = cuda_ms(lambda: plain(X, b, M, c))
+    lib_ms = cuda_ms(library)
+    bms, by = bound(2 * n * d * m + n * m * (m + 1) + 2 * n * m,
+                    4 * (n * d + n + d * m + (0 if c is None else m) + m * m + m),
+                    peaks)
+    row = dict(name=name, route="cuda", source="src/repro_torch/csrc/feature_gram.cu",
+               replaces=("src/repro/kernels/gram.py:187" if kind == "sketch"
+                         else "src/repro/kernels/gram.py:225"),
+               max_abs_err=det["max_abs_err"], ms=ms, plain_ms=plain_ms,
+               bound_ms=bms, bound_by=by, library_ms=lib_ms)
+    return row, det
+
+
 # -- phase 3: the main path through the public entry points -------------------
 
-def main_path_phase() -> dict:
+def f64_solve(stats, sigma):
+    """Float64 solve of (G + sigma I) w = h from the same statistics."""
+    G = stats.gram.double()
+    eye = torch.eye(G.shape[0], dtype=torch.float64, device=G.device)
+    return torch.linalg.solve(G + sigma * eye, stats.moment.double())
+
+
+def main_path_phase() -> tuple:
     from repro_torch import data, fed
     from repro_torch.core import compute_stats, dropout_fusion
     from repro_torch.kernels import gram as K
     from repro_torch.server import (CoalescerPolicy, FusionEngine,
                                     reference_inference)
-
-    def f64_solve(stats, sigma):
-        G = stats.gram.double()
-        eye = torch.eye(G.shape[0], dtype=torch.float64, device=G.device)
-        return torch.linalg.solve(G + sigma * eye, stats.moment.double())
 
     def sync():
         torch.cuda.synchronize()
@@ -370,13 +496,177 @@ def main_path_phase() -> dict:
           "inference not finite")
 
     launches = K.launch_counts()
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
-    return {"phase": "main_path", "dim": DIM, "clients": CLIENTS,
+    for name in ("gram_moment", "gemm_nt", "panel_transform"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the main path")
+    return ds, res.weights, {"phase": "main_path", "dim": DIM, "clients": CLIENTS,
             "rows_per_client": ROWS, "dtype": "float32", "errors": errs,
             "steps_s": steps, "launches": launches,
             "upload_wire_bytes_per_client": upload,
             "engine": eng.summary(),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "seconds": time.perf_counter() - t_all}
+
+
+# -- phase 4: the §IV-F feature tenants through the same entry points ---------
+
+def feature_tenant(tag: str, fm, ds, steps: dict, errs: dict, report: dict):
+    """One feature tenant: K clients' Phase 1 (K3/K4) -> packed upload ->
+    engine in the m-dim solve space -> solve and lift -> inference off the
+    cached factor -> 4-sigma sweep and 64 predictions -> 64 streamed
+    featurized rows (one rank-64 flush through P and K2). Returns the engine
+    and the lifted weights at SIGMA."""
+    from repro_torch import fed
+    from repro_torch.server import (CoalescerPolicy, FusionEngine,
+                                    reference_inference)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    fm.materialize(ds.test_A.device)
+    sync()
+    steps[f"{tag}_materialize_map_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    uploads = [fed.PackedStats.pack(fm.stats(A, b)) for A, b in ds.clients]
+    sync()
+    steps[f"{tag}_client_stats_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = FusionEngine.from_clients([p.unpack() for p in uploads],
+                                    coalesce=CoalescerPolicy(max_rank=COALESCE_RANK))
+    v = eng.solve(SIGMA)
+    w = fm.lift(v)
+    sync()
+    steps[f"{tag}_engine_solve_s"] = time.perf_counter() - t0
+
+    # served inference off the cold factor at SIGMA == the cold reference
+    t0 = time.perf_counter()
+    q = fm(ds.test_A[:8])
+    rep = eng.inference(SIGMA, queries=q)
+    w_cold, rep_ref = reference_inference(eng.stats, SIGMA, queries=q)
+    sync()
+    steps[f"{tag}_inference_s"] = time.perf_counter() - t0
+    check(torch.equal(v, w_cold), f"{tag}: served w != cold reference")
+    for key in ("n", "dof", "rss", "sigma2"):
+        check(rep[key] == rep_ref[key], f"{tag}: inference {key} differs")
+    for key in ("stderr", "ci", "pi", "pi_mean"):
+        check(np.array_equal(rep[key], rep_ref[key]), f"{tag}: inference {key} differs")
+    check(all(np.isfinite(rep[k]).all() for k in ("stderr", "ci", "pi")),
+          f"{tag}: inference not finite")
+
+    t0 = time.perf_counter()
+    vs = eng.solve_batch(SIGMAS, method="chol")
+    preds = [fm.predict(ds.test_A[8 * i:8 * i + 8], fm.lift(vs[i % 4]))
+             for i in range(64)]
+    sync()
+    steps[f"{tag}_sweep_predict_s"] = time.perf_counter() - t0
+    check(eng.dim == fm.m and int(eng.stats.count) == CLIENTS * ROWS,
+          f"{tag}: engine dim {eng.dim}, count {int(eng.stats.count)}")
+    check(all(p.wire_floats == fm.upload_floats() for p in uploads),
+          f"{tag}: upload floats")
+    # Tolerance 1e-4 relative: float32 statistics and a float32 Cholesky.
+    errs[f"{tag}_vs_f64"] = rel_err(v, f64_solve(eng.stats, SIGMA))
+    for s, vv in zip(SIGMAS, vs):
+        errs[f"{tag}_sweep_{s}_vs_f64"] = rel_err(vv, f64_solve(eng.stats, s))
+    for key in [k for k in errs if k.startswith(tag)]:
+        check(errs[key] <= 1e-4, f"{tag} solve {key}: {errs[key]}")
+    arrays = [a.double() for a in fm.materialize(ds.test_A.device)]
+    X = ds.test_A[:512].double()
+    T = X @ arrays[0] if fm.kind == "sketch" else \
+        (2.0 / fm.m) ** 0.5 * torch.cos(X @ arrays[0] + arrays[1])
+    pred_ref = T @ vs.double().T
+    errs[f"{tag}_predict_rel"] = max(rel_err(p, pred_ref[8 * i:8 * i + 8, i % 4])
+                                     for i, p in enumerate(preds))
+    check(errs[f"{tag}_predict_rel"] <= 1e-4, f"{tag} predictions: {errs}")
+
+    # streamed featurized rows: one flush at rank 64, no refactorisation
+    cold0, inc0, fl0 = eng.cold_factorizations, eng.incremental_updates, eng.flushes
+    t0 = time.perf_counter()
+    T_rows = fm(ds.test_A[:FEATURE_STREAM_ROWS])
+    y_rows = ds.test_b[:FEATURE_STREAM_ROWS]
+    for i in range(FEATURE_STREAM_ROWS):
+        eng.ingest_rows_async(T_rows[i:i + 1], y_rows[i:i + 1], client_id="stream")
+    eng.flush()
+    sync()
+    steps[f"{tag}_stream_rows_s"] = time.perf_counter() - t0
+    check(eng.flushes - fl0 == 1, f"{tag}: {eng.flushes - fl0} flushes, want 1")
+    check(eng.incremental_updates > inc0, f"{tag}: no incremental factor update")
+    for s in SIGMAS:
+        errs[f"{tag}_stream_{s}_vs_f64"] = rel_err(eng.solve(s), f64_solve(eng.stats, s))
+        check(errs[f"{tag}_stream_{s}_vs_f64"] <= 1e-4, f"{tag} streamed: {errs}")
+    errs[f"{tag}_refactorisations"] = eng.cold_factorizations - cold0
+    check(errs[f"{tag}_refactorisations"] == 0, f"{tag}: streaming refactorized")
+
+    # conditioning of the float32 solves checked above: kappa(G + sigma I)
+    # of the fused statistic from float64 eigenvalues, and kappa * 2^-24
+    t0 = time.perf_counter()
+    lam = torch.linalg.eigvalsh(eng.stats.gram.double())
+    sync()
+    steps[f"{tag}_eigvalsh_f64_s"] = time.perf_counter() - t0
+    report[f"{tag}_eig_min_max"] = [float(lam[0]), float(lam[-1])]
+    for s in SIGMAS:
+        kappa = float((lam[-1] + s) / (lam[0] + s))
+        report[f"{tag}_kappa_{s}"] = kappa
+        report[f"{tag}_kappa_u_{s}"] = kappa * 2.0 ** -24
+
+    return eng, w
+
+
+def feature_phase(ds, w_dense) -> dict:
+    from repro_torch import core, data, fed
+    from repro_torch.core import threefry
+    from repro_torch.kernels import gram as K
+
+    def mse(pred, y):
+        return float(torch.mean((pred.double() - y.double()) ** 2))
+
+    steps, errs, report = {}, {}, {}
+    t_all = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+
+    # sketch tenant of the dense main path's data (d 4096 -> m 1024)
+    fm = core.FeatureMap("sketch", FEATURE_SEED, DIM, SKETCH_M)
+    eng, w_tilde = feature_tenant("sketch", fm, ds, steps, errs, report)
+    report["sketch_prop3_gap_vs_dense"] = float(
+        torch.linalg.norm(w_tilde - w_dense) / torch.linalg.norm(w_dense))
+    report["sketch_prop3_bound_c1"] = fm.error_bound(float(torch.linalg.norm(w_tilde)))
+    report["sketch_test_mse"] = mse(fm.predict(ds.test_A, w_tilde), ds.test_b)
+    report["dense_test_mse"] = mse(ds.test_A @ w_dense, ds.test_b)
+    del eng
+    t0 = time.perf_counter()
+    proj = fed.run_one_shot_projected(ds, SIGMA, SKETCH_M,
+                                      key=threefry.key(FEATURE_SEED))
+    torch.cuda.synchronize()
+    steps["run_one_shot_projected_s"] = time.perf_counter() - t0
+    errs["projected_vs_sketch_tenant"] = rel_err(proj.weights, w_tilde)
+    check(errs["projected_vs_sketch_tenant"] <= 1e-4,
+          f"run_one_shot_projected vs sketch tenant: {errs}")
+    report["projected_upload_wire_bytes_per_client"] = \
+        proj.comm.upload_wire_bytes_per_client
+    del proj
+
+    # RFF tenant on d = 128 data of the same distribution (D = 4096)
+    t0 = time.perf_counter()
+    ds_rff = data.synthetic.generate(1, num_clients=CLIENTS,
+                                     samples_per_client=ROWS, dim=RFF_DIM)
+    torch.cuda.synchronize()
+    steps["rff_generate_s"] = time.perf_counter() - t0
+    fm = core.FeatureMap("rff", FEATURE_SEED, RFF_DIM, RFF_M,
+                         lengthscale=RFF_DIM ** 0.5)
+    eng, w_rff = feature_tenant("rff", fm, ds_rff, steps, errs, report)
+    report["rff_test_mse"] = mse(fm.predict(ds_rff.test_A, w_rff), ds_rff.test_b)
+    lin = fed.run_one_shot(ds_rff, SIGMA)
+    report["rff_data_linear_ridge_test_mse"] = mse(ds_rff.test_A @ lin.weights,
+                                                   ds_rff.test_b)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched on the feature path")
+    return {"phase": "feature_tenants", "sketch": [DIM, SKETCH_M],
+            "rff": [RFF_DIM, RFF_M], "clients": CLIENTS, "rows_per_client": ROWS,
+            "errors": errs, "report": report, "steps_s": steps,
+            "launches": launches, "engine_rff": eng.summary(),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
             "seconds": time.perf_counter() - t_all}
 
@@ -395,10 +685,13 @@ def main() -> int:
     emit(device_phase())
     kernels_line, rows = kernel_phase(peaks)
     emit(kernels_line)
-    path = main_path_phase()
+    ds, w_dense, path = main_path_phase()
     emit(path)
+    features = feature_phase(ds, w_dense)
+    emit(features)
     for kname, row in rows.items():
-        row["launches"] = path["launches"][kname]
+        run = features if kname in ("sketch_gram", "rff_gram") else path
+        row["launches"] = run["launches"][kname]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in order} for row in rows.values()]})

@@ -1,4 +1,4 @@
-"""Carry statistics, datasets and engine ledgers across from numpy arrays.
+"""Carry statistics, datasets, engine ledgers and feature maps across from numpy arrays.
 
 Everything here goes through ``np.asarray``, so any object whose arrays
 convert to numpy (the reference package's arrays included) can be handed
@@ -12,6 +12,7 @@ from typing import Hashable, Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import features
 from repro_torch.core.sufficient_stats import SuffStats
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.server.engine import FusionEngine
@@ -84,3 +85,31 @@ def engine_from_ledger(clients: Mapping[Hashable, object],
         eng.ingest(s)
     eng.import_ledger(active, gone)
     return eng
+
+
+def key_from(jax_key) -> np.ndarray:
+    """A raw uint32 PRNG key pair (e.g. ``jax.random.PRNGKey(s)``) as numpy."""
+    arr = np.asarray(jax_key)
+    if arr.shape != (2,) or arr.dtype != np.uint32:
+        raise TypeError(f"need a raw uint32 key of shape (2,), got {arr.dtype} "
+                        f"{arr.shape}")
+    return arr.copy()
+
+
+_MAP_FIELDS = ("kind", "seed", "d_orig", "m", "lengthscale")
+
+
+def feature_map_from(fm, arrays=None, *, device="cuda") -> features.FeatureMap:
+    """The port's ``FeatureMap`` for a reference map (any object with its
+    fields ``kind, seed, d_orig, m, lengthscale`` as attributes).
+
+    With ``arrays`` (the reference's materialised (R,) or (W, c), as
+    numpy-convertible arrays) the port's map is pinned to exactly those
+    bytes, and they are placed on ``device`` at once; without, the port
+    draws its own (``core.threefry``).
+    """
+    port = features.FeatureMap(**{k: getattr(fm, k) for k in _MAP_FIELDS})
+    if arrays is not None:
+        features.seed_arrays(port, arrays)
+        port.materialize(device)
+    return port

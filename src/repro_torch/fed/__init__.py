@@ -14,11 +14,12 @@ from repro_torch.fed.protocol import (
     run_centralized,
     run_loco_cv,
     run_one_shot,
+    run_one_shot_projected,
 )
 
 __all__ = [
     "CommRecord", "ShardedCommRecord", "crossover_rounds", "fedavg_comm",
     "measured_one_shot", "one_shot_comm", "sharded_oneshot_record",
     "PackedStats", "RunResult", "client_phase", "run_centralized",
-    "run_loco_cv", "run_one_shot",
+    "run_loco_cv", "run_one_shot", "run_one_shot_projected",
 ]

@@ -11,9 +11,13 @@ What travels between the two sides is :class:`PackedStats`, the Theorem-4
 wire format: the d(d+1)/2 lower triangle of the client Gram
 (``kernels.ops.pack_lower``) plus the d-float moment.
 
+``run_one_shot_projected`` is the §IV-F variant: clients upload the m x m
+statistics of their rows under a shared Gaussian sketch, and the engine
+solves in the m-dimensional sketch space.
+
 This slice of the port runs the dense backend only. Differential privacy and
 PSD repair wait for ROADMAP queue 1 item 14, meshes and ``backend="auto"``
-for item 15, and the projected protocol for item 11.
+for item 15.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.core import projection
 from repro_torch.core.sufficient_stats import SuffStats, compute_stats
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.fed import comm
@@ -138,6 +143,32 @@ def run_one_shot(ds: FederatedDataset, sigma: float, *,
         weights=w, comm=record, wall_time_s=dt, rounds=1,
         extras={"engine": engine, "participating_clients": len(uploads),
                 "fused_stats": engine.stats})
+
+
+def run_one_shot_projected(ds: FederatedDataset, sigma: float, m: int, *,
+                           key) -> RunResult:
+    """§IV-F random-projection protocol; returns the lifted w~ = R v.
+
+    ``key`` is a uint32 pair (``core.threefry.key(seed)``, or a JAX PRNG key
+    passed through ``np.asarray``); R is drawn from it as the reference
+    draws it, on the clients' device.
+    """
+    t0 = time.perf_counter()
+    R = projection.make_projection(key, ds.dim, m, device=ds.test_A.device)
+    payloads = [PackedStats.pack(projection.projected_stats(A_k, b_k, R))
+                for A_k, b_k in ds.clients]    # m(m+1)/2 + m floats each
+    engine = FusionEngine.from_clients([p.unpack() for p in payloads])
+    w = projection.lift(engine.solve(sigma), R)
+    _sync(w)
+    return RunResult(
+        weights=w,
+        comm=comm.measured_one_shot(payloads, download_floats=m, frame="proj"),
+        wall_time_s=time.perf_counter() - t0,
+        rounds=1,
+        # The engine lives in projected space (dim m): solve() yields v, and
+        # callers must lift with extras["projection"] to get d-dim weights.
+        extras={"m": m, "engine": engine, "projection": R},
+    )
 
 
 def run_centralized(ds: FederatedDataset, sigma: float) -> RunResult:

@@ -10,12 +10,17 @@ by one where it launches its kernel and nowhere else.
   K1 ``gram_moment_cuda``     — (A^T A, A^T b); replaces ``gram_moment_pallas``
   K2 ``gemm_nt_cuda``         — C + alpha A B^T; replaces ``gemm_nt_pallas``
   P  ``panel_transform_cuda`` — one panel of the blocked Cholesky update
+  K3 ``sketch_gram_cuda``     — ((AR)^T AR, (AR)^T b); replaces ``sketch_gram_pallas``
+  K4 ``rff_gram_cuda``        — the same on sqrt(2/D) cos(XW + c); replaces
+                                ``rff_gram_pallas``
 
-The libraries are compiled on the first call (``kernels._build``).
+K3 and K4 share one source, ``csrc/feature_gram.cu``. The libraries are
+compiled on the first call (``kernels._build``).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -32,11 +37,23 @@ _SIGNATURES = {
     "gram_moment": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
     "gemm_nt": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _DBL, _INT, _VP],
     "panel_transform": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _DBL, _INT, _VP],
+    "sketch_gram": [_VP] * 6 + [_INT] * 6 + [_VP],
+    "rff_gram": [_VP] * 7 + [_INT] * 5 + [_DBL, _INT, _VP],
 }
+_SOURCE = {"sketch_gram": "feature_gram", "rff_gram": "feature_gram"}
+
+# (input dtype, map dtype) -> code of csrc/feature_gram.cu
+_FEATURE_DTYPES = {(torch.float32, torch.float32): 0,
+                   (torch.float64, torch.float64): 1,
+                   (torch.bfloat16, torch.bfloat16): 2,
+                   (torch.bfloat16, torch.float32): 3}
+_FEATURE_ROWS = 64        # rows of T per chunk (kRows in feature_gram.cu)
+_FEATURE_SMS = 132        # SMs of an H100 SXM; one K3/K4 CTA fits per SM
+_FEATURE_MAX_SPLITS = 16
 
 
 def _fn(name: str):
-    lib = _build.load(name)
+    lib = _build.load(_SOURCE.get(name, name))
     fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = _SIGNATURES[name]
@@ -151,12 +168,111 @@ def panel_transform_cuda(L11: torch.Tensor, X1: torch.Tensor, *,
     return L11o, T
 
 
+def feature_splits(n: int, m: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(splits, rows per split) of K3/K4's row split for n rows, m features.
+
+    A K3/K4 CTA fills an SM (``__launch_bounds__(256, 1)``), so the CTAs of
+    one launch run in waves of ``_FEATURE_SMS``. The split count minimises
+    waves times rows per split, the time of the slowest SM, and takes the
+    fewest splits on a tie; each split keeps at least 4 chunks of rows. It
+    depends only on the shapes and dtype, so the bits of G do not depend on
+    the card.
+    """
+    def cdiv(a: int, b: int) -> int:
+        return -(-a // b)
+
+    tiles = cdiv(m, 64 if dtype == torch.float64 else 128)
+    ctas = tiles * (tiles + 1) // 2
+    chunks = max(1, cdiv(n, _FEATURE_ROWS))
+    best = None
+    for want in range(1, min(_FEATURE_MAX_SPLITS, max(1, chunks // 4)) + 1):
+        rows = cdiv(chunks, want) * _FEATURE_ROWS
+        splits = max(1, cdiv(n, rows))
+        cost = cdiv(ctas * splits, _FEATURE_SMS) * rows
+        if best is None or cost < best[0]:
+            best = (cost, splits, rows)
+    return best[1], best[2]
+
+
+def _feature_gram(name: str, X: torch.Tensor, b: torch.Tensor,
+                  M: torch.Tensor, c: torch.Tensor | None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Checks, outputs and launch shared by K3 (c None) and K4."""
+    tensors = {"A" if c is None else "X": X, "b": b,
+               "R" if c is None else "W": M}
+    if c is not None:
+        tensors["c"] = c
+    device = _check(name, tensors, _GRAM_DTYPES)
+    if X.ndim != 2 or b.shape != (X.shape[0],) or M.ndim != 2 \
+            or M.shape[0] != X.shape[1] or X.shape[1] < 1 or M.shape[1] < 1 \
+            or (c is not None and c.shape != (M.shape[1],)):
+        raise ValueError(
+            f"{name}: need X (n, d >= 1), b (n,), map (d, m >= 1)"
+            f"{'' if c is None else ', c (m,)'}; got {tuple(X.shape)}, "
+            f"{tuple(b.shape)}, {tuple(M.shape)}"
+            f"{'' if c is None else ', ' + str(tuple(c.shape))}")
+    code = _FEATURE_DTYPES.get((X.dtype, M.dtype))
+    if code is None or b.dtype != X.dtype or (c is not None and c.dtype != M.dtype):
+        raise TypeError(
+            f"{name}: got input {X.dtype}, b {b.dtype}, map {M.dtype}"
+            f"{'' if c is None else f', c {c.dtype}'}; the kernel takes b in "
+            "the input's dtype, c in the map's, and (input, map) one of "
+            f"{[(str(a), str(r)) for a, r in _FEATURE_DTYPES]}")
+    n, d = X.shape
+    m = M.shape[1]
+    acc = torch.float64 if X.dtype == torch.float64 else torch.float32
+    G = torch.empty((m, m), dtype=acc, device=device)
+    h = torch.empty((m,), dtype=acc, device=device)
+    splits, rows = feature_splits(n, m, X.dtype)
+    work = (torch.empty(splits * (m * m + m), dtype=acc, device=device)
+            if splits > 1 else None)
+    wptr = None if work is None else work.data_ptr()
+    if c is None:
+        _launch(name, device, X.data_ptr(), b.data_ptr(), M.data_ptr(),
+                G.data_ptr(), h.data_ptr(), wptr, n, d, m, splits, rows, code)
+    else:
+        _launch(name, device, X.data_ptr(), b.data_ptr(), M.data_ptr(),
+                c.data_ptr(), G.data_ptr(), h.data_ptr(), wptr, n, d, m,
+                splits, rows, math.sqrt(2.0 / m), code)
+    return G, h
+
+
+def sketch_gram_cuda(A: torch.Tensor, b: torch.Tensor, R: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3: (G, h) = ((AR)^T AR, (AR)^T b), AR never in device memory.
+
+    A: (n, d), b: (n,) of one dtype, R: (d, m); float32 with a float32 R,
+    bfloat16 with a bfloat16 or float32 R, or float64 throughout. G (m, m)
+    and h (m,) are float64 for float64 input, float32 otherwise.
+    Bitwise deterministic.
+    """
+    G, h = _feature_gram("sketch_gram", A, b, R, None)
+    sketch_gram_cuda.launches += 1
+    return G, h
+
+
+def rff_gram_cuda(X: torch.Tensor, b: torch.Tensor, W: torch.Tensor,
+                  c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4: T = sqrt(2/D) cos(XW + c), (G, h) = (T^T T, T^T b), T never in
+    device memory.
+
+    X: (n, d), b: (n,), W: (d, D), c: (D,); dtypes as for K3, with c in W's
+    dtype. The scale uses D = W.shape[1].
+    """
+    G, h = _feature_gram("rff_gram", X, b, W, c)
+    rff_gram_cuda.launches += 1
+    return G, h
+
+
 gram_moment_cuda.launches = 0
 gemm_nt_cuda.launches = 0
 panel_transform_cuda.launches = 0
+sketch_gram_cuda.launches = 0
+rff_gram_cuda.launches = 0
 
 KERNELS = {"gram_moment": gram_moment_cuda, "gemm_nt": gemm_nt_cuda,
-           "panel_transform": panel_transform_cuda}
+           "panel_transform": panel_transform_cuda,
+           "sketch_gram": sketch_gram_cuda, "rff_gram": rff_gram_cuda}
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,7 +1,7 @@
 """Public kernel entry points: dispatch by device, plus the Theorem-4 codec.
 
-``gram_moment`` and ``gemm_nt`` run the hand-written CUDA kernel for CUDA
-tensors and the plain PyTorch version (``kernels.ref``) for CPU tensors; any
+``gram_moment``, ``gemm_nt``, ``sketch_gram`` and ``rff_gram`` run the
+hand-written CUDA kernel for CUDA tensors and the plain PyTorch version (``kernels.ref``) for CPU tensors; any
 other device raises. There is no switch between the two: the tensor's device
 decides, and a failing kernel raises rather than falling back.
 
@@ -45,6 +45,26 @@ def gram_moment(A: torch.Tensor, b: torch.Tensor
     if _on(A.device, "gram_moment"):
         return gram_kernel.gram_moment_cuda(A, b)
     return ref.gram_moment_ref(A, b)
+
+
+def sketch_gram(A: torch.Tensor, b: torch.Tensor, R: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused §IV-F sketch ingest ((AR)^T AR, (AR)^T b): K3 on CUDA, plain on CPU.
+
+    No padding: the kernel masks ragged n, d and m itself.
+    """
+    if _on(A.device, "sketch_gram"):
+        return gram_kernel.sketch_gram_cuda(A, b, R)
+    return ref.sketch_gram_ref(A, b, R)
+
+
+def rff_gram(X: torch.Tensor, b: torch.Tensor, W: torch.Tensor,
+             c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused RFF ingest, T = sqrt(2/D) cos(XW + c) and (T^T T, T^T b):
+    K4 on CUDA, plain on CPU. The scale uses D = W.shape[1]."""
+    if _on(X.device, "rff_gram"):
+        return gram_kernel.rff_gram_cuda(X, b, W, c)
+    return ref.rff_gram_ref(X, b, W, c)
 
 
 def gemm_nt(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *,

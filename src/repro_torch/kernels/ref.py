@@ -8,6 +8,8 @@ are held against and nothing on the CUDA main path calls them. The plain
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -22,6 +24,28 @@ def gram_moment_ref(A: torch.Tensor, b: torch.Tensor
     acc = accumulation_dtype(A.dtype)
     Aa = A.to(acc)
     return Aa.T @ Aa, Aa.T @ b.to(acc)
+
+
+def sketch_gram_ref(A: torch.Tensor, b: torch.Tensor, R: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Unfused §IV-F sketch: materialise T = A R, then (T^T T, T^T b).
+
+    T is computed in :func:`accumulation_dtype` of A from the (possibly
+    bf16-quantised) inputs; this is the device-memory round trip of T that
+    kernel K3 avoids.
+    """
+    acc = accumulation_dtype(A.dtype)
+    T = A.to(acc) @ R.to(acc)
+    return gram_moment_ref(T, b.to(acc))
+
+
+def rff_gram_ref(X: torch.Tensor, b: torch.Tensor, W: torch.Tensor,
+                 c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Unfused random Fourier features: T = sqrt(2/D) cos(X W + c), then Gram."""
+    acc = accumulation_dtype(X.dtype)
+    D = W.shape[1]
+    T = math.sqrt(2.0 / D) * torch.cos(X.to(acc) @ W.to(acc) + c.to(acc))
+    return gram_moment_ref(T, b.to(acc))
 
 
 def gemm_nt_ref(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *,

@@ -109,3 +109,87 @@ def test_engine_on_card_matches_cpu_path(card):
     assert gpu.incremental_updates == cpu.incremental_updates > 0
     assert _rel(gpu.solve(0.1), cpu.solve(0.1)) <= 1e-4
     assert gpu.inference(0.1) is not None
+
+
+def _feature_inputs(n, d, m, dtype, map_dtype, seed, rff):
+    X = _randn((n, d), dtype, seed).to("cuda")
+    b = _randn((n,), dtype, seed + 1).to("cuda")
+    M = (_randn((d, m), torch.float64, seed + 2) / (1.0 if rff else m ** 0.5)
+         ).to(map_dtype).to("cuda")
+    c = (torch.rand(m, generator=torch.Generator().manual_seed(seed + 3),
+                    dtype=torch.float64) * 2 * np.pi).to(map_dtype).to("cuda")
+    return X, b, M, c
+
+
+def _feature_close(G, h, Gr, hr):
+    """tests/test_sketch_kernels.py's tolerance (f32 reduction order)."""
+    scale = max(1.0, float(Gr.abs().max()))
+    torch.testing.assert_close(G, Gr, rtol=2e-3, atol=2e-4 * scale)
+    torch.testing.assert_close(h, hr, rtol=2e-3, atol=2e-4 * scale)
+
+
+@pytest.mark.parametrize("kind", ["sketch", "rff"])
+@pytest.mark.parametrize("n,d,m,dtype,map_dtype", [
+    (1000, 100, 12, torch.float32, torch.float32),     # ragged n, d, m; split rows
+    (31, 32, 32, torch.float32, torch.float32),        # one short of a chunk
+    (1, 7, 5, torch.float32, torch.float32),
+    (0, 7, 5, torch.float32, torch.float32),
+    (3000, 64, 300, torch.float32, torch.float32),     # several tiles and splits
+    (700, 48, 160, torch.bfloat16, torch.bfloat16),
+    (700, 48, 160, torch.bfloat16, torch.float32),
+    (513, 40, 70, torch.float64, torch.float64)])
+def test_feature_gram_matches_plain(card, kind, n, d, m, dtype, map_dtype):
+    X, b, M, c = _feature_inputs(n, d, m, dtype, map_dtype, n + d + m, kind == "rff")
+    if kind == "sketch":
+        run = lambda: gram.sketch_gram_cuda(X, b, M)                  # noqa: E731
+        Gr, hr = ref.sketch_gram_ref(X, b, M)
+        wrapper = gram.sketch_gram_cuda
+    else:
+        run = lambda: gram.rff_gram_cuda(X, b, M, c)                  # noqa: E731
+        Gr, hr = ref.rff_gram_ref(X, b, M, c)
+        wrapper = gram.rff_gram_cuda
+    before = wrapper.launches
+    G, h = run()
+    G2, h2 = run()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert G.dtype == h.dtype == ref.accumulation_dtype(dtype)
+    assert torch.equal(G, G2) and torch.equal(h, h2) and torch.equal(G, G.T)
+    if dtype == torch.float64:
+        torch.testing.assert_close(G, Gr, rtol=1e-11, atol=1e-11)
+        torch.testing.assert_close(h, hr, rtol=1e-11, atol=1e-11)
+    else:
+        _feature_close(G, h, Gr, hr)
+
+
+def test_feature_gram_rejects_bad_arguments(card):
+    X, b, M, c = _feature_inputs(8, 4, 3, torch.float32, torch.float32, 0, True)
+    with pytest.raises(TypeError):
+        gram.sketch_gram_cuda(X, b, M.double())
+    with pytest.raises(TypeError):
+        gram.rff_gram_cuda(X.half(), b.half(), M.half(), c.half())
+    with pytest.raises(ValueError):
+        gram.sketch_gram_cuda(X, b, M[:3])
+    with pytest.raises(ValueError):
+        gram.rff_gram_cuda(X, b, M, c[:2])
+    with pytest.raises(ValueError):
+        gram.sketch_gram_cuda(X.T, b[:4], M)
+
+
+@pytest.mark.parametrize("kind,m", [("sketch", 16), ("rff", 96)])
+def test_feature_tenant_on_card_matches_cpu_path(card, kind, m):
+    fm = core.FeatureMap(kind, 4, 40, m, 6.0)
+    rng = np.random.default_rng(1)
+    data = [(rng.standard_normal((300, 40)).astype(np.float32),
+             rng.standard_normal(300).astype(np.float32)) for _ in range(3)]
+    w = {}
+    for dev in ("cpu", card):
+        before = gram.launch_counts()
+        stats = [fm.stats(torch.from_numpy(A).to(dev), torch.from_numpy(b).to(dev))
+                 for A, b in data]
+        after = gram.launch_counts()
+        name = "sketch_gram" if kind == "sketch" else "rff_gram"
+        assert after[name] - before[name] == (3 if dev == card else 0)
+        eng = server.FusionEngine.from_clients(stats)
+        w[str(dev)] = fm.lift(eng.solve(0.1))
+    assert _rel(w[str(card)], w["cpu"]) <= 1e-4

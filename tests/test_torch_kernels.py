@@ -1,5 +1,7 @@
 """Port parity for the kernel layer: helpers, Thm-4 codec, K1, K2, P.
 
+(K3 and K4, the feature kernels, are held in tests/test_torch_features.py.)
+
 The same numpy inputs go through the JAX reference (its Pallas kernels in
 interpret mode, as tests/test_kernels.py runs them) and through the port's
 CPU path (the kernels' plain versions). The CUDA kernels themselves run only
@@ -203,8 +205,13 @@ class TestCudaEntryPoints:
             gram.gemm_nt_cuda(torch.zeros(4, 4), A, torch.zeros(4, 3))
         with pytest.raises(ValueError, match="CUDA"):
             gram.panel_transform_cuda(torch.eye(3), A)
+        with pytest.raises(ValueError, match="CUDA"):
+            gram.sketch_gram_cuda(A, torch.zeros(4), torch.zeros(3, 2))
+        with pytest.raises(ValueError, match="CUDA"):
+            gram.rff_gram_cuda(A, torch.zeros(4), torch.zeros(3, 2), torch.zeros(2))
         assert gram.launch_counts() == {"gram_moment": 0, "gemm_nt": 0,
-                                        "panel_transform": 0}
+                                        "panel_transform": 0, "sketch_gram": 0,
+                                        "rff_gram": 0}
 
     def test_unknown_device_raises(self):
         A = torch.zeros(4, 3, device="meta")
@@ -217,6 +224,9 @@ class TestCudaEntryPoints:
         assert _build.BUILD_ROOT.parent == ROOT / "build"
         assert "build/" in (ROOT / ".gitignore").read_text().split()
         assert {p.stem for p in (PORT / "csrc").glob("*.cu")} == set(_build.SOURCES)
+        # every wrapped kernel names a built source
+        assert {gram._SOURCE.get(k, k) for k in gram._SIGNATURES} == set(_build.SOURCES)
+        assert set(gram._SIGNATURES) == set(gram.KERNELS)
 
 
 _IMPORT_RE = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:\.|\s|$)", re.M)
@@ -232,7 +242,9 @@ class TestIsolation:
     def test_import_loads_no_jax_or_repro(self):
         code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops, "
                 "repro_torch.kernels.gram, repro_torch.server, repro_torch.fed, "
-                "repro_torch.data, repro_torch.convert; "
+                "repro_torch.data, repro_torch.convert, repro_torch.core.features, "
+                "repro_torch.core.threefry, repro_torch.core.projection, "
+                "repro_torch.core.rff; "
                 "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
                 "print(bad); sys.exit(1 if bad else 0)")
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
