@@ -16,9 +16,15 @@ kernels' launch counts set to 0 just before it and read just after:
   data to m = 1024 and random Fourier features (D = 4096) of d = 128 data,
   each through Phase 1 on kernels K3 / K4, the packed upload, the engine in
   the m-dimensional solve space, streamed featurized rows and inference;
-  plus ``run_one_shot_projected``.
+  plus ``run_one_shot_projected``;
+- gemma3-27b serving at full width (d_model 5376, 32 heads over 16 KV heads,
+  d_ff 21504, vocab 262144, bf16), depth cut to 2 stages + the 2-layer SWA
+  tail (14 layers: 12 sliding-window, 2 full), random weights from a seed:
+  a batch of 4 prompts of 4096 tokens prefilled (every attention layer on
+  kernel K5), then 32 greedy tokens decoded.
 
-Results are checked against float64 references. It prints one JSON line
+Results are checked against float64 references, and the model against the
+plain attention inside it (decode) and K5's plain version. It prints one JSON line
 per phase, then the kernel table, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; so does a machine without a CUDA card, and a directory
@@ -26,6 +32,7 @@ without the port.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -52,12 +59,20 @@ RFF_DIM, RFF_M = 128, 4096
 FEATURE_SEED = 11
 FEATURE_STREAM_ROWS = 64
 
-# Published peaks, NVIDIA data sheets: memory bytes/s and FP32 operations/s
-# outside the tensor cores (the kernels run float32 on the CUDA cores).
+# gemma3-27b serving: the registry's config with 2 stages instead of 10
+# (14 layers instead of 62; 17.2 GB of bf16 weights), batch 4 x 4096-token
+# prompts (4x the 1024-token window), 32 greedy tokens.
+MODEL_ARCH, MODEL_STAGES = "gemma3-27b", 2
+MODEL_BATCH, MODEL_PROMPT, MODEL_GEN = 4, 4096, 32
+MODEL_SEED = 0
+
+# Published peaks, NVIDIA data sheets: memory bytes/s, FP32 operations/s
+# outside the tensor cores (K1-K4 and P run float32 on the CUDA cores), and
+# dense bf16 tensor-core operations/s (the bound of K5's bf16 attention).
 CARD_PEAKS = {
-    "H100 PCIe": (2.0e12, 51e12),
-    "H100 NVL": (3.9e12, 60e12),
-    "H100": (3.35e12, 67e12),     # SXM5 (HBM3)
+    "H100 PCIe": (2.0e12, 51e12, 756e12),
+    "H100 NVL": (3.9e12, 60e12, 835e12),
+    "H100": (3.35e12, 67e12, 989e12),     # SXM5 (HBM3)
 }
 
 
@@ -99,10 +114,23 @@ def rel_err(x: torch.Tensor, ref: torch.Tensor) -> float:
     return float((x - ref).abs().max() / ref.abs().max().clamp_min(1e-300))
 
 
-def bound(ops: float, nbytes: float, peaks):
-    """Least time (ms) for the work, and whether operations or bytes set it."""
-    bw, fp32 = peaks
-    t_ops = ops / fp32
+def bf16_ulps(o: torch.Tensor, p: torch.Tensor, floor: float = 1e-4) -> float:
+    """Worst |o - p| / (2^-7 |p| + floor), element by element.
+
+    K5 and its plain version both sum in float32 and round once to bf16, so
+    an element may differ by one bf16 ulp of the plain value (at most
+    2^-7 |p|) and by float32 noise (the floor). A value <= 1 passes; a mask
+    off by one key moves some element of a 67M-element output by far more.
+    """
+    o, p = o.float(), p.float()
+    return float(((o - p).abs() / (p.abs() * 2.0 ** -7 + floor)).max())
+
+
+def bound(ops: float, nbytes: float, peaks, rate: str = "fp32"):
+    """Least time (ms) for the work at the FP32 or bf16 operation peak, and
+    whether operations or bytes set it."""
+    bw, fp32, bf16 = peaks
+    t_ops = ops / (fp32 if rate == "fp32" else bf16)
     t_bytes = nbytes / bw
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -267,6 +295,9 @@ def kernel_phase(peaks) -> tuple[dict, dict]:
         row, det = feature_kernel_row(kind, g, peaks)
         rows[row["name"]] = row
         detail[row["name"]] = det
+    row, det = swa_kernel_row(g, peaks)
+    rows[row["name"]] = row
+    detail[row["name"]] = det
     return ({"phase": "kernels", "detail": detail,
              "seconds": time.perf_counter() - t0}, rows)
 
@@ -370,6 +401,98 @@ def feature_kernel_row(kind: str, g, peaks) -> tuple[dict, dict]:
                          else "src/repro/kernels/gram.py:225"),
                max_abs_err=det["max_abs_err"], ms=ms, plain_ms=plain_ms,
                bound_ms=bms, bound_by=by, library_ms=lib_ms)
+    return row, det
+
+
+def swa_pairs(S: int, window, causal: bool) -> int:
+    """Kept (q, k) pairs of one (batch, head): what K5's mask keeps."""
+    q = np.arange(S, dtype=np.int64)
+    hi = q if causal else np.full(S, S - 1)
+    lo = np.zeros(S, np.int64) if window is None else np.maximum(0, q - window + 1)
+    return int((hi - lo + 1).sum())
+
+
+def swa_kernel_row(g, peaks) -> tuple[dict, dict]:
+    """K5 at the model path's shape (B 4, S 4096, H 32 over 16 KV heads,
+    hd 128, bf16), with the SWA layers' window 1024 and the full layers'
+    none, plus ragged float32 cases, against the plain version."""
+    from repro_torch import configs
+    from repro_torch.kernels import gram as K
+    from repro_torch.kernels import ref
+
+    cfg = configs.get(MODEL_ARCH)
+    B, S, H, Hkv, hd = (MODEL_BATCH, MODEL_PROMPT, cfg.num_heads,
+                        cfg.num_kv_heads, cfg.head_dim)
+
+    def inputs(b, s, dtype):
+        return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+                for shape in ((b, s, H, hd), (b, s, Hkv, hd), (b, s, Hkv, hd))]
+
+    # bf16 output of float32 sums in two orders: within one bf16 ulp of the
+    # plain value, element by element (bf16_ulps <= 1); float32 at 3e-5.
+    det = {"shape": [B, S, H, Hkv, hd], "dtype": "bfloat16",
+           "tolerance": "|o - p| <= 2^-7 |p| + 1e-4 (bf16), atol 3e-5 (f32)"}
+    q, k, v = inputs(B, S, torch.bfloat16)
+    kg, vg = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2) for t in (k, v))
+    qt = q.transpose(1, 2)
+    row = None
+    for tag, window in (("swa", cfg.window), ("full", None)):
+        o = K.swa_flash_cuda(q, k, v, window=window, causal=True)
+        o2 = K.swa_flash_cuda(q, k, v, window=window, causal=True)
+        p = ref.swa_attention_ref(q, k, v, window=window, causal=True)
+        torch.cuda.synchronize()
+        err = float((o.float() - p.float()).abs().max())
+        ulps = bf16_ulps(o, p)
+        check(torch.equal(o, o2), f"K5 {tag} is not bitwise deterministic")
+        check(ulps <= 1, f"K5 {tag}: |kernel - plain| is {ulps} x (2^-7 |plain| + 1e-4)"
+              f" (max abs {err})")
+        if window is None:
+            mask = None
+        else:
+            rel = torch.arange(S, device="cuda")[:, None] - torch.arange(S, device="cuda")[None, :]
+            mask = (rel >= 0) & (rel < window)
+
+        def library():
+            if mask is None:
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kg, vg, is_causal=True)
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kg, vg, attn_mask=mask)
+
+        lib_err = float((library().transpose(1, 2).float() - p.float()).abs().max())
+        ms = cuda_ms(lambda: K.swa_flash_cuda(q, k, v, window=window, causal=True))
+        plain_ms = cuda_ms(lambda: ref.swa_attention_ref(q, k, v, window=window, causal=True))
+        lib_ms = cuda_ms(library)
+        pairs = swa_pairs(S, window, True)
+        bms, by = bound(4 * hd * pairs * B * H,
+                        2 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd), peaks, rate="bf16")
+        det[tag] = {"window": window, "max_abs_err": err, "worst_bf16_ulps": ulps,
+                    "bitwise_repeat": True,
+                    "kept_pairs_per_head": pairs, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "library_max_abs_err": lib_err,
+                    "bound_ms": bms, "bound_by": by}
+        if row is None:     # the row reports the SWA layers' case, 12 of 14 launches
+            row = dict(name="swa_flash", route="cuda", source="src/repro_torch/csrc/swa_flash.cu",
+                       replaces="src/repro/kernels/swa_flash.py:87", max_abs_err=err,
+                       ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                       library_ms=lib_ms)
+        del o, o2, p
+    # the same shape in float32, against plain at 3e-5
+    for tag, window in (("swa", cfg.window), ("full", None)):
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        err = float((K.swa_flash_cuda(qf, kf, vf, window=window, causal=True)
+                     - ref.swa_attention_ref(qf, kf, vf, window=window, causal=True)).abs().max())
+        det[f"{tag}_f32_max_abs_err"] = err
+        check(err <= 3e-5, f"K5 {tag} float32 at the path's shape: {err} > 3e-5")
+        del qf, kf, vf
+    del q, k, v, kg, vg, qt
+    # the ragged edge: S 1000 (not a multiple of 64), non-causal, float32
+    q, k, v = inputs(1, 1000, torch.float32)
+    for window in (None, 48):
+        err = float((K.swa_flash_cuda(q, k, v, window=window, causal=False)
+                     - ref.swa_attention_ref(q, k, v, window=window, causal=False)).abs().max())
+        det[f"ragged_f32_noncausal_w{window}_max_abs_err"] = err
+        check(err <= 3e-5, f"K5 ragged non-causal window {window}: {err} > 3e-5")
     return row, det
 
 
@@ -661,14 +784,173 @@ def feature_phase(ds, w_dense) -> dict:
                                                    ds_rff.test_b)
     torch.cuda.synchronize()
     launches = K.launch_counts()
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the feature path")
+    for name in ("gram_moment", "gemm_nt", "panel_transform", "sketch_gram", "rff_gram"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the feature path")
     return {"phase": "feature_tenants", "sketch": [DIM, SKETCH_M],
             "rff": [RFF_DIM, RFF_M], "clients": CLIENTS, "rows_per_client": ROWS,
             "errors": errs, "report": report, "steps_s": steps,
             "launches": launches, "engine_rff": eng.summary(),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
             "seconds": time.perf_counter() - t_all}
+
+
+def profile_top(fn, top: int = 8) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: host wall ms (ending in a
+    synchronise), summed device-kernel ms, the device idle share of the wall
+    time (profiler overhead included), the kernel launches and the ``top``
+    kernels by device time. Only the device's own kernel events count (the
+    host ops that launch them carry the same time again)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(ms for _, ms, _ in rows)
+    rows.sort(key=lambda r: -r[1])
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_idle_share": 1 - device_ms / wall_ms,
+            "launches": sum(n for _, _, n in rows),
+            "top": [[name[:80], ms, n] for name, ms, n in rows[:top]]}
+
+
+# -- phase 5: gemma3-27b serving at full width through the model entry points --
+
+def model_serving_phase() -> dict:
+    from repro_torch import configs
+    from repro_torch.kernels import gram as K
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import attention, blocks
+    from repro_torch.models import model as M
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def k5() -> int:
+        return K.launch_counts()["swa_flash"]
+
+    cfg = dataclasses.replace(configs.get(MODEL_ARCH), num_stages=MODEL_STAGES)
+    n_layers = cfg.num_layers
+    specs = [s.attn for s in cfg.stage_pattern * cfg.num_stages + cfg.tail_pattern]
+    steps, errs = {}, {}
+    t_all = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(MODEL_SEED),
+                       device="cuda")
+    sync()
+    steps["init_params_s"] = time.perf_counter() - t0
+    weight_gb = sum(p.numel() * p.element_size() for p in lm.parameters()) / 1e9
+    check(sum(p.numel() for p in lm.parameters()) == cfg.param_count(),
+          "parameter count differs from the config's")
+    rng = np.random.default_rng(MODEL_SEED)          # the reference's prompts
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MODEL_BATCH, MODEL_PROMPT)).astype(np.int32)).cuda()
+
+    # the main path: prefill 4 x 4096, then 31 decode steps (32 tokens)
+    K.reset_launch_counts()
+    tokens, times = generate(lm, prompts, MODEL_GEN)
+    launches = K.launch_counts()
+    check(launches["swa_flash"] == n_layers,
+          f"K5 launched {launches['swa_flash']} times in one prefill + "
+          f"{MODEL_GEN - 1} decode steps, want {n_layers} (one per layer, none in decode)")
+    steps["prefill_s"], steps["decode_s"] = times["prefill_s"], times["decode_s"]
+    steps["decode_tok_per_s"] = MODEL_BATCH * (MODEL_GEN - 1) / times["decode_s"]
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    # a second run: the same tokens, steady-state times
+    before = k5()
+    tokens2, times2 = generate(lm, prompts, MODEL_GEN)
+    check(k5() - before == n_layers, "K5 launches of the second run")
+    check(torch.equal(tokens, tokens2), "two runs generated different tokens")
+    steps["prefill_2_s"], steps["decode_2_s"] = times2["prefill_s"], times2["decode_s"]
+    steps["decode_2_tok_per_s"] = MODEL_BATCH * (MODEL_GEN - 1) / times2["decode_s"]
+    check(tokens.shape == (MODEL_BATCH, MODEL_GEN) and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.vocab_size, "generated tokens out of range")
+
+    # decode consistency (tests/test_models.py's check): prefill of 4095
+    # tokens + one decode step against the 4096-token prefill's last logits.
+    # Decode attention is plain torch and prefill is K5, so this holds K5
+    # against plain math inside the model; 3e-2 x max(scale, 1) is the
+    # reference's tolerance.
+    before = k5()
+    t0 = time.perf_counter()
+    _, cache = M.prefill_step(lm, {"tokens": prompts[:, :-1]}, max_len=MODEL_PROMPT)
+    check(k5() - before == n_layers, "K5 launches of the 4095-token prefill")
+    lg, _ = M.decode_step(lm, cache, {"tokens": prompts[:, -1:]})
+    check(k5() - before == n_layers, "K5 launched in a decode step")
+    full, _ = M.prefill_step(lm, {"tokens": prompts})
+    sync()
+    steps["consistency_s"] = time.perf_counter() - t0
+    check(k5() - before == 2 * n_layers, "K5 launches of the 4096-token prefill")
+    del cache
+    lg, full = lg[:, 0].float(), full[:, -1].float()
+    check(bool(torch.isfinite(lg).all() and torch.isfinite(full).all()), "logits not finite")
+    scale = float(full.abs().max())
+    errs["decode_vs_prefill_max_abs"] = float((lg - full).abs().max())
+    errs["decode_vs_prefill_tol"] = 3e-2 * max(scale, 1.0)
+    errs["logit_scale"] = scale
+    check(errs["decode_vs_prefill_max_abs"] <= errs["decode_vs_prefill_tol"],
+          f"decode consistency: {errs}")
+
+    # where the time goes: one prefill, then 4 decode steps, each profiled
+    profiles = {}
+    cache = {}
+
+    def prefill():
+        cache["c"] = M.prefill_step(lm, {"tokens": prompts}, max_len=MODEL_PROMPT + 4)[1]
+
+    def decode():
+        tok = prompts[:, -1:]
+        for _ in range(4):
+            M.decode_step(lm, cache["c"], {"tokens": tok})
+
+    profiles["prefill"] = profile_top(prefill)
+    profiles["decode_4_steps"] = profile_top(decode)
+    del cache
+
+    # K5 against its plain version on the real q, k, v of the first SWA layer
+    # and the first full layer (these launches are not the path's)
+    t0 = time.perf_counter()
+    x = lm.embed(prompts)
+    positions = torch.arange(MODEL_PROMPT, device="cuda").expand(MODEL_BATCH, -1)
+    seen = set()
+    for layer in lm.all_layers():
+        kind = layer.spec.attn
+        if kind not in seen:
+            seen.add(kind)
+            q, k, v = attention.project_qkv(layer.attn, layer.norm1(x), cfg, positions)
+            window = cfg.window if kind == "swa" else None
+            o = K.swa_flash_cuda(q, k, v, window=window)
+            p = ref.swa_attention_ref(q, k, v, window=window)
+            errs[f"k5_{kind}_layer_max_abs_err"] = float((o.float() - p.float()).abs().max())
+            errs[f"k5_{kind}_layer_worst_bf16_ulps"] = bf16_ulps(o, p)
+            check(errs[f"k5_{kind}_layer_worst_bf16_ulps"] <= 1,
+                  f"K5 on the first {kind} layer's inputs: {errs}")
+            del q, k, v, o, p
+        if seen == {"swa", "full"}:
+            break
+        x = blocks.apply_layer(layer, x, cfg)
+    sync()
+    steps["layer_checks_s"] = time.perf_counter() - t0
+    del x, lm
+    torch.cuda.empty_cache()
+    return {"phase": "model_serving", "arch": cfg.name,
+            "reduced": f"depth: num_stages {MODEL_STAGES} of 10 ({n_layers} of 62 layers)",
+            "layers": {kind: specs.count(kind) for kind in ("swa", "full")},
+            "params": cfg.param_count(), "weight_gb": weight_gb,
+            "batch": MODEL_BATCH, "prompt_len": MODEL_PROMPT, "gen_tokens": MODEL_GEN,
+            "dtype": cfg.dtype, "steps_s": steps, "errors": errs, "launches": launches,
+            "profiles": profiles,
+            "sample_tokens": tokens[0, :8].tolist(),
+            "peak_mem_gb": peak_gb, "seconds": time.perf_counter() - t_all}
 
 
 def main() -> int:
@@ -689,8 +971,12 @@ def main() -> int:
     emit(path)
     features = feature_phase(ds, w_dense)
     emit(features)
+    del ds, w_dense
+    serving = model_serving_phase()
+    emit(serving)
     for kname, row in rows.items():
-        run = features if kname in ("sketch_gram", "rff_gram") else path
+        run = (features if kname in ("sketch_gram", "rff_gram")
+               else serving if kname == "swa_flash" else path)
         row["launches"] = run["launches"][kname]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

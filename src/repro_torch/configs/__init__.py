@@ -1,0 +1,38 @@
+"""Architecture registry: ``--arch <id>`` resolution for the port's launchers.
+
+The port knows the reference's ten architecture ids, and builds those whose
+layers it has ported (``PORTED``). The others raise ``NotImplementedError``
+naming ROADMAP item 16, which holds the rest of the model zoo.
+"""
+from repro_torch.configs import gemma3_27b
+from repro_torch.models.config import ArchConfig
+
+ARCH_IDS = ("gemma3-27b", "qwen2-72b", "yi-9b", "phi3.5-moe-42b-a6.6b",
+            "jamba-1.5-large-398b", "mixtral-8x22b", "hubert-xlarge",
+            "rwkv6-1.6b", "minitron-8b", "pixtral-12b")
+_MODULES = {"gemma3-27b": gemma3_27b}
+PORTED = tuple(_MODULES)
+
+
+def _module(arch_id: str):
+    if arch_id not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCH_IDS)}")
+    if arch_id not in _MODULES:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet (ROADMAP item 16); "
+            f"ported: {list(PORTED)}")
+    return _MODULES[arch_id]
+
+
+def get(arch_id: str) -> ArchConfig:
+    """Full-size config for ``--arch <id>``."""
+    cfg = _module(arch_id).CONFIG
+    cfg.validate()
+    return cfg
+
+
+def get_reduced(arch_id: str) -> ArchConfig:
+    """Reduced same-family variant for CPU smoke tests."""
+    cfg = _module(arch_id).REDUCED
+    cfg.validate()
+    return cfg

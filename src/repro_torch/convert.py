@@ -1,4 +1,5 @@
-"""Carry statistics, datasets, engine ledgers and feature maps across from numpy arrays.
+"""Carry statistics, datasets, engine ledgers, feature maps and model
+parameters across from numpy arrays.
 
 Everything here goes through ``np.asarray``, so any object whose arrays
 convert to numpy (the reference package's arrays included) can be handed
@@ -15,6 +16,8 @@ import torch
 from repro_torch.core import features
 from repro_torch.core.sufficient_stats import SuffStats
 from repro_torch.data.synthetic import FederatedDataset
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.model import BackboneLM
 from repro_torch.server.engine import FusionEngine
 
 
@@ -113,3 +116,37 @@ def feature_map_from(fm, arrays=None, *, device="cuda") -> features.FeatureMap:
         features.seed_arrays(port, arrays)
         port.materialize(device)
     return port
+
+
+def model_params_from(params, cfg: ArchConfig, *, device="cuda") -> BackboneLM:
+    """The port's model for a reference parameter tree (``init_params``'s
+    nested dicts, as numpy-convertible arrays), computing the same function.
+
+    ``params["stages"][i]`` holds pattern position i of every stage along a
+    leading ``num_stages`` axis; stage s's layer takes index s of it. Tail,
+    embedding, head and final norm are copied as they are. Weights keep the
+    (in, out) orientation, so nothing is transposed; shapes and dtypes must
+    match the config's exactly.
+    """
+    model = BackboneLM(cfg, device=device)
+
+    def fill(module, tree, index=None) -> None:
+        for name, p in module.named_parameters():
+            arr = tree
+            for key in name.split("."):
+                arr = arr[key]
+            arr = np.asarray(arr) if index is None else np.asarray(arr)[index]
+            if arr.shape != tuple(p.shape) or arr.dtype.name != cfg.dtype:
+                raise ValueError(f"{name}: reference array {arr.dtype} {arr.shape}, "
+                                 f"model wants {cfg.dtype} {tuple(p.shape)}")
+            with torch.no_grad():
+                p.copy_(tensor_from_numpy(arr, device=device))
+
+    for s, stage in enumerate(model.stages):
+        for i, layer in enumerate(stage):
+            fill(layer, params["stages"][i], s)
+    for i, layer in enumerate(model.tail):
+        fill(layer, params["tail"][i])
+    for name in ("embed", "head", "final_norm"):
+        fill(getattr(model, name), params[name])
+    return model

@@ -82,11 +82,6 @@ class RunResult:
     extras: dict = dataclasses.field(default_factory=dict)
 
 
-def _sync(t: torch.Tensor) -> None:
-    if t.device.type == "cuda":
-        torch.cuda.synchronize(t.device)
-
-
 def client_phase(ds: FederatedDataset, *,
                  participating: Sequence[bool] | None = None,
                  dp=None, dp_clip=None, dp_key=None,
@@ -135,7 +130,7 @@ def run_one_shot(ds: FederatedDataset, sigma: float, *,
     engine = FusionEngine.from_clients(
         {k: p.unpack() for k, p in uploads.items()}, backend=backend)
     w = engine.solve(sigma)
-    _sync(w)
+    kernel_ops.synchronize(w)
     dt = time.perf_counter() - t0
     record = comm.measured_one_shot(list(uploads.values()),
                                     download_floats=ds.dim)
@@ -159,7 +154,7 @@ def run_one_shot_projected(ds: FederatedDataset, sigma: float, m: int, *,
                 for A_k, b_k in ds.clients]    # m(m+1)/2 + m floats each
     engine = FusionEngine.from_clients([p.unpack() for p in payloads])
     w = projection.lift(engine.solve(sigma), R)
-    _sync(w)
+    kernel_ops.synchronize(w)
     return RunResult(
         weights=w,
         comm=comm.measured_one_shot(payloads, download_floats=m, frame="proj"),
@@ -177,7 +172,7 @@ def run_centralized(ds: FederatedDataset, sigma: float) -> RunResult:
     A, b = ds.stacked()
     engine = FusionEngine.from_stats(compute_stats(A, b))
     w = engine.solve(sigma)
-    _sync(w)
+    kernel_ops.synchronize(w)
     return RunResult(
         weights=w,
         comm=comm.CommRecord(0, 0, ds.num_clients, 0),

@@ -13,6 +13,8 @@ by one where it launches its kernel and nowhere else.
   K3 ``sketch_gram_cuda``     — ((AR)^T AR, (AR)^T b); replaces ``sketch_gram_pallas``
   K4 ``rff_gram_cuda``        — the same on sqrt(2/D) cos(XW + c); replaces
                                 ``rff_gram_pallas``
+  K5 ``swa_flash_cuda``       — sliding-window flash attention (prefill);
+                                replaces ``swa_flash_pallas``
 
 K3 and K4 share one source, ``csrc/feature_gram.cu``. The libraries are
 compiled on the first call (``kernels._build``).
@@ -26,7 +28,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-_VP, _INT, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_VP, _INT, _DBL, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_float
 _INT32_MAX = 2**31 - 1
 
 _GRAM_DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2,
@@ -39,6 +41,7 @@ _SIGNATURES = {
     "panel_transform": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _DBL, _INT, _VP],
     "sketch_gram": [_VP] * 6 + [_INT] * 6 + [_VP],
     "rff_gram": [_VP] * 7 + [_INT] * 5 + [_DBL, _INT, _VP],
+    "swa_flash": [_VP] * 4 + [_INT] * 7 + [_FLT, _INT, _VP],
 }
 _SOURCE = {"sketch_gram": "feature_gram", "rff_gram": "feature_gram"}
 
@@ -264,15 +267,58 @@ def rff_gram_cuda(X: torch.Tensor, b: torch.Tensor, W: torch.Tensor,
     return G, h
 
 
+_SWA_DTYPES = {torch.float32: 0, torch.bfloat16: 2}
+_SWA_HEAD_DIMS = (64, 128)
+
+
+def swa_flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   window: int | None, causal: bool = True) -> torch.Tensor:
+    """K5: softmax(q k^T hd^-0.5 + mask) v, the window and causal mask of
+    ``swa_flash_pallas``, KV blocks outside the mask skipped.
+
+    q: (B, S, H, hd); k, v: (B, S, H_kv, hd) with H % H_kv == 0 (query head
+    h reads KV head h // (H / H_kv)); one dtype, float32 or bfloat16; hd 64
+    or 128; contiguous. ``window`` None or >= 1. Returns (B, S, H, hd) in
+    q's dtype. Ragged S is masked in the kernel. Bitwise deterministic.
+    """
+    device = _check("swa_flash", {"q": q, "k": k, "v": v}, _SWA_DTYPES)
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape \
+            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3] \
+            or k.shape[2] < 1 or q.shape[2] % k.shape[2] \
+            or q.shape[3] not in _SWA_HEAD_DIMS:
+        raise ValueError(f"swa_flash: need q (B, S, H, hd) and k, v (B, S, H_kv, hd) "
+                         f"with H % H_kv == 0 and hd in {_SWA_HEAD_DIMS}, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"swa_flash: mixed dtypes {q.dtype}, {k.dtype}, {v.dtype}")
+    if window is not None and window < 1:
+        raise ValueError(f"swa_flash: window must be None or >= 1, got {window}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("swa_flash: q, k, v must be 16-byte aligned")
+    B, S, H, hd = q.shape
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    # a window of S or more masks nothing that causality does not
+    w = -1 if window is None or window >= S else int(window)
+    _launch("swa_flash", device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), B, S, H, k.shape[2], hd, w, int(bool(causal)),
+            hd ** -0.5, _SWA_DTYPES[q.dtype])
+    swa_flash_cuda.launches += 1
+    return out
+
+
 gram_moment_cuda.launches = 0
 gemm_nt_cuda.launches = 0
 panel_transform_cuda.launches = 0
 sketch_gram_cuda.launches = 0
 rff_gram_cuda.launches = 0
+swa_flash_cuda.launches = 0
 
 KERNELS = {"gram_moment": gram_moment_cuda, "gemm_nt": gemm_nt_cuda,
            "panel_transform": panel_transform_cuda,
-           "sketch_gram": sketch_gram_cuda, "rff_gram": rff_gram_cuda}
+           "sketch_gram": sketch_gram_cuda, "rff_gram": rff_gram_cuda,
+           "swa_flash": swa_flash_cuda}
 
 
 def launch_counts() -> dict[str, int]:

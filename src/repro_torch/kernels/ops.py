@@ -1,9 +1,11 @@
 """Public kernel entry points: dispatch by device, plus the Theorem-4 codec.
 
-``gram_moment``, ``gemm_nt``, ``sketch_gram`` and ``rff_gram`` run the
-hand-written CUDA kernel for CUDA tensors and the plain PyTorch version (``kernels.ref``) for CPU tensors; any
+``gram_moment``, ``gemm_nt``, ``sketch_gram``, ``rff_gram`` and
+``swa_attention`` run the hand-written CUDA kernel for CUDA tensors and the plain PyTorch version (``kernels.ref``) for CPU tensors; any
 other device raises. There is no switch between the two: the tensor's device
 decides, and a failing kernel raises rather than falling back.
+
+``synchronize`` is the one device fence the host-timed loops use.
 
 ``pack_lower``/``unpack_lower`` (the Theorem-4 triangular wire codec for
 client Gram uploads) are a static-index gather/scatter, not kernels.
@@ -27,8 +29,11 @@ def pow2_bucket(n: int, *, floor: int = 1) -> int:
     return max(floor, 1 << (max(int(n), 1) - 1).bit_length())
 
 
-def _on(device: torch.device, name: str) -> bool:
-    """True for CUDA (kernel), False for CPU (plain version); else raise."""
+def on_card(device: torch.device, name: str) -> bool:
+    """True for CUDA (kernel), False for CPU (plain version); else raise.
+
+    The port's one device rule: every dispatcher asks it, none looks at the
+    device itself."""
     if device.type == "cuda":
         return True
     if device.type == "cpu":
@@ -42,7 +47,7 @@ def gram_moment(A: torch.Tensor, b: torch.Tensor
 
     Accumulates in float32 for bf16/f16 input, else in the input dtype.
     """
-    if _on(A.device, "gram_moment"):
+    if on_card(A.device, "gram_moment"):
         return gram_kernel.gram_moment_cuda(A, b)
     return ref.gram_moment_ref(A, b)
 
@@ -53,7 +58,7 @@ def sketch_gram(A: torch.Tensor, b: torch.Tensor, R: torch.Tensor
 
     No padding: the kernel masks ragged n, d and m itself.
     """
-    if _on(A.device, "sketch_gram"):
+    if on_card(A.device, "sketch_gram"):
         return gram_kernel.sketch_gram_cuda(A, b, R)
     return ref.sketch_gram_ref(A, b, R)
 
@@ -62,15 +67,38 @@ def rff_gram(X: torch.Tensor, b: torch.Tensor, W: torch.Tensor,
              c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused RFF ingest, T = sqrt(2/D) cos(XW + c) and (T^T T, T^T b):
     K4 on CUDA, plain on CPU. The scale uses D = W.shape[1]."""
-    if _on(X.device, "rff_gram"):
+    if on_card(X.device, "rff_gram"):
         return gram_kernel.rff_gram_cuda(X, b, W, c)
     return ref.rff_gram_ref(X, b, W, c)
+
+
+def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int | None, causal: bool = True) -> torch.Tensor:
+    """Sliding-window (or full, ``window=None``) attention over a sequence:
+    K5 on CUDA, plain on CPU.
+
+    q: (B, S, H, hd); k, v: (B, S, H_kv, hd) with H % H_kv == 0, query head
+    h reading KV head h // (H / H_kv). No padding: the kernel masks a ragged
+    S itself, so a non-causal ragged S is exact too.
+    """
+    if window is not None and window < 1:
+        raise ValueError(f"swa_attention: window must be None or >= 1, got {window}")
+    if on_card(q.device, "swa_attention"):
+        return gram_kernel.swa_flash_cuda(q, k, v, window=window, causal=causal)
+    return ref.swa_attention_ref(q, k, v, window=window, causal=causal)
+
+
+def synchronize(t: torch.Tensor) -> None:
+    """Wait until the work queued on ``t``'s device is done, so that a host
+    clock times it (CPU work is already done when it returns)."""
+    if on_card(t.device, "synchronize"):
+        torch.cuda.synchronize(t.device)
 
 
 def gemm_nt(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *,
             alpha: float = -1.0) -> torch.Tensor:
     """C + alpha * A @ B^T: kernel K2 on CUDA, plain on CPU."""
-    if _on(C.device, "gemm_nt"):
+    if on_card(C.device, "gemm_nt"):
         return gram_kernel.gemm_nt_cuda(C, A, B, alpha=alpha)
     return ref.gemm_nt_ref(C, A, B, alpha=alpha)
 

@@ -52,3 +52,41 @@ def gemm_nt_ref(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *,
                 alpha: float = -1.0) -> torch.Tensor:
     """C + alpha * A @ B^T (C: (m, n), A: (m, k), B: (n, k))."""
     return C + alpha * (A @ B.T)
+
+
+_SWA_BLOCK_Q = 256    # query rows per step: a (B, H, 256, S) float32 score block
+
+
+def swa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      window: int | None, causal: bool = True) -> torch.Tensor:
+    """Masked-softmax attention in float32: the plain version of K5.
+
+    q: (B, S, H, hd); k, v: (B, S, H_kv, hd), query head h reading KV head
+    h // (H / H_kv). A pair (q, k) is kept iff q - k >= 0 (causal) and
+    q - k < window (when set); dropped pairs score -1e30, as in the
+    reference. Queries go 256 at a time, so no (B, H, S, S) score tensor is
+    ever built. Returns (B, S, H, hd) in q's dtype.
+    """
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    scale = hd ** -0.5
+    qg = q.float().view(B, S, Hkv, H // Hkv, hd).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)                      # (B, Hkv, S, hd)
+    vf = v.float().permute(0, 2, 1, 3)
+    k_pos = torch.arange(S, device=q.device)
+    out = torch.empty_like(qg)                               # (B, Hkv, G, S, hd)
+    for q0 in range(0, S, _SWA_BLOCK_Q):
+        q1 = min(q0 + _SWA_BLOCK_Q, S)
+        q_pos = torch.arange(q0, q1, device=q.device)
+        s = torch.einsum("bkgqd,bksd->bkgqs", qg[:, :, :, q0:q1], kf) * scale
+        rel = q_pos[:, None] - k_pos[None, :]
+        ok = torch.ones_like(rel, dtype=torch.bool)
+        if causal:
+            ok &= rel >= 0
+        if window is not None:
+            ok &= rel < window
+        s = torch.where(ok, s, -1e30)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        p = p / p.sum(-1, keepdim=True)
+        out[:, :, :, q0:q1] = torch.einsum("bkgqs,bksd->bkgqd", p, vf)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)

@@ -1,0 +1,78 @@
+"""Per-layer blocks: pre-norm attention + pre-norm MLP, with residuals.
+
+The counterparts of the reference's ``models/blocks.py`` for the attention
+kinds ``full``/``swa``/``full_bidir`` with a ``dense`` MLP. Where the
+reference stacks stages along a leading axis and scans over it, the port
+keeps a list of per-stage module lists and loops in Python. Mamba, RWKV and
+MoE layers wait for ROADMAP item 16.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention, layers
+from repro_torch.models.config import ArchConfig, LayerSpec
+
+ATTN_KINDS = ("full", "swa", "full_bidir")
+
+
+def _check_spec(cfg: ArchConfig, spec: LayerSpec) -> None:
+    if spec.attn not in ATTN_KINDS or spec.mlp != "dense" or cfg.encoder_only:
+        raise NotImplementedError(
+            f"layer {spec} of {cfg.name} is not ported yet (ROADMAP item 16); "
+            f"the port has attention kinds {ATTN_KINDS} with a gated dense MLP "
+            "(an encoder-only model's ungated MLP waits too)")
+
+
+class Layer(nn.Module):
+    """norm1 -> attention -> residual, norm2 -> MLP -> residual."""
+
+    def __init__(self, cfg: ArchConfig, spec: LayerSpec, *, dtype, device):
+        super().__init__()
+        _check_spec(cfg, spec)
+        self.spec = spec
+        self.norm1 = layers.RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
+        self.norm2 = layers.RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
+        self.attn = attention.Attention(cfg, dtype=dtype, device=device)
+        self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, dtype=dtype, device=device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.norm1.reset_parameters()
+        self.norm2.reset_parameters()
+        self.attn.reset_parameters(generator)
+        self.mlp.reset_parameters(generator)
+
+
+def apply_layer(layer: Layer, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    x = x + attention.attention_fwd(layer.attn, layer.norm1(x), cfg,
+                                    kind=layer.spec.attn)
+    return x + layer.mlp(layer.norm2(x))
+
+
+def init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
+                     seq_len: int, dtype, device) -> dict:
+    if spec.attn in ("full", "swa"):
+        return attention.init_cache(cfg, spec.attn, batch, seq_len, dtype, device)
+    raise ValueError(f"no decode cache for attn kind {spec.attn!r}")
+
+
+def decode_layer(layer: Layer, x: torch.Tensor, cache: dict, pos: int,
+                 cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    if layer.spec.attn not in ("full", "swa"):
+        raise ValueError(f"decode unsupported for attn kind {layer.spec.attn!r}")
+    h, cache = attention.attention_decode(layer.attn, layer.norm1(x), cache,
+                                          pos, cfg, kind=layer.spec.attn)
+    x = x + h
+    return x + layer.mlp(layer.norm2(x)), cache
+
+
+def prefill_layer(layer: Layer, x: torch.Tensor, cfg: ArchConfig, *,
+                  max_len: int | None = None) -> tuple[torch.Tensor, dict]:
+    """Full-sequence forward that also emits the decode cache for this layer."""
+    if layer.spec.attn not in ("full", "swa"):
+        raise ValueError(f"prefill unsupported for attn kind {layer.spec.attn!r}")
+    h, cache = attention.prefill_cache(layer.attn, layer.norm1(x), cfg,
+                                       kind=layer.spec.attn, max_len=max_len)
+    x = x + h
+    return x + layer.mlp(layer.norm2(x)), cache

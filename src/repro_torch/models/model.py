@@ -1,0 +1,113 @@
+"""BackboneLM: top-level model assembly and the serving step functions.
+
+The counterparts of the reference's ``models/model.py`` for the ``tokens``
+input mode:
+
+  init_params      — a ``BackboneLM`` with the reference's initial
+                     distributions, drawn from a ``torch.Generator``;
+  forward          — full-sequence logits;
+  prefill_step     — full-sequence forward returning last-position logits
+                     and the decode cache;
+  decode_step      — one token against the cache (full layers: the whole
+                     sequence; SWA layers: a ring buffer).
+
+The module carries its config, so the functions take the model where the
+reference takes ``(params, cfg)``. Every attention layer's full-sequence
+pass runs kernel K5 on CUDA tensors. The cache is a dict
+``{"layers": [one cache per layer, in execution order], "pos": int}``;
+``decode_step`` writes into it in place and returns it. Training
+(``loss_fn``, ``make_train_step``) and the ``embeddings`` /
+``prefix_embeddings`` input modes wait for ROADMAP item 16.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import blocks, layers
+from repro_torch.models.config import ArchConfig
+
+
+class BackboneLM(nn.Module):
+    """Embedding -> ``num_stages`` x ``stage_pattern`` -> ``tail_pattern``
+    -> final RMSNorm -> LM head. Parameters are allocated, not initialised:
+    :func:`init_params` draws them, ``convert.model_params_from`` copies
+    them from a reference parameter tree."""
+
+    def __init__(self, cfg: ArchConfig, *, device="cuda"):
+        super().__init__()
+        if cfg.input_mode != "tokens":
+            raise NotImplementedError(
+                f"input mode {cfg.input_mode!r} is not ported yet (ROADMAP item 16)")
+        self.cfg = cfg
+        dt = layers.dtype_of(cfg.dtype)
+        self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, dtype=dt, device=device)
+        self.stages = nn.ModuleList(
+            nn.ModuleList(blocks.Layer(cfg, spec, dtype=dt, device=device)
+                          for spec in cfg.stage_pattern)
+            for _ in range(cfg.num_stages))
+        self.tail = nn.ModuleList(blocks.Layer(cfg, spec, dtype=dt, device=device)
+                                  for spec in cfg.tail_pattern)
+        self.final_norm = layers.RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dt, device=device)
+        self.head = layers.LMHead(cfg.d_model, cfg.vocab_size, dtype=dt, device=device)
+
+    def all_layers(self) -> list[blocks.Layer]:
+        """Every layer in execution order: the stages, then the tail."""
+        return [layer for stage in self.stages for layer in stage] + list(self.tail)
+
+
+def init_params(cfg: ArchConfig, *, generator: torch.Generator,
+                device="cuda") -> BackboneLM:
+    """A model with the reference's initial distributions, drawn on
+    ``device`` from ``generator`` (which must live on that device)."""
+    model = BackboneLM(cfg, device=device)
+    for layer in model.all_layers():
+        layer.reset_parameters(generator)
+    model.embed.reset_parameters(generator)
+    model.final_norm.reset_parameters()
+    model.head.reset_parameters(generator)
+    return model
+
+
+def forward(model: BackboneLM, batch: dict) -> torch.Tensor:
+    """batch = {"tokens": (B, S)} -> logits (B, S, vocab)."""
+    cfg = model.cfg
+    x = model.embed(batch["tokens"])
+    for layer in model.all_layers():
+        x = blocks.apply_layer(layer, x, cfg)
+    return model.head(model.final_norm(x))
+
+
+def init_decode_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
+                      device="cuda") -> dict:
+    """An empty cache for ``seq_len`` positions, at position 0."""
+    dt = layers.dtype_of(cfg.dtype)
+    specs = list(cfg.stage_pattern) * cfg.num_stages + list(cfg.tail_pattern)
+    return {"layers": [blocks.init_layer_cache(cfg, s, batch, seq_len, dt, device)
+                       for s in specs], "pos": 0}
+
+
+def prefill_step(model: BackboneLM, batch: dict, *,
+                 max_len: int | None = None) -> tuple[torch.Tensor, dict]:
+    """Full-sequence prefill -> (last-position logits (B, 1, vocab), cache
+    for ``max_len`` positions, default the prompt's length)."""
+    x = model.embed(batch["tokens"])
+    caches = []
+    for layer in model.all_layers():
+        x, c = blocks.prefill_layer(layer, x, model.cfg, max_len=max_len)
+        caches.append(c)
+    logits = model.head(model.final_norm(x[:, -1:]))
+    return logits, {"layers": caches, "pos": x.shape[1]}
+
+
+def decode_step(model: BackboneLM, cache: dict, batch: dict
+                ) -> tuple[torch.Tensor, dict]:
+    """One-token serve step. batch = {"tokens": (B, 1)}; returns logits
+    (B, 1, vocab) and the cache, updated in place and advanced by one."""
+    pos = cache["pos"]
+    x = model.embed(batch["tokens"])
+    for i, layer in enumerate(model.all_layers()):
+        x, cache["layers"][i] = blocks.decode_layer(layer, x, cache["layers"][i],
+                                                    pos, model.cfg)
+    cache["pos"] = pos + 1
+    return model.head(model.final_norm(x)), cache

@@ -110,11 +110,9 @@ def panel_transform(L11: torch.Tensor, X1: torch.Tensor, *,
     [L21' | X2'^T]`` for every trailing row. Kernel P for CUDA tensors, the
     plain loop for CPU tensors.
     """
-    if L11.device.type == "cuda":
+    if kernel_ops.on_card(L11.device, "panel_transform"):
         return gram_kernel.panel_transform_cuda(
             L11.contiguous(), X1.contiguous(), sign=sign)
-    if L11.device.type != "cpu":
-        raise ValueError(f"panel_transform: no path for device {L11.device}")
     return panel_transform_ref(L11, X1, sign=sign)
 
 

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from repro_torch import core, server
-from repro_torch.kernels import gram, ref
+from repro_torch.kernels import gram, ops, ref
 from repro_torch.server import cholesky
 
 pytestmark = pytest.mark.cuda
@@ -193,3 +193,93 @@ def test_feature_tenant_on_card_matches_cpu_path(card, kind, m):
         eng = server.FusionEngine.from_clients(stats)
         w[str(dev)] = fm.lift(eng.solve(0.1))
     assert _rel(w[str(card)], w["cpu"]) <= 1e-4
+
+
+def _swa_inputs(B, S, H, Hkv, hd, dtype, seed=0):
+    return [_randn(shape, dtype, seed + i).to("cuda")
+            for i, shape in enumerate(((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))]
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S", [64, 200, 1000])
+@pytest.mark.parametrize("window", [None, 48, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 4])
+def test_swa_flash_matches_plain(card, hd, S, window, causal, dtype, group):
+    """K5 against its plain version: float32 sums in other orders, so
+    float32 within 3e-5 and bf16 within one bf16 ulp of the plain value,
+    element by element (|o - p| <= 2^-7 |p| + 1e-4)."""
+    q, k, v = _swa_inputs(2, S, 4, 4 // group, hd, dtype, seed=S + hd)
+    before = gram.swa_flash_cuda.launches
+    o = gram.swa_flash_cuda(q, k, v, window=window, causal=causal)
+    o2 = gram.swa_flash_cuda(q, k, v, window=window, causal=causal)
+    p = ref.swa_attention_ref(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    assert gram.swa_flash_cuda.launches == before + 2
+    assert o.dtype == dtype and o.shape == q.shape and torch.equal(o, o2)
+    diff = (o.float() - p.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 3e-5
+    else:
+        assert bool((diff <= p.float().abs() * 2.0 ** -7 + 1e-4).all())
+
+
+def test_swa_attention_dispatch_by_device(card):
+    q, k, v = _swa_inputs(1, 100, 2, 1, 64, torch.float32)
+    before = gram.swa_flash_cuda.launches
+    on_card = ops.swa_attention(q, k, v, window=32)
+    assert gram.swa_flash_cuda.launches == before + 1
+    on_cpu = ops.swa_attention(q.cpu(), k.cpu(), v.cpu(), window=32)
+    assert gram.swa_flash_cuda.launches == before + 1     # the plain version
+    assert on_cpu.device.type == "cpu"
+    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=0, atol=3e-5)
+
+
+def test_swa_flash_rejects_what_it_does_not_take(card):
+    q, k, v = _swa_inputs(1, 64, 2, 1, 64, torch.float32)
+    before = gram.swa_flash_cuda.launches
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            ops.swa_attention(q.to(dtype), k.to(dtype), v.to(dtype), window=None)
+    with pytest.raises(TypeError):
+        gram.swa_flash_cuda(q, k.bfloat16(), v, window=None)
+    with pytest.raises(ValueError):       # head_dim 96
+        gram.swa_flash_cuda(*_swa_inputs(1, 64, 2, 1, 96, torch.float32), window=None)
+    with pytest.raises(ValueError):       # 3 query heads over 2 KV heads
+        gram.swa_flash_cuda(*_swa_inputs(1, 64, 3, 2, 64, torch.float32), window=None)
+    with pytest.raises(ValueError):
+        gram.swa_flash_cuda(q.transpose(1, 2), k, v, window=None)
+    with pytest.raises(ValueError):
+        gram.swa_flash_cuda(q, k, v, window=0)
+    assert gram.swa_flash_cuda.launches == before
+
+
+def test_reduced_gemma_on_card_matches_cpu_path(card):
+    from repro_torch import configs
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model
+
+    cfg = configs.get_reduced("gemma3-27b")
+    cpu = model.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    gpu = model.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu").to(card)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 96)).astype(np.int32))
+    before = gram.swa_flash_cuda.launches
+    lg, cache = model.prefill_step(gpu, {"tokens": toks.to(card)}, max_len=104)
+    assert gram.swa_flash_cuda.launches == before + cfg.num_layers
+    lc, cache_c = model.prefill_step(cpu, {"tokens": toks}, max_len=104)
+    scale = max(float(lc.abs().max()), 1.0)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4 * scale)
+    for tg, tc in zip(cache["layers"], cache_c["layers"]):
+        torch.testing.assert_close(tg["k"].cpu(), tc["k"], rtol=0, atol=1e-4 * scale)
+    tok = toks[:, -1:]
+    for _ in range(8):          # past the reduced window of 32 in the ring buffer
+        lg, cache = model.decode_step(gpu, cache, {"tokens": tok.to(card)})
+        lc, cache_c = model.decode_step(cpu, cache_c, {"tokens": tok})
+        torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4 * scale)
+        tok = torch.argmax(lc[:, 0], dim=-1)[:, None].int()
+    assert gram.swa_flash_cuda.launches == before + cfg.num_layers
+    tg, _ = generate(gpu, toks.to(card), 6)
+    tc, _ = generate(cpu, toks, 6)
+    assert torch.equal(tg.cpu(), tc)

@@ -209,9 +209,11 @@ class TestCudaEntryPoints:
             gram.sketch_gram_cuda(A, torch.zeros(4), torch.zeros(3, 2))
         with pytest.raises(ValueError, match="CUDA"):
             gram.rff_gram_cuda(A, torch.zeros(4), torch.zeros(3, 2), torch.zeros(2))
+        with pytest.raises(ValueError, match="CUDA"):
+            gram.swa_flash_cuda(*(torch.zeros(1, 4, 2, 64) for _ in range(3)), window=None)
         assert gram.launch_counts() == {"gram_moment": 0, "gemm_nt": 0,
                                         "panel_transform": 0, "sketch_gram": 0,
-                                        "rff_gram": 0}
+                                        "rff_gram": 0, "swa_flash": 0}
 
     def test_unknown_device_raises(self):
         A = torch.zeros(4, 3, device="meta")
@@ -244,7 +246,8 @@ class TestIsolation:
                 "repro_torch.kernels.gram, repro_torch.server, repro_torch.fed, "
                 "repro_torch.data, repro_torch.convert, repro_torch.core.features, "
                 "repro_torch.core.threefry, repro_torch.core.projection, "
-                "repro_torch.core.rff; "
+                "repro_torch.core.rff, repro_torch.configs, repro_torch.models, "
+                "repro_torch.models.model, repro_torch.launch.serve; "
                 "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
                 "print(bad); sys.exit(1 if bad else 0)")
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -1,0 +1,216 @@
+"""Kernel K5 (sliding-window flash attention) of the PyTorch port against the
+reference's ``swa_flash_pallas`` (interpret mode) and ``swa_attention_ref``.
+
+The same numpy inputs go to both packages. On the CPU the port's
+``ops.swa_attention`` runs the plain version of K5; a numpy model of the
+CUDA kernel's schedule (which KV blocks a query block visits, the
+per-element mask, the blockwise online softmax, the ragged edge) is held
+against that plain version, so the arithmetic the kernel performs is
+checked here even though the kernel itself runs only on the card.
+"""
+import importlib.util
+from pathlib import Path
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch import convert
+from repro_torch.kernels import gram, ops, ref
+
+# tests/test_kernels.py's tolerances: float32, and one bf16 rounding
+TOL = {"float32": 3e-5, "bfloat16": 4e-2}
+BLOCK = 64                   # kBQ = kBK in csrc/swa_flash.cu
+
+
+def _inputs(B, S, H, Hkv, hd, dtype="float32", seed=0):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(shape, dtype=np.float32)
+            for shape in ((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd))]
+    if dtype == "bfloat16":
+        arrs = [a.astype(ml_dtypes.bfloat16) for a in arrs]
+    return arrs
+
+
+def _port(arrs):
+    return [convert.tensor_from_numpy(a, device="cpu") for a in arrs]
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+class TestAgainstReferenceKernel:
+    @pytest.mark.parametrize("S,hd,window,causal", [
+        (256, 64, 64, True), (256, 128, None, True), (128, 64, 32, True),
+        (256, 64, None, False), (192, 64, 48, True)])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_matches_pallas_kernel(self, S, hd, window, causal, dtype):
+        arrs = _inputs(2, S, 2, 2, hd, dtype, seed=S + hd)
+        o_jax = jops.swa_attention(*(jnp.asarray(a) for a in arrs), window=window,
+                                   causal=causal, block_q=64, block_k=64)
+        o = ops.swa_attention(*_port(arrs), window=window, causal=causal)
+        assert o.dtype == (torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+        np.testing.assert_allclose(_f32(o), _f32(o_jax), atol=TOL[dtype])
+
+    @pytest.mark.parametrize("S", [192, 200])
+    @pytest.mark.parametrize("window", [None, 48])
+    def test_ragged_non_causal_matches_oracle(self, S, window):
+        arrs = _inputs(1, S, 2, 2, 64, seed=S)
+        o_ref = jref.swa_attention_ref(*(jnp.asarray(a) for a in arrs),
+                                       window=window, causal=False)
+        o = ops.swa_attention(*_port(arrs), window=window, causal=False)
+        np.testing.assert_allclose(_f32(o), _f32(o_ref), atol=TOL["float32"])
+
+    @pytest.mark.parametrize("S", [192, 200])
+    def test_reference_wrapper_attends_to_its_padding(self, S):
+        """The reference caveat the port avoids: ``ops.swa_attention`` pads S
+        to its default block of 128 and, non-causal, gives the padded keys
+        softmax weight; its own oracle does not."""
+        arrs = _inputs(1, S, 2, 2, 64, seed=S)
+        j = [jnp.asarray(a) for a in arrs]
+        padded = jops.swa_attention(*j, window=None, causal=False)
+        oracle = jref.swa_attention_ref(*j, window=None, causal=False)
+        assert np.abs(_f32(padded) - _f32(oracle)).max() > 1e-2
+        port = ops.swa_attention(*_port(arrs), window=None, causal=False)
+        np.testing.assert_allclose(_f32(port), _f32(oracle), atol=TOL["float32"])
+
+    def test_window_blocks_are_skipped(self):
+        """tests/test_kernels.py's poison test: keys and values far outside
+        every query's window have no influence."""
+        q, k, v = _inputs(1, 256, 1, 1, 64, seed=0)
+        o1 = ops.swa_attention(*_port([q, k, v]), window=64)
+        k[:, :64] = 1e4
+        v[:, :64] = 1e4
+        o2 = ops.swa_attention(*_port([q, k, v]), window=64)
+        np.testing.assert_allclose(o1[:, 192:].numpy(), o2[:, 192:].numpy(), atol=1e-5)
+
+    @pytest.mark.parametrize("H,Hkv,hd,window", [(4, 2, 64, 32), (8, 2, 128, None),
+                                                 (4, 1, 64, 48)])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_grouped_kv_matches_repeated_kv(self, H, Hkv, hd, window, dtype):
+        """GQA by index (query head h reads KV head h // (H / H_kv)) equals
+        the reference kernel on KV repeated per group, as the model path of
+        tests/test_kernels.py::test_matches_model_attention builds it."""
+        q, k, v = _inputs(2, 128, H, Hkv, hd, dtype, seed=H + Hkv)
+        rep = [jnp.repeat(jnp.asarray(t), H // Hkv, axis=2) for t in (k, v)]
+        o_jax = jops.swa_attention(jnp.asarray(q), *rep, window=window,
+                                   block_q=64, block_k=64)
+        o = ops.swa_attention(*_port([q, k, v]), window=window)
+        np.testing.assert_allclose(_f32(o), _f32(o_jax), atol=TOL[dtype])
+
+    def test_bad_window_raises(self):
+        q, k, v = _port(_inputs(1, 8, 1, 1, 64))
+        with pytest.raises(ValueError, match="window"):
+            ops.swa_attention(q, k, v, window=0)
+
+    def test_kernel_refuses_cpu_and_unknown_devices(self):
+        q, k, v = _port(_inputs(1, 8, 1, 1, 64))
+        with pytest.raises(ValueError, match="CUDA"):
+            gram.swa_flash_cuda(q, k, v, window=None)
+        with pytest.raises(ValueError, match="device"):
+            ops.swa_attention(*(t.to("meta") for t in (q, k, v)), window=None)
+
+
+# --- a numpy model of csrc/swa_flash.cu's schedule ----------------------------
+
+def _kv_block_range(q0: int, S: int, window, causal: bool) -> range:
+    """The KV blocks the kernel walks for the query block starting at q0."""
+    q_last = min(q0 + BLOCK - 1, S - 1)
+    k_lo = max(0, q0 - window + 1) if window is not None else 0
+    k_hi = q_last if causal else S - 1
+    return range(k_lo // BLOCK, k_hi // BLOCK + 1)
+
+
+def _keep(q_pos, k_pos, S, window, causal):
+    """The kernel's per-element rule: key inside S, causal, in the window."""
+    rel = q_pos[:, None] - k_pos[None, :]
+    ok = np.broadcast_to(k_pos[None, :] < S, rel.shape).copy()
+    if causal:
+        ok &= rel >= 0
+    if window is not None:
+        ok &= rel < window
+    return ok
+
+
+def _kernel_model(q, k, v, window, causal):
+    """float32 online softmax over 64-key blocks, 64-row query blocks,
+    zero-filled ragged tiles, rows past S never stored."""
+    B, S, H, hd = q.shape
+    group = H // k.shape[2]
+    scale = np.float32(hd ** -0.5)
+    out = np.zeros_like(q)
+    n_blocks = -(-S // BLOCK)
+    for b in range(B):
+        for h in range(H):
+            for qb in range(n_blocks):
+                q0 = qb * BLOCK
+                Q = np.zeros((BLOCK, hd), np.float32)
+                Q[:min(BLOCK, S - q0)] = q[b, q0:q0 + BLOCK, h]
+                q_pos = q0 + np.arange(BLOCK)
+                m = np.full(BLOCK, -1e30, np.float32)
+                l = np.zeros(BLOCK, np.float32)
+                acc = np.zeros((BLOCK, hd), np.float32)
+                for kb in _kv_block_range(q0, S, window, causal):
+                    k0 = kb * BLOCK
+                    Kt = np.zeros((BLOCK, hd), np.float32)
+                    Vt = np.zeros((BLOCK, hd), np.float32)
+                    Kt[:min(BLOCK, S - k0)] = k[b, k0:k0 + BLOCK, h // group]
+                    Vt[:min(BLOCK, S - k0)] = v[b, k0:k0 + BLOCK, h // group]
+                    s = (Q @ Kt.T) * scale
+                    s = np.where(_keep(q_pos, k0 + np.arange(BLOCK), S, window, causal),
+                                 s, np.float32(-1e30))
+                    m_new = np.maximum(m, s.max(1))
+                    alpha = np.exp(m - m_new)
+                    p = np.exp(s - m_new[:, None])
+                    l = l * alpha + p.sum(1)
+                    acc = acc * alpha[:, None] + p @ Vt
+                    m = m_new
+                rows = min(BLOCK, S - q0)
+                out[b, q0:q0 + rows, h] = (acc / np.maximum(l, 1e-30)[:, None])[:rows]
+    return out
+
+
+class TestKernelSchedule:
+    @pytest.mark.parametrize("S", [1, 63, 64, 65, 200, 1100])
+    @pytest.mark.parametrize("window", [None, 1, 48, 1024])
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_block_range_is_exactly_the_blocks_with_a_kept_pair(self, S, window, causal):
+        k_pos = np.arange(S)
+        for q0 in range(0, S, BLOCK):
+            q_pos = np.arange(q0, min(q0 + BLOCK, S))
+            ok = _keep(q_pos, k_pos, S, window, causal)
+            needed = {int(kk) // BLOCK for kk in np.nonzero(ok.any(0))[0]}
+            assert set(_kv_block_range(q0, S, window, causal)) == needed
+            assert ok.any(1).all()        # no row of the sequence is fully masked
+
+    @pytest.mark.parametrize("S,window", [(200, None), (200, 1), (200, 48),
+                                          (1100, 1024), (1000, 48)])
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_kernel_model_equals_plain_version(self, S, window, causal):
+        q, k, v = _inputs(1, S, 2, 1, 128, seed=S)
+        model = _kernel_model(q, k, v, window, causal)
+        plain = ref.swa_attention_ref(*_port([q, k, v]), window=window, causal=causal)
+        np.testing.assert_allclose(model, plain.numpy(), atol=TOL["float32"])
+
+    @pytest.mark.parametrize("S,window", [(4096, 1024), (4096, None)])
+    def test_kept_pairs_of_the_serving_shape(self, S, window):
+        """The kept pairs per (batch, head) that K5's bound in chip_smoke.py
+        counts: 3,670,528 for the SWA layers, S(S+1)/2 for the full ones."""
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+        chip_smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(chip_smoke)
+        pairs = chip_smoke.swa_pairs(S, window, True)
+        want = {1024: 3_670_528, None: S * (S + 1) // 2}[window]
+        assert pairs == want
+        q_pos = np.arange(0, S, 7)           # spot rows against the mask rule
+        ok = _keep(q_pos, np.arange(S), S, window, True)
+        per_row = np.minimum(q_pos + 1, window or S)
+        assert (ok.sum(1) == per_row).all()
