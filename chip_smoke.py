@@ -67,13 +67,27 @@ MODEL_BATCH, MODEL_PROMPT, MODEL_GEN = 4, 4096, 32
 MODEL_SEED = 0
 
 # Published peaks, NVIDIA data sheets: memory bytes/s, FP32 operations/s
-# outside the tensor cores (K1-K4 and P run float32 on the CUDA cores), and
-# dense bf16 tensor-core operations/s (the bound of K5's bf16 attention).
+# outside the tensor cores (the bound of K1-K4 and P, float32 work), dense
+# bf16 tensor-core operations/s (the bound of K5's bf16 attention) and
+# dense TF32 tensor-core operations/s (K3's 3xTF32 route: a third of it).
 CARD_PEAKS = {
-    "H100 PCIe": (2.0e12, 51e12, 756e12),
-    "H100 NVL": (3.9e12, 60e12, 835e12),
-    "H100": (3.35e12, 67e12, 989e12),     # SXM5 (HBM3)
+    "H100 PCIe": (2.0e12, 51e12, 756e12, 378e12),
+    "H100 NVL": (3.9e12, 60e12, 835e12, 418e12),
+    "H100": (3.35e12, 67e12, 989e12, 495e12),     # SXM5 (HBM3)
 }
+
+# K3's and K5's times on their earlier CUDA-core routines, quoted from
+# PERF.md §6 (NVIDIA H100 80GB HBM3, 700.00 W). They are not measured by
+# this script: its output keeps them apart, under "quoted_not_measured",
+# beside the speed-up of this run's time over them.
+EARLIER_MS = {"sketch_gram": 61.828, "swa_flash": {"swa": 7.880, "full": 17.252}}
+EARLIER_FROM = "PERF.md §6, CUDA-core routines, NVIDIA H100 80GB HBM3, 700.00 W"
+
+
+def quoted_earlier(earlier_ms: float, ms: float) -> dict:
+    """An earlier design's time, quoted and labelled, and this run's speed-up."""
+    return {"quoted_not_measured": {"earlier_ms": earlier_ms, "from": EARLIER_FROM},
+            "speedup_vs_quoted": earlier_ms / ms}
 
 
 def emit(obj) -> None:
@@ -127,10 +141,10 @@ def bf16_ulps(o: torch.Tensor, p: torch.Tensor, floor: float = 1e-4) -> float:
 
 
 def bound(ops: float, nbytes: float, peaks, rate: str = "fp32"):
-    """Least time (ms) for the work at the FP32 or bf16 operation peak, and
-    whether operations or bytes set it."""
-    bw, fp32, bf16 = peaks
-    t_ops = ops / (fp32 if rate == "fp32" else bf16)
+    """Least time (ms) for the work at the FP32, bf16 or 3xTF32 (a third of
+    the TF32 peak) operation rate, and whether operations or bytes set it."""
+    bw, fp32, bf16, tf32 = peaks
+    t_ops = ops / {"fp32": fp32, "bf16": bf16, "3xtf32": tf32 / 3}[rate]
     t_bytes = nbytes / bw
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -145,17 +159,53 @@ def smi() -> str:
 
 # -- phase 1: device and build -----------------------------------------------
 
+def tensor_core_ops(lib: str) -> dict:
+    """The tensor-core instructions (SASS ``HMMA``) that ``cuobjdump`` finds
+    in a built library, by variant, or why there is no count."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        return {"cuobjdump": "not found"}
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True).stdout
+    ops = {}
+    for ln in sass.splitlines():
+        if "HMMA" in ln:
+            op = next(w for w in ln.split() if w.startswith("HMMA"))
+            ops[op] = ops.get(op, 0) + 1
+    return ops
+
+
+def ptxas_report(log: str) -> list[str]:
+    """'kernel: N registers, M bytes spill stores' for each kernel in nvcc's
+    ``-Xptxas -v`` report, names demangled by ``c++filt`` where it exists."""
+    rows, name, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "spill stores" in ln:
+            spill = ln.split(",")[1].strip()
+        elif "Used" in ln and "registers" in ln and name:
+            rows.append([name, ln.split("Used ")[1].split(",")[0], spill])
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, check=True).stdout.split("\n")
+    except (OSError, subprocess.CalledProcessError):
+        names = [r[0] for r in rows]
+    return [f"{n.replace('(anonymous namespace)::', '').split('(')[0]}: {regs}, {spill}"
+            for n, (_, regs, spill) in zip(names, rows)]
+
+
 def device_phase() -> dict:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     build_s = _build.build_all()
-    regs = {name: [ln.split("ptxas info    : ")[-1] for ln in log.splitlines()
-                   if "registers" in ln]
-            for name, log in _build.build_logs().items()}
+    regs = {name: ptxas_report(log) for name, log in _build.build_logs().items()}
+    hmma = {name: tensor_core_ops(str(_build._build_dir() / f"lib{name}.so"))
+            for name in ("swa_flash", "feature_gram")}
     return {"phase": "device", "nvidia_smi": smi(),
             "torch": torch.__version__, "cuda": torch.version.cuda,
-            "build_s": build_s, "ptxas": regs,
+            "build_s": build_s, "ptxas": regs, "sass_hmma": hmma,
             "seconds": time.perf_counter() - t0}
 
 
@@ -393,9 +443,18 @@ def feature_kernel_row(kind: str, g, peaks) -> tuple[dict, dict]:
     ms = cuda_ms(lambda: kernel(X, b, M, c))
     plain_ms = cuda_ms(lambda: plain(X, b, M, c))
     lib_ms = cuda_ms(library)
-    bms, by = bound(2 * n * d * m + n * m * (m + 1) + 2 * n * m,
-                    4 * (n * d + n + d * m + (0 if c is None else m) + m * m + m),
-                    peaks)
+    ops = 2 * n * d * m + n * m * (m + 1) + 2 * n * m
+    nbytes = 4 * (n * d + n + d * m + (0 if c is None else m) + m * m + m)
+    # K3 runs float32 as 3xTF32 on the tensor cores: its bound is at that
+    # rate; the FP32 one stays in the detail, comparable with K4's
+    bms, by = bound(ops, nbytes, peaks, rate="3xtf32" if kind == "sketch" else "fp32")
+    det.update(ms=ms, library_ms=lib_ms, tflops=ops / ms / 1e9)
+    if kind == "sketch":
+        det["bound_ms_3xtf32"] = bms
+        det["bound_ms_fp32"] = bound(ops, nbytes, peaks)[0]
+        # its two kernels' device time (featurize GEMM, SYRK) in one call
+        det["profile"] = profile_top(lambda: kernel(X, b, M, c), top=4)
+        det.update(quoted_earlier(EARLIER_MS[name], ms))
     row = dict(name=name, route="cuda", source="src/repro_torch/csrc/feature_gram.cu",
                replaces=("src/repro/kernels/gram.py:187" if kind == "sketch"
                          else "src/repro/kernels/gram.py:225"),
@@ -464,13 +523,18 @@ def swa_kernel_row(g, peaks) -> tuple[dict, dict]:
         plain_ms = cuda_ms(lambda: ref.swa_attention_ref(q, k, v, window=window, causal=True))
         lib_ms = cuda_ms(library)
         pairs = swa_pairs(S, window, True)
-        bms, by = bound(4 * hd * pairs * B * H,
-                        2 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd), peaks, rate="bf16")
+        ops = 4 * hd * pairs * B * H
+        bms, by = bound(ops, 2 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd), peaks,
+                        rate="bf16")
         det[tag] = {"window": window, "max_abs_err": err, "worst_bf16_ulps": ulps,
                     "bitwise_repeat": True,
                     "kept_pairs_per_head": pairs, "ms": ms, "plain_ms": plain_ms,
                     "library_ms": lib_ms, "library_max_abs_err": lib_err,
-                    "bound_ms": bms, "bound_by": by}
+                    "vs_library": ms / lib_ms, "bound_ms": bms, "bound_by": by,
+                    "tflops": ops / ms / 1e9,
+                    # mma work: Q K^T, and P V twice (P_hi and P_lo)
+                    "mma_tflops": 1.5 * ops / ms / 1e9,
+                    **quoted_earlier(EARLIER_MS["swa_flash"][tag], ms)}
         if row is None:     # the row reports the SWA layers' case, 12 of 14 launches
             row = dict(name="swa_flash", route="cuda", source="src/repro_torch/csrc/swa_flash.cu",
                        replaces="src/repro/kernels/swa_flash.py:87", max_abs_err=err,

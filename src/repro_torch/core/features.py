@@ -103,10 +103,11 @@ class FeatureMap:
     def stats(self, A: torch.Tensor, b: torch.Tensor) -> SuffStats:
         """Client Phase 1 in feature space: G = T^T T, h = T^T b, T = phi(A).
 
-        ``kernels.ops`` dispatches by device: on CUDA the fused
-        featurize->Gram kernel runs (K3 for a sketch, K4 for RFF) and T never
-        reaches device memory; on the CPU its plain version. ``yty = sum b^2``
-        is featurization-invariant (targets are not featurized).
+        ``kernels.ops`` dispatches by device: on CUDA the featurize->Gram
+        kernel runs (K3 for a sketch, which holds one 4096-row chunk of T in
+        device memory at a time; K4 for RFF, whose T never reaches device
+        memory); on the CPU its plain version. ``yty = sum b^2`` is
+        featurization-invariant (targets are not featurized).
         """
         if A.ndim != 2 or A.shape[1] != self.d_orig:
             raise ValueError(f"A must be (n, {self.d_orig}), got {tuple(A.shape)}")

@@ -16,8 +16,9 @@ by one where it launches its kernel and nowhere else.
   K5 ``swa_flash_cuda``       — sliding-window flash attention (prefill);
                                 replaces ``swa_flash_pallas``
 
-K3 and K4 share one source, ``csrc/feature_gram.cu``. The libraries are
-compiled on the first call (``kernels._build``).
+K3 and K4 share one source, ``csrc/feature_gram.cu``: K4 and float64 K3 on
+its tile routine, float32 and bfloat16-input K3 on its chunk route. The
+libraries are compiled on the first call (``kernels._build``).
 """
 from __future__ import annotations
 
@@ -51,8 +52,9 @@ _FEATURE_DTYPES = {(torch.float32, torch.float32): 0,
                    (torch.bfloat16, torch.bfloat16): 2,
                    (torch.bfloat16, torch.float32): 3}
 _FEATURE_ROWS = 64        # rows of T per chunk (kRows in feature_gram.cu)
-_FEATURE_SMS = 132        # SMs of an H100 SXM; one K3/K4 CTA fits per SM
+_FEATURE_SMS = 132        # SMs of an H100 SXM; one tile-routine CTA fits per SM
 _FEATURE_MAX_SPLITS = 16
+_SKETCH_CHUNK_ROWS = 4096  # rows of K3's T workspace: 16 MB at m 1024, in L2
 
 
 def _fn(name: str):
@@ -172,9 +174,10 @@ def panel_transform_cuda(L11: torch.Tensor, X1: torch.Tensor, *,
 
 
 def feature_splits(n: int, m: int, dtype: torch.dtype) -> tuple[int, int]:
-    """(splits, rows per split) of K3/K4's row split for n rows, m features.
+    """(splits, rows per split) of the tile routine's row split (K4, and
+    K3 in float64) for n rows, m features.
 
-    A K3/K4 CTA fills an SM (``__launch_bounds__(256, 1)``), so the CTAs of
+    A tile-routine CTA fills an SM (``__launch_bounds__(256, 1)``), so the CTAs of
     one launch run in waves of ``_FEATURE_SMS``. The split count minimises
     waves times rows per split, the time of the slowest SM, and takes the
     fewest splits on a tie; each split keeps at least 4 chunks of rows. It
@@ -195,6 +198,18 @@ def feature_splits(n: int, m: int, dtype: torch.dtype) -> tuple[int, int]:
         if best is None or cost < best[0]:
             best = (cost, splits, rows)
     return best[1], best[2]
+
+
+def sketch_chunks(n: int) -> tuple[int, int]:
+    """(chunks, rows per chunk) of K3's chunk route for n rows.
+
+    Float32 and bfloat16-input K3 walks its rows in chunks of a fixed
+    ``_SKETCH_CHUNK_ROWS``: T of one chunk goes through a workspace of that
+    many rows, whatever n is, and the chunks' Gram contributions are added
+    in chunk order. Depends only on n, so the bits of G do not depend on the
+    card. n = 0 is one empty chunk (G and h are zeros).
+    """
+    return max(1, -(-n // _SKETCH_CHUNK_ROWS)), _SKETCH_CHUNK_ROWS
 
 
 def _feature_gram(name: str, X: torch.Tensor, b: torch.Tensor,
@@ -226,9 +241,16 @@ def _feature_gram(name: str, X: torch.Tensor, b: torch.Tensor,
     acc = torch.float64 if X.dtype == torch.float64 else torch.float32
     G = torch.empty((m, m), dtype=acc, device=device)
     h = torch.empty((m,), dtype=acc, device=device)
-    splits, rows = feature_splits(n, m, X.dtype)
-    work = (torch.empty(splits * (m * m + m), dtype=acc, device=device)
-            if splits > 1 else None)
+    if c is None and acc == torch.float32:
+        # the chunk route: the workspace holds one chunk of T, each row padded
+        # to a multiple of 4 floats
+        splits, rows = sketch_chunks(n)
+        work = torch.empty(max(1, min(n, rows)) * (-(-m // 4) * 4),
+                           dtype=acc, device=device)
+    else:
+        splits, rows = feature_splits(n, m, X.dtype)
+        work = (torch.empty(splits * (m * m + m), dtype=acc, device=device)
+                if splits > 1 else None)
     wptr = None if work is None else work.data_ptr()
     if c is None:
         _launch(name, device, X.data_ptr(), b.data_ptr(), M.data_ptr(),
@@ -242,12 +264,15 @@ def _feature_gram(name: str, X: torch.Tensor, b: torch.Tensor,
 
 def sketch_gram_cuda(A: torch.Tensor, b: torch.Tensor, R: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3: (G, h) = ((AR)^T AR, (AR)^T b), AR never in device memory.
+    """K3: (G, h) = ((AR)^T AR, (AR)^T b).
 
     A: (n, d), b: (n,) of one dtype, R: (d, m); float32 with a float32 R,
     bfloat16 with a bfloat16 or float32 R, or float64 throughout. G (m, m)
     and h (m,) are float64 for float64 input, float32 otherwise.
-    Bitwise deterministic.
+    Float32 and bfloat16 input compute T = AR once per row, 4096 rows at a
+    time through a workspace of one chunk (:func:`sketch_chunks`), at
+    float32 accuracy on the tensor cores; float64 keeps T in shared memory
+    and rebuilds it per G tile. Bitwise deterministic.
     """
     G, h = _feature_gram("sketch_gram", A, b, R, None)
     sketch_gram_cuda.launches += 1

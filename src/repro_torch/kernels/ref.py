@@ -31,8 +31,8 @@ def sketch_gram_ref(A: torch.Tensor, b: torch.Tensor, R: torch.Tensor
     """Unfused §IV-F sketch: materialise T = A R, then (T^T T, T^T b).
 
     T is computed in :func:`accumulation_dtype` of A from the (possibly
-    bf16-quantised) inputs; this is the device-memory round trip of T that
-    kernel K3 avoids.
+    bf16-quantised) inputs and held whole in memory; kernel K3 holds one
+    4096-row chunk of it at a time.
     """
     acc = accumulation_dtype(A.dtype)
     T = A.to(acc) @ R.to(acc)

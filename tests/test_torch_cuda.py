@@ -137,7 +137,12 @@ def _feature_close(G, h, Gr, hr):
     (3000, 64, 300, torch.float32, torch.float32),     # several tiles and splits
     (700, 48, 160, torch.bfloat16, torch.bfloat16),
     (700, 48, 160, torch.bfloat16, torch.float32),
-    (513, 40, 70, torch.float64, torch.float64)])
+    (513, 40, 70, torch.float64, torch.float64),
+    (4500, 37, 130, torch.float32, torch.float32),     # K3: 4-byte copies, 2 chunks
+    (5000, 64, 1000, torch.float32, torch.float32),    # K3: partial chunk, m 1000
+    (4100, 32, 1024, torch.float32, torch.float32),    # K3: a chunk of 4 rows
+    (4097, 40, 1024, torch.bfloat16, torch.float32),   # K3: bf16 rows, f32 map
+    (4500, 24, 1000, torch.bfloat16, torch.bfloat16)])
 def test_feature_gram_matches_plain(card, kind, n, d, m, dtype, map_dtype):
     X, b, M, c = _feature_inputs(n, d, m, dtype, map_dtype, n + d + m, kind == "rff")
     if kind == "sketch":
@@ -160,6 +165,19 @@ def test_feature_gram_matches_plain(card, kind, n, d, m, dtype, map_dtype):
         torch.testing.assert_close(h, hr, rtol=1e-11, atol=1e-11)
     else:
         _feature_close(G, h, Gr, hr)
+
+
+def test_sketch_gram_unaligned_input(card):
+    """A row block that starts 4 bytes into its buffer takes K3's 4-byte
+    copies and gives the bits of the same rows at an aligned address."""
+    X, b, M, _ = _feature_inputs(4200, 16, 96, torch.float32, torch.float32, 5, False)
+    buf = torch.empty(X.numel() + 1, device=card)
+    buf[1:] = X.reshape(-1)
+    Xu = buf[1:].view(X.shape)
+    assert Xu.data_ptr() % 16 == 4
+    G, h = gram.sketch_gram_cuda(X, b, M)
+    Gu, hu = gram.sketch_gram_cuda(Xu, b, M)
+    assert torch.equal(G, Gu) and torch.equal(h, hu)
 
 
 def test_feature_gram_rejects_bad_arguments(card):
@@ -201,11 +219,11 @@ def _swa_inputs(B, S, H, Hkv, hd, dtype, seed=0):
 
 
 @pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("S", [64, 200, 1000])
+@pytest.mark.parametrize("S", [1, 64, 65, 200, 1000, 4096])
 @pytest.mark.parametrize("window", [None, 48, 1024])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("group", [1, 2, 4])
 def test_swa_flash_matches_plain(card, hd, S, window, causal, dtype, group):
     """K5 against its plain version: float32 sums in other orders, so
     float32 within 3e-5 and bf16 within one bf16 ulp of the plain value,

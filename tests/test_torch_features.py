@@ -6,9 +6,12 @@ The same numpy inputs go through the JAX reference (its Pallas kernels in
 interpret mode, as tests/test_sketch_kernels.py runs them) and through the
 port's CPU path. Feature-map arrays are carried over from the reference
 with ``convert.feature_map_from``, so both sides featurize with the same
-bytes. A numpy model of the CUDA kernels' schedule (tile ownership, row
-splits, masks, split reduction) is held against the plain version; the
-kernels themselves run on the card (``tests/test_torch_cuda.py``,
+bytes. Numpy models of the CUDA kernels' schedules are held against the
+plain version: K4's and float64 K3's tile routine (tile ownership, row
+splits, masks, split reduction) and float32 K3's chunk route (the chunk
+walk, the featurize product once per row, upper-tile ownership with
+mirrored writes, chunk-order sums, and its 3xTF32 arithmetic); the kernels
+themselves run on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
 """
 import dataclasses
@@ -206,6 +209,92 @@ def _kernel_model(X, b, M, c, dtype=torch.float32):
     return slabs.sum(0), hslab.sum(0)
 
 
+def _tf32(x) -> np.ndarray:
+    """float32 -> TF32 (10 mantissa bits), nearest with ties away from zero,
+    as ``cvt.rna.tf32.f32``; returned as float32."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _product(X, Y, arith, depth=32, groups=1):
+    """X (M, K) @ Y (K, N) as K3's chunk route sums it: in float64
+    (``arith="f64"``, the schedule alone) or as its 3xTF32 mma
+    (``"3xtf32"``): the k-range in ``depth``-deep tiles, dealt in turn to
+    ``groups`` groups of warps; each tile summed from zero as
+    small*big + big*small + big*big of the TF32 splits (exact products),
+    rounded to float32 and added to its group's float32 running sum; the
+    groups' sums added in group order."""
+    if arith == "f64":
+        return X @ Y
+    acc = np.zeros((groups, X.shape[0], Y.shape[1]), np.float32)
+    for i, k0 in enumerate(range(0, X.shape[1], depth)):
+        x, y = X[:, k0:k0 + depth].astype(np.float32), Y[k0:k0 + depth].astype(np.float32)
+        xb, yb = _tf32(x), _tf32(y)
+        xs, ys = _tf32(x - xb), _tf32(y - yb)
+        part = (xs.astype(np.float64) @ yb + xb.astype(np.float64) @ ys
+                + xb.astype(np.float64) @ yb)
+        acc[i % groups] = (acc[i % groups] + part.astype(np.float32)).astype(np.float32)
+    out = acc[0]
+    for q in range(1, groups):
+        out = (out + acc[q]).astype(np.float32)
+    return out
+
+
+SYRK_TILE, SYRK_GROUPS, SYRK_DEPTH = 32, 4, 16   # csrc/feature_gram.cu: kSyrkBT, kSyrkGroups, kSyrkGK
+
+
+def _sketch_chunk_model(A, b, R, chunk_rows=None, arith="f64"):
+    """numpy model of float32 K3's chunk route (csrc/feature_gram.cu).
+
+    Chunks from ``gram.sketch_chunks`` (or ``chunk_rows``); per chunk, in
+    order: T_c = A_c R once per row (32-deep k-tiles), into a workspace
+    whose rows are padded to a multiple of 4 with zeros; then one "CTA" per
+    upper 32 x 32 tile of G adds T_c[:, I]^T T_c[:, J] (16-row slices dealt
+    to 4 groups, summed in group order) to what the earlier chunks wrote,
+    writing r <= c on diagonal tiles and every mirror; diagonal tiles also
+    add T_c[:, I]^T b_c (per group, float32 FMAs in row order under
+    ``"3xtf32"``).
+    """
+    n, d = A.shape
+    m = R.shape[1]
+    chunks, rows_per = gram.sketch_chunks(n)
+    if chunk_rows is not None:
+        chunks, rows_per = max(1, -(-n // chunk_rows)), chunk_rows
+    assert chunks * rows_per >= n and (n == 0 or (chunks - 1) * rows_per < n)
+    dt = np.float64 if arith == "f64" else np.float32
+    ldT, BT = -(-m // 4) * 4, SYRK_TILE
+    tiles = -(-m // BT)
+    G, h = np.full((m, m), np.nan, dt), np.full(m, np.nan, dt)
+    for ch in range(chunks):
+        r0 = ch * rows_per
+        rows = max(0, min(rows_per, n - r0))
+        T = np.zeros((rows, tiles * BT), dt)        # columns >= ldT: zero-filled loads
+        T[:, :m] = _product(A[r0:r0 + rows], R, arith)
+        assert not T[:, m:ldT].any()
+        bc = b[r0:r0 + rows].astype(dt)
+        for ti in range(tiles):
+            for tj in range(ti, tiles):
+                I, J = ti * BT + np.arange(BT), tj * BT + np.arange(BT)
+                acc = _product(T[:, I].T, T[:, J], arith, SYRK_DEPTH, SYRK_GROUPS)
+                rr, cc = np.meshgrid(I, J, indexing="ij")
+                keep = (rr < m) & (cc < m) & ((ti < tj) | (rr <= cc))
+                val = acc[keep] + (G[rr[keep], cc[keep]] if ch else 0)
+                G[rr[keep], cc[keep]] = val
+                G[cc[keep], rr[keep]] = val
+                if ti == tj:
+                    hacc = np.zeros((SYRK_GROUPS, BT), dt)
+                    for r in range(rows):              # one FMA chain per group and column
+                        q = r // SYRK_DEPTH % SYRK_GROUPS
+                        hacc[q] = (hacc[q] + T[r, I] * bc[r]).astype(dt)
+                    hsum = hacc[0]
+                    for q in range(1, SYRK_GROUPS):
+                        hsum = (hsum + hacc[q]).astype(dt)
+                    ok = I < m
+                    h[I[ok]] = hsum[ok] + (h[I[ok]] if ch else 0)
+    assert not np.isnan(G).any() and not np.isnan(h).any()
+    return G, h
+
+
 class TestKernelScheduleModel:
     """The CUDA kernels' tiling, splits and masks compute the plain function."""
 
@@ -214,11 +303,12 @@ class TestKernelScheduleModel:
         (2500, 7, 130, "sketch"), (31, 32, 32, "rff"), (700, 16, 257, "rff"),
         (1, 3, 1, "rff")])
     def test_model_matches_plain(self, n, d, m, kind):
+        """float32 K3 takes the chunk route; K4 the tile routine."""
         rng = np.random.default_rng(n + d + m)
         X, b = rng.standard_normal((n, d)), rng.standard_normal(n)
         M = rng.standard_normal((d, m))
         c = rng.uniform(0, 2 * np.pi, m) if kind == "rff" else None
-        G, h = _kernel_model(X, b, M, c)
+        G, h = _kernel_model(X, b, M, c) if kind == "rff" else _sketch_chunk_model(X, b, M)
         if kind == "rff":
             Gr, hr = ref.rff_gram_ref(*(torch.from_numpy(a) for a in (X, b, M, c)))
         else:
@@ -234,6 +324,53 @@ class TestKernelScheduleModel:
     def test_split_choice(self, n, m, dtype, splits):
         s, rows = gram.feature_splits(n, m, dtype)
         assert s == splits and s * rows >= n and rows % gram._FEATURE_ROWS == 0
+
+    @pytest.mark.parametrize("n,d,m,chunk_rows", [
+        (300, 20, 200, 64), (129, 7, 130, 32), (64, 16, 64, 64), (500, 9, 65, 100),
+        (0, 5, 3, None), (1, 3, 1, None), (4100, 8, 70, None), (4096, 6, 12, None)])
+    def test_sketch_chunk_model_matches_plain_and_float64(self, n, d, m, chunk_rows):
+        """K3's chunk route: n not a multiple of the chunk (a chunk of 4 rows
+        at the real 4096), m not a multiple of the 64-wide tile, one and
+        many chunks, m below one tile. The schedule in float64 equals the
+        plain version; the 3xTF32 arithmetic in float32 stays at float32
+        accuracy (float32 sums of up to 4096 terms with cancellation: 1e-5),
+        far inside chip_smoke.py's 1e-4 Frobenius and the plain-version
+        tolerance."""
+        rng = np.random.default_rng(n + d + m)
+        A = rng.standard_normal((n, d)).astype(np.float32)
+        b = rng.standard_normal(n).astype(np.float32)
+        R = (rng.standard_normal((d, m)) / np.sqrt(m)).astype(np.float32)
+        G64, h64 = ref.sketch_gram_ref(*(torch.from_numpy(a).double() for a in (A, b, R)))
+        G, h = _sketch_chunk_model(A.astype(np.float64), b.astype(np.float64),
+                                   R.astype(np.float64), chunk_rows)
+        np.testing.assert_allclose(G, G64.numpy(), rtol=1e-10, atol=1e-10)
+        np.testing.assert_allclose(h, h64.numpy(), rtol=1e-10, atol=1e-10)
+        assert np.array_equal(G, G.T)
+        G32, h32 = _sketch_chunk_model(A, b, R, chunk_rows, arith="3xtf32")
+        assert G32.dtype == np.float32 and np.array_equal(G32, G32.T)
+        Gp, hp = ref.sketch_gram_ref(*_t(A, b, R))
+        _assert_close(G32, h32, Gp, hp)
+        for x, x64 in ((G32, G64.numpy()), (h32, h64.numpy())):
+            assert np.linalg.norm(x - x64) <= 1e-5 * max(np.linalg.norm(x64), 1e-30)
+
+    def test_one_tf32_pass_is_not_enough(self):
+        """Why three products: one TF32 pass (big*big alone) keeps ~3 digits,
+        too few for the 1e-4 Frobenius check against float64."""
+        rng = np.random.default_rng(0)
+        A = rng.standard_normal((256, 64)).astype(np.float32)
+        R = (rng.standard_normal((64, 32)) / np.sqrt(32)).astype(np.float32)
+        T64 = A.astype(np.float64) @ R
+        one = _tf32(A).astype(np.float64) @ _tf32(R)
+        three = _product(A, R, "3xtf32")
+        assert np.linalg.norm(one - T64) > 1e-4 * np.linalg.norm(T64)
+        assert np.linalg.norm(three - T64) < 1e-6 * np.linalg.norm(T64)
+
+    @pytest.mark.parametrize("n,chunks", [(0, 1), (1, 1), (4096, 1), (4097, 2),
+                                          (16384, 4), (16385, 5)])
+    def test_sketch_chunks(self, n, chunks):
+        c, rows = gram.sketch_chunks(n)
+        assert (c, rows) == (chunks, 4096)
+        assert c * rows >= n and (n == 0 or (c - 1) * rows < n)
 
 
 def _jax_map(kind, seed, d, m, ls=1.0):

@@ -2,11 +2,13 @@
 reference's ``swa_flash_pallas`` (interpret mode) and ``swa_attention_ref``.
 
 The same numpy inputs go to both packages. On the CPU the port's
-``ops.swa_attention`` runs the plain version of K5; a numpy model of the
-CUDA kernel's schedule (which KV blocks a query block visits, the
-per-element mask, the blockwise online softmax, the ragged edge) is held
-against that plain version, so the arithmetic the kernel performs is
-checked here even though the kernel itself runs only on the card.
+``ops.swa_attention`` runs the plain version of K5; numpy models of the
+CUDA kernel's two routines (which KV blocks a query block visits, the
+per-element mask, the blockwise online softmax, the ragged edge; for the
+bfloat16 tensor-core routine also the edge-only mask, the exp2 softmax and
+the hi/lo split of P rounded as bf16) are held against that plain version,
+so the arithmetic the kernel performs is checked here even though the
+kernel itself runs only on the card.
 """
 import importlib.util
 from pathlib import Path
@@ -177,6 +179,69 @@ def _kernel_model(q, k, v, window, causal):
     return out
 
 
+def _edge_block(q0: int, k0: int, S: int, window, causal: bool) -> bool:
+    """The bf16 routine's test for a KV block that needs the mask: it holds
+    keys >= S, crosses the diagonal, or reaches the window's far edge."""
+    return (k0 + BLOCK > S or (causal and k0 + BLOCK - 1 > q0)
+            or (window is not None and q0 + BLOCK - 1 - k0 >= window))
+
+
+def _bf16(x) -> np.ndarray:
+    """Round float32 values to bf16 (nearest even) and back, as the card's
+    ``__floats2bfloat162_rn``."""
+    return np.asarray(x, np.float32).astype(ml_dtypes.bfloat16).astype(np.float32)
+
+
+def _kernel_model_bf16(q, k, v, window, causal, *, split_p=True, mask_every_block=False):
+    """The bf16 tensor-core routine: scores in float32 from bf16 q, k (whose
+    products are exact in float32), scaled into the log2 domain, masked only
+    on edge blocks, exp2 online softmax; P @ V as P_hi V + P_lo V with
+    P_hi = bf16(p) and P_lo = bf16(p - P_hi) (``split_p=False``: P_hi V
+    alone), float32 sums; the output rounded to bf16."""
+    B, S, H, hd = q.shape
+    group = H // k.shape[2]
+    scale_log2 = np.float32(np.float32(hd ** -0.5) * np.float32(np.log2(np.e)))
+    out = np.zeros(q.shape, np.float32)
+    for b in range(B):
+        for h in range(H):
+            for q0 in range(0, S, BLOCK):
+                Q = np.zeros((BLOCK, hd), np.float32)
+                Q[:min(BLOCK, S - q0)] = q[b, q0:q0 + BLOCK, h]
+                q_pos = q0 + np.arange(BLOCK)
+                m = np.full(BLOCK, -1e30, np.float32)
+                l = np.zeros(BLOCK, np.float32)
+                acc = np.zeros((BLOCK, hd), np.float32)
+                for kb in _kv_block_range(q0, S, window, causal):
+                    k0 = kb * BLOCK
+                    Kt = np.zeros((BLOCK, hd), np.float32)
+                    Vt = np.zeros((BLOCK, hd), np.float32)
+                    Kt[:min(BLOCK, S - k0)] = k[b, k0:k0 + BLOCK, h // group]
+                    Vt[:min(BLOCK, S - k0)] = v[b, k0:k0 + BLOCK, h // group]
+                    s = (Q @ Kt.T) * scale_log2
+                    if mask_every_block or _edge_block(q0, k0, S, window, causal):
+                        s = np.where(_keep(q_pos, k0 + np.arange(BLOCK), S, window, causal),
+                                     s, np.float32(-1e30))
+                    m_new = np.maximum(m, s.max(1))
+                    alpha = np.exp2(m - m_new)
+                    p = np.exp2(s - m_new[:, None])
+                    l = l * alpha + p.sum(1)
+                    p_hi = _bf16(p)
+                    acc = acc * alpha[:, None] + p_hi @ Vt
+                    if split_p:
+                        acc = acc + _bf16(p - p_hi) @ Vt
+                    m = m_new
+                rows = min(BLOCK, S - q0)
+                out[b, q0:q0 + rows, h] = (acc / np.maximum(l, 1e-30)[:, None])[:rows]
+    return _bf16(out)
+
+
+def _bf16_ulps(o, p) -> float:
+    """chip_smoke.py's check: worst |o - p| / (2^-7 |p| + 1e-4); one bf16 ulp
+    of the plain value passes (<= 1)."""
+    o, p = np.asarray(o, np.float64), np.asarray(p, np.float64)
+    return float((np.abs(o - p) / (np.abs(p) * 2.0 ** -7 + 1e-4)).max())
+
+
 class TestKernelSchedule:
     @pytest.mark.parametrize("S", [1, 63, 64, 65, 200, 1100])
     @pytest.mark.parametrize("window", [None, 1, 48, 1024])
@@ -214,3 +279,59 @@ class TestKernelSchedule:
         ok = _keep(q_pos, np.arange(S), S, window, True)
         per_row = np.minimum(q_pos + 1, window or S)
         assert (ok.sum(1) == per_row).all()
+
+
+class TestTensorCoreSchedule:
+    """The bf16 routine of csrc/swa_flash.cu (mma.sync): 64-row query blocks,
+    64-key blocks, the mask only on edge blocks, P split into bf16 hi and
+    lo parts."""
+
+    @pytest.mark.parametrize("S", [1, 63, 64, 65, 200, 1100])
+    @pytest.mark.parametrize("window", [None, 1, 48, 1024])
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_edge_blocks_are_exactly_the_blocks_with_a_dropped_pair(self, S, window, causal):
+        for q0 in range(0, S, BLOCK):
+            q_pos = q0 + np.arange(BLOCK)            # all 64 rows, also those >= S
+            for kb in _kv_block_range(q0, S, window, causal):
+                k0 = kb * BLOCK
+                ok = _keep(q_pos, k0 + np.arange(BLOCK), S, window, causal)
+                assert _edge_block(q0, k0, S, window, causal) == (not ok.all())
+
+    @pytest.mark.parametrize("S,window,causal,hd,group", [
+        (200, None, True, 64, 2), (200, 48, True, 128, 1), (130, 3, True, 64, 2),
+        (1, None, True, 128, 1), (65, 1, True, 64, 1), (256, 1024, False, 128, 2),
+        (200, 48, False, 64, 1), (1100, 1024, True, 64, 2)])
+    def test_model_within_one_bf16_ulp_of_plain(self, S, window, causal, hd, group):
+        """The hi/lo split keeps P @ V at float32 accuracy: every element
+        within one bf16 ulp of the plain version, chip_smoke.py's limit; and
+        skipping the mask on interior blocks changes no bit."""
+        q, k, v = (_bf16(a) for a in _inputs(1, S, 2, 2 // group, hd, seed=S + hd))
+        plain = ref.swa_attention_ref(*(t.bfloat16() for t in _port([q, k, v])),
+                                      window=window, causal=causal)
+        model = _kernel_model_bf16(q, k, v, window, causal)
+        assert _bf16_ulps(model, _f32(plain)) <= 1
+        assert np.array_equal(
+            model, _kernel_model_bf16(q, k, v, window, causal, mask_every_block=True))
+
+    @pytest.mark.parametrize("S,window", [(200, None), (130, 3), (1100, 1024)])
+    def test_bf16_only_p_breaks_the_check(self, S, window):
+        """Why P is split: P rounded once to bf16 before P @ V (2^-9 relative
+        per weight) lands many bf16 ulps from the plain value."""
+        q, k, v = (_bf16(a) for a in _inputs(1, S, 2, 1, 64, seed=S))
+        plain = _f32(ref.swa_attention_ref(*(t.bfloat16() for t in _port([q, k, v])),
+                                           window=window))
+        assert _bf16_ulps(_kernel_model_bf16(q, k, v, window, True, split_p=False),
+                          plain) > 2
+
+    @pytest.mark.parametrize("S,window", [(200, 48), (1000, 48), (4096, 1024), (4096, None)])
+    def test_bf16_matches_pallas_kernel(self, S, window):
+        """The model against the reference's Pallas kernel in interpret mode
+        at tests/test_kernels.py's bf16 tolerance, the serving shape's S
+        included (one head: interpret mode is slow)."""
+        B, H, hd = 1, 1, 128 if S < 4096 else 64
+        q, k, v = _inputs(B, S, H, H, hd, "bfloat16", seed=S)
+        o_jax = jops.swa_attention(*(jnp.asarray(a) for a in (q, k, v)), window=window,
+                                   block_q=128 if S % 128 == 0 else 64,
+                                   block_k=128 if S % 128 == 0 else 64)
+        model = _kernel_model_bf16(*(_f32(a) for a in (q, k, v)), window, True)
+        np.testing.assert_allclose(model, _f32(o_jax), atol=TOL["bfloat16"])
