@@ -67,20 +67,22 @@ MODEL_BATCH, MODEL_PROMPT, MODEL_GEN = 4, 4096, 32
 MODEL_SEED = 0
 
 # Published peaks, NVIDIA data sheets: memory bytes/s, FP32 operations/s
-# outside the tensor cores (the bound of K1-K4 and P, float32 work), dense
+# outside the tensor cores (the bound of K2 and P, float32 work), dense
 # bf16 tensor-core operations/s (the bound of K5's bf16 attention) and
-# dense TF32 tensor-core operations/s (K3's 3xTF32 route: a third of it).
+# dense TF32 tensor-core operations/s (K1's, K3's and K4's 3xTF32 routes:
+# a third of it).
 CARD_PEAKS = {
     "H100 PCIe": (2.0e12, 51e12, 756e12, 378e12),
     "H100 NVL": (3.9e12, 60e12, 835e12, 418e12),
     "H100": (3.35e12, 67e12, 989e12, 495e12),     # SXM5 (HBM3)
 }
 
-# K3's and K5's times on their earlier CUDA-core routines, quoted from
-# PERF.md §6 (NVIDIA H100 80GB HBM3, 700.00 W). They are not measured by
-# this script: its output keeps them apart, under "quoted_not_measured",
-# beside the speed-up of this run's time over them.
-EARLIER_MS = {"sketch_gram": 61.828, "swa_flash": {"swa": 7.880, "full": 17.252}}
+# K1's, K3's, K4's and K5's times on their earlier CUDA-core routines,
+# quoted from PERF.md §6 (NVIDIA H100 80GB HBM3, 700.00 W). They are not
+# measured by this script: its output keeps them apart, under
+# "quoted_not_measured", beside the speed-up of this run's time over them.
+EARLIER_MS = {"gram_moment": 13.210, "sketch_gram": 61.828, "rff_gram": 46.670,
+              "swa_flash": {"swa": 7.880, "full": 17.252}}
 EARLIER_FROM = "PERF.md §6, CUDA-core routines, NVIDIA H100 80GB HBM3, 700.00 W"
 
 
@@ -202,7 +204,7 @@ def device_phase() -> dict:
     build_s = _build.build_all()
     regs = {name: ptxas_report(log) for name, log in _build.build_logs().items()}
     hmma = {name: tensor_core_ops(str(_build._build_dir() / f"lib{name}.so"))
-            for name in ("swa_flash", "feature_gram")}
+            for name in ("swa_flash", "feature_gram", "gram_moment")}
     return {"phase": "device", "nvidia_smi": smi(),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "build_s": build_s, "ptxas": regs, "sass_hmma": hmma,
@@ -239,6 +241,10 @@ def kernel_phase(peaks) -> tuple[dict, dict]:
     k1 = {"G_rel": rel_err(G, Gr), "h_rel": rel_err(h, hr),
           "max_abs_err": float(max((G - Gr).abs().max(), (h - hr).abs().max())),
           "bitwise_repeat": True}
+    G64, h64 = ref.gram_moment_ref(A.double(), b.double())
+    k1["G_fro_f64"], k1["h_fro_f64"] = fro_rel(G, G64), fro_rel(h, h64)
+    check(k1["G_fro_f64"] <= 1e-4 and k1["h_fro_f64"] <= 1e-4, f"K1 vs float64: {k1}")
+    del G64, h64
     Ab, bb = A.bfloat16(), b.bfloat16()
     Gb, hb = K.gram_moment_cuda(Ab, bb)
     Gbr, hbr = ref.gram_moment_ref(Ab, bb)
@@ -263,15 +269,26 @@ def kernel_phase(peaks) -> tuple[dict, dict]:
     ms = cuda_ms(lambda: K.gram_moment_cuda(A, b))
     plain_ms = cuda_ms(lambda: ref.gram_moment_ref(A, b))
     lib_ms = cuda_ms(lambda: A.T @ A)
-    bms, by = bound(n * d * (d + 1) + 2 * n * d, 4 * (n * d + n + d * d + d),
-                    peaks)
+    # float32 K1 runs 3xTF32 on the tensor cores: its bound is at that rate;
+    # the FP32 one stays in the detail
+    ops, nbytes = n * d * (d + 1) + 2 * n * d, 4 * (n * d + n + d * d + d)
+    bms, by = bound(ops, nbytes, peaks, rate="3xtf32")
+    k1.update(tile=K.gram_tile(n, d, A.dtype), ms=ms, library_ms=lib_ms,
+              tflops=ops / ms / 1e9, bound_ms_3xtf32=bms,
+              bound_ms_fp32=bound(ops, nbytes, peaks)[0],
+              # one streamed row as the streaming steps launch it (the
+              # CUDA-core kernel for one row), then each route's launch alone,
+              # in turns, 100 calls each
+              row_ms=cuda_ms(lambda: K.gram_moment_cuda(A1, b1)),
+              row_route_ms=row_routes(A1, b1),
+              **quoted_earlier(EARLIER_MS["gram_moment"], ms))
     rows["gram_moment"] = dict(
         name="gram_moment", route="cuda",
         source="src/repro_torch/csrc/gram_moment.cu",
         replaces="src/repro/kernels/gram.py:272", max_abs_err=k1["max_abs_err"],
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
-    detail["gram_moment"] = {**k1, "shape": [n, d], "tolerance": "rel 1e-4 (f32, bf16), 1e-12 (f64)"}
-    del A, b, G, G2, Gr, Ab, Gb, Gbr
+    detail["gram_moment"] = {**k1, "shape": [n, d], "tolerance": "rel 1e-4 (f32, bf16), 1e-12 (f64); float64: 1e-4 Frobenius"}
+    del A, b, G, G2, Gr, Ab, Gb, Gbr, A1, b1
 
     # K2 at the first panel's trailing-GEMM shape of a rank-64 update.
     m, nn, k = DIM - PANEL, PANEL + COALESCE_RANK, PANEL + COALESCE_RANK
@@ -350,6 +367,19 @@ def kernel_phase(peaks) -> tuple[dict, dict]:
     detail[row["name"]] = det
     return ({"phase": "kernels", "detail": detail,
              "seconds": time.perf_counter() - t0}, rows)
+
+
+def row_routes(A1: torch.Tensor, b1: torch.Tensor) -> dict:
+    """K1's two routes on one row, launched alike (``gram._gram_moment``)
+    in turns: the CUDA-core kernel (tile 0), the SYRK, the SYRK, the
+    CUDA-core kernel; median ms of 100 calls each."""
+    from repro_torch.kernels import gram as K
+
+    tiles = {"cuda_core": 0, "syrk": K.syrk_tile(A1.shape[1])}
+    out = {name: [] for name in tiles}
+    for name in ("cuda_core", "syrk", "syrk", "cuda_core"):
+        out[name].append(cuda_ms(lambda: K._gram_moment(A1, b1, tiles[name]), reps=100))
+    return out
 
 
 def fro_rel(x: torch.Tensor, ref: torch.Tensor) -> float:
@@ -445,16 +475,14 @@ def feature_kernel_row(kind: str, g, peaks) -> tuple[dict, dict]:
     lib_ms = cuda_ms(library)
     ops = 2 * n * d * m + n * m * (m + 1) + 2 * n * m
     nbytes = 4 * (n * d + n + d * m + (0 if c is None else m) + m * m + m)
-    # K3 runs float32 as 3xTF32 on the tensor cores: its bound is at that
-    # rate; the FP32 one stays in the detail, comparable with K4's
-    bms, by = bound(ops, nbytes, peaks, rate="3xtf32" if kind == "sketch" else "fp32")
-    det.update(ms=ms, library_ms=lib_ms, tflops=ops / ms / 1e9)
-    if kind == "sketch":
-        det["bound_ms_3xtf32"] = bms
-        det["bound_ms_fp32"] = bound(ops, nbytes, peaks)[0]
-        # its two kernels' device time (featurize GEMM, SYRK) in one call
-        det["profile"] = profile_top(lambda: kernel(X, b, M, c), top=4)
-        det.update(quoted_earlier(EARLIER_MS[name], ms))
+    # float32 runs 3xTF32 on the tensor cores: the bound is at that rate;
+    # the FP32 one stays in the detail
+    bms, by = bound(ops, nbytes, peaks, rate="3xtf32")
+    det.update(ms=ms, library_ms=lib_ms, tflops=ops / ms / 1e9, bound_ms_3xtf32=bms,
+               bound_ms_fp32=bound(ops, nbytes, peaks)[0], syrk_tile=K.syrk_tile(m),
+               # its two kernels' device time (featurize GEMM, SYRK) in one call
+               profile=profile_top(lambda: kernel(X, b, M, c), top=4),
+               **quoted_earlier(EARLIER_MS[name], ms))
     row = dict(name=name, route="cuda", source="src/repro_torch/csrc/feature_gram.cu",
                replaces=("src/repro/kernels/gram.py:187" if kind == "sketch"
                          else "src/repro/kernels/gram.py:225"),
@@ -623,6 +651,14 @@ def main_path_phase() -> tuple:
     errs["predict_rel"] = max(rel_err(p, pred_ref[8 * i:8 * i + 8, i % 4])
                               for i, p in enumerate(preds))
     check(errs["predict_rel"] <= 1e-5, f"predictions {errs['predict_rel']}")
+
+    # one solve off the cached factor: the engine's (refined once with a
+    # float64 residual) beside a single factor solve of the same factor
+    L = eng.factor(SIGMA)
+    steps["solve_ms"] = cuda_ms(lambda: eng.solve(SIGMA))
+    steps["one_pass_solve_ms"] = cuda_ms(
+        lambda: torch.cholesky_solve(eng.stats.moment[:, None], L))
+    del L
 
     # 3. 256 streamed single rows through the coalescer, then flush: the
     #    cached factors are updated (kernels P and K2), never refactored.

@@ -16,23 +16,23 @@
 //
 // Two routes.
 //
-// K3 in float32 and with bfloat16 input (`launch_sketch`): T = A R is
-// computed once per row, through a bounded workspace, on the tensor cores.
+// Float32 and bfloat16 input (`launch_chunks`): T is computed once per row,
+// through a bounded workspace, on the tensor cores.
 //   * The rows are walked in chunks of a fixed, shape-only size (the
-//     wrapper's 4096 rows: T's chunk is 16 MB at m 1024, held in the 50 MB
-//     L2; the workspace does not grow with n). For each chunk, in order:
-//     (a) `sketch_featurize_kernel` writes T_c = A_c R: 128 x 128 CTA tiles,
+//     wrapper's 4096 rows; the workspace does not grow with n). For each
+//     chunk, in order:
+//     (a) `featurize_kernel` writes T_c = A_c R (K3) or sqrt(2/D) cos(X_c W
+//         + c) (K4, the cosine as the GEMM's epilogue): 128 x 128 CTA tiles,
 //         8 warps of 64 x 32, the d-reduction in 32-deep tiles in order;
-//     (b) `sketch_syrk_kernel`, one CTA per upper 32 x 32 tile (I, J) of G
-//         (528 at m 1024, four to an SM), adds T_c[:, I]^T T_c[:, J] to the
-//         tile (G of the earlier chunks read back) and writes it with its
-//         mirror; diagonal CTAs also add T_c[:, I]^T b_c in float32 FMAs.
-//         Four one-warp groups take the 16-row slices of each 64-row tile
-//         in turn and add their sums in group order. (Larger tiles leave
-//         136 CTAs for 132 SMs: two waves.) Chunks are added in order.
-//     T through the workspace costs ~2 n m 4 B of traffic (128 MB at the
-//     path's shape, 0.04 ms at 3.35 TB/s), mostly L2 hits: cheap next to
-//     the 9x featurize recompute that a tile-owning CTA would pay.
+//     (b) `syrk_kernel` (tc_syrk.cuh) adds T_c^T T_c to G and T_c^T b_c to
+//         h, one CTA per upper G tile, the tile edge (32 or 128) chosen by
+//         the wrapper from m alone. Chunks are added in order.
+//     K3 at m 1024 (16 MB of T a chunk, in L2) takes 32-wide tiles: 528
+//     CTAs, where 128-wide ones would be 36. K4 at D 4096 takes 128-wide
+//     ones: 528 CTAs. Its T chunk is 64 MB, beyond L2: T costs 2 n D 4 B of
+//     traffic (0.5 GB, ~0.15 ms at 3.35 TB/s) and G's read-back 4 chunks x
+//     2 D^2 4 B (1 GB, ~0.3 ms), small beside ~5 ms of mma; the tile
+//     routine instead rebuilt T 2 D / 128 times over.
 //   * Products are 3xTF32 on `mma.sync.m16n8k8`: each float32 operand x is
 //     split into big = tf32(x) and small = tf32(x - big), and
 //     small*big + big*small + big*big goes into float32 accumulators, which
@@ -41,41 +41,36 @@
 //     cores round their float32 sums toward zero, a bias that grows with
 //     the length of the sum (~2^-24 x terms): each k-tile's sum starts from
 //     zero and is added to the running sum by a round-to-nearest FADD, so
-//     no biased sum is longer than 12 mma (6 in the SYRK).
+//     no biased sum is longer than 12 mma.
 //   * Operand tiles go through a three-stage shared-memory ring with
 //     `cp.async` (16-byte copies when rows are 16-byte aligned, else 4-byte;
 //     bfloat16 operands are converted to float32 on a synchronous load).
 //     Rows of 36, 40 and 136 floats keep the fragment loads off bank
 //     conflicts. Ragged n, d and m are masked (zero-filled), not padded.
-//   * Diagonal G tiles write only r <= c and its mirror: the tensor core may
-//     sum T_r . T_c and T_c . T_r in other orders, so G is exactly symmetric
-//     only because each pair is computed once.
-//   * What holds it back: one 8-warp featurize CTA per SM (240 registers),
-//     the mma.sync throughput with 3 mma per product and the TF32 splits'
-//     ALU work; no `wgmma` or TMA yet.
+//   * K4's masks (cos(0 + c) != 0, so zero-filled loads mask nothing after
+//     the cosine): the featurize kernel never writes T rows past the chunk,
+//     which the SYRK loads as zeros, and writes the padding columns m <= c <
+//     ldT as zeros. The scale is sqrt(2/D) with the true D, the cosine the
+//     accurate cosf (no --use_fast_math): |x w + c| reaches tens of radians.
+//   * What holds it back: one 8-warp CTA per SM (240 registers), the
+//     mma.sync throughput with 3 mma per product and the TF32 splits' ALU
+//     work; no `wgmma` or TMA yet.
 
-// K4 and K3 in float64 (`launch`): one tile routine on the CUDA cores.
-//   * One CTA owns an upper tile (I, J) of G (I <= J, BT x BT, BT = 128 for
-//     float32 accumulation, 64 for float64) and one split of the rows. It
-//     walks its rows in a fixed order, 64 at a time. For each chunk it builds
-//     T[chunk, I] and T[chunk, J] in shared memory (a 64 x 2BT product over
-//     d, in fixed order over d, from A and the I and J columns of R), applies
-//     the epilogue, and accumulates G_IJ += T_I^T T_J in registers. Diagonal
-//     CTAs also accumulate h. The tile is written with its mirror, so G is
-//     exactly symmetric. T never leaves shared memory.
+// Float64 K3 and K4 (`launch`): one tile routine on the CUDA cores.
+//   * One CTA owns an upper 64 x 64 tile (I, J) of G (I <= J) and one split
+//     of the rows. It walks its rows in a fixed order, 64 at a time. For
+//     each chunk it builds T[chunk, I] and T[chunk, J] in shared memory (a
+//     64 x 128 product over d, in fixed order over d, from A and the I and J
+//     columns of R), applies the epilogue, and accumulates G_IJ += T_I^T T_J
+//     in registers. Diagonal CTAs also accumulate h. The tile is written with
+//     its mirror, so G is exactly symmetric. T never leaves shared memory.
 //   * Each CTA recomputes the featurize product for its own columns, so the
-//     featurize work is done about 2 (m / BT) times over instead of once.
-//     That is the price of owning G tiles without atomics; the bound counts
-//     only the essential work, so it shows as a gap there.
+//     featurize work is done about 2 (m / 64) times over instead of once.
 //   * Rows are split over blockIdx.y only when there are few G tiles: each
 //     split writes a partial G and h to a workspace, and a second kernel adds
 //     the splits in split order. The split count depends only on (n, m).
-//   * K4 masks rows past the end of its split to zero after the cosine,
-//     because cos(0 + c) != 0, and scales by sqrt(2/D) with the true D. It
-//     uses the accurate cosf (no --use_fast_math): |x w + c| reaches tens of
-//     radians.
-//   * Inputs are converted to the accumulation type on load: float32 and
-//     bfloat16 accumulate in float32, float64 in float64.
+//   * K4 masks rows past the end of its split to zero after the cosine and
+//     scales by sqrt(2/D) with the true D.
 //
 // Both routes: fixed orders and no atomics, so the same input gives the same
 // bits on every run, whatever the card.
@@ -85,6 +80,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tc_syrk.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -93,17 +90,10 @@ constexpr int kDK = 16;     // columns of A per featurize step
 constexpr int kPad = 4;     // keeps the transposed A tile off one bank
 
 template <typename Acc> struct Tile;
-template <> struct Tile<float> { static constexpr int TM = 8; };
 template <> struct Tile<double> { static constexpr int TM = 4; };
 
-__device__ __forceinline__ float cvt(float x, float) { return x; }
 __device__ __forceinline__ double cvt(double x, double) { return x; }
-__device__ __forceinline__ float cvt(__nv_bfloat16 x, float) { return __bfloat162float(x); }
-
-__device__ __forceinline__ float fma_acc(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double fma_acc(double a, double b, double c) { return fma(a, b, c); }
-
-__device__ __forceinline__ float cos_acc(float x) { return cosf(x); }
 __device__ __forceinline__ double cos_acc(double x) { return cos(x); }
 
 template <typename Acc>
@@ -311,186 +301,25 @@ int launch(const void* A, const void* b, const void* R, const void* c, void* G,
 }
 
 // ---------------------------------------------------------------------------
-// K3, float32 and bfloat16 input: T once per chunk of rows (3xTF32 mma.sync).
+// The chunk route (K3 and K4, float32 and bfloat16 input): T once per chunk
+// of rows, then the tensor-core SYRK of tc_syrk.cuh.
 
-constexpr int kStages = 3;      // depth of the cp.async ring
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x -> (big, small): big = tf32(x), small = tf32(x - big).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = tf32(x);
-  small = tf32(x - __uint_as_float(big));
-}
-
-// d += a (16x8, row) * b (8x8, col); tf32 in, float32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A ROWS x COLS tile of a row-major matrix (row stride ld) from (row0, col0)
-// into shared memory (row stride lds), as float32; elements at rows >=
-// row_lim or columns >= col_lim are zeros. Float32 goes by cp.async (16-byte
-// copies when kVec: col_lim, ld and the base 16-byte aligned), bfloat16 by a
-// synchronous load and convert.
-template <int ROWS, int COLS, int THREADS, bool kVec>
-__device__ __forceinline__ void load_tile(float* dst, int lds, const float* src, int64_t ld,
-                                          int row0, int col0, int row_lim, int col_lim,
-                                          int tid) {
-  constexpr int kW = kVec ? 4 : 1;
-  constexpr int kC = COLS / kW;
-  static_assert(ROWS * kC % THREADS == 0, "tile not a multiple of the CTA");
-#pragma unroll
-  for (int i = 0; i < ROWS * kC / THREADS; ++i) {
-    const int e = tid + i * THREADS;
-    const int r = e / kC, c = (e % kC) * kW;
-    const bool ok = row0 + r < row_lim && col0 + c < col_lim;
-    const float* p = ok ? src + (row0 + r) * ld + col0 + c : src;
-    if constexpr (kVec) cp_async16(dst + r * lds + c, p, ok ? 16 : 0);
-    else cp_async4(dst + r * lds + c, p, ok ? 4 : 0);
-  }
-}
-
-template <int ROWS, int COLS, int THREADS, bool kVec>
-__device__ __forceinline__ void load_tile(float* dst, int lds, const __nv_bfloat16* src,
-                                          int64_t ld, int row0, int col0, int row_lim,
-                                          int col_lim, int tid) {
-  static_assert(ROWS * COLS % THREADS == 0, "tile not a multiple of the CTA");
-#pragma unroll 4
-  for (int i = 0; i < ROWS * COLS / THREADS; ++i) {
-    const int e = tid + i * THREADS;
-    const int r = e / COLS, c = e % COLS;
-    const bool ok = row0 + r < row_lim && col0 + c < col_lim;
-    dst[r * lds + c] = ok ? __bfloat162float(src[(row0 + r) * ld + col0 + c]) : 0.f;
-  }
-}
-
-// acc += A B over one BK-deep tile, for this warp's (16 MT) x (8 NT) block
-// at (wm0, wn0) of the CTA tile. A(i, k) is As[i * lda + k], or As[k * lda
-// + i] when kATrans; B(k, j) is Bs[k * ldb + j]. The tile's products are
-// summed from zero in the tensor cores (3 BK / 8 mma per output fragment)
-// and added to acc by a round-to-nearest FADD.
-template <int MT, int NT, bool kATrans, int BK>
-__device__ __forceinline__ void mma_ktile(float (&acc)[MT][NT][4], const float* As, int lda,
-                                          const float* Bs, int ldb, int wm0, int wn0,
-                                          int lane) {
-  const int g = lane / 4, t = lane % 4;
-  float part[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
-#pragma unroll
-  for (int k = 0; k < BK; k += 8) {
-    uint32_t bb[NT][2], bsm[NT][2];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int j = wn0 + nt * 8 + g;
-      split_tf32(Bs[(k + t) * ldb + j], bb[nt][0], bsm[nt][0]);
-      split_tf32(Bs[(k + t + 4) * ldb + j], bb[nt][1], bsm[nt][1]);
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const int i = wm0 + mt * 16 + g;
-      float x[4];
-      if constexpr (kATrans) {
-        x[0] = As[(k + t) * lda + i];
-        x[1] = As[(k + t) * lda + i + 8];
-        x[2] = As[(k + t + 4) * lda + i];
-        x[3] = As[(k + t + 4) * lda + i + 8];
-      } else {
-        x[0] = As[i * lda + k + t];
-        x[1] = As[(i + 8) * lda + k + t];
-        x[2] = As[i * lda + k + t + 4];
-        x[3] = As[(i + 8) * lda + k + t + 4];
-      }
-      uint32_t ab[4], asm_[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(x[e], ab[e], asm_[e]);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        mma_tf32(part[mt][nt], asm_, bb[nt][0], bb[nt][1]);
-        mma_tf32(part[mt][nt], ab, bsm[nt][0], bsm[nt][1]);
-        mma_tf32(part[mt][nt], ab, bb[nt][0], bb[nt][1]);
-      }
-    }
-  }
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
-}
-
-// The cp.async ring: compute(stage) for each of ktiles operand tiles, with
-// load(kt, stage) issuing tile kt kStages - 1 tiles ahead (one commit group
-// per tile, empty past the end; synchronous stores count as done). One
-// barrier per tile: the stage refilled at step kt was read at step kt - 1.
-template <typename Load, typename Compute>
-__device__ __forceinline__ void pipeline(int ktiles, Load load, Compute compute) {
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles) load(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int next = kt + kStages - 1;
-    if (next < ktiles) load(next, next % kStages);
-    cp_async_commit();
-    compute(kt % kStages);
-  }
-}
-
-// (a) T[r, c] = sum_k A[r, k] R[k, c] for r < rows, c < ldT (zeros for
-// m <= c < ldT). 128 x 128 tiles over (c, r), 32 deep; 8 warps as 2 x 4 of
-// 64 x 32.
+// (a) T[r, c] for r < rows, c < ldT: the product P = sum_k A[r, k] R[k, c],
+// or for K4 (kRFF) scale * cos(P + c[col]), with zeros for m <= c < ldT
+// either way (cos(0 + c) != 0, so K4 writes them explicitly). Rows >= rows
+// are never written. 128 x 128 tiles over (c, r), 32 deep; 8 warps as 2 x 4
+// of 64 x 32.
 constexpr int kFeatThreads = 256;
 constexpr int kFeatBM = 128, kFeatBN = 128, kFeatBK = 32;
 constexpr int kFeatLdA = kFeatBK + 4;   // A fragments on distinct banks
 constexpr int kFeatLdB = kFeatBN + 8;   // B fragments on distinct banks
 constexpr int kFeatStage = kFeatBM * kFeatLdA + kFeatBK * kFeatLdB;
 
-template <typename TA, typename TR, bool kVec>
+template <typename TA, typename TR, bool kVec, bool kRFF>
 __global__ void __launch_bounds__(kFeatThreads, 1)
-sketch_featurize_kernel(const TA* __restrict__ A, const TR* __restrict__ R,
-                        float* __restrict__ T, int rows, int d, int m, int ldT) {
+featurize_kernel(const TA* __restrict__ A, const TR* __restrict__ R,
+                 const TR* __restrict__ cvec, float scale, float* __restrict__ T,
+                 int rows, int d, int m, int ldT) {
   constexpr int MT = 4, NT = 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
@@ -532,144 +361,40 @@ sketch_featurize_kernel(const TA* __restrict__ A, const TR* __restrict__ R,
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int r = row0 + wm0 + mt * 16 + g + 8 * hh;
-        if (r < rows && c < ldT)
+        if (r < rows && c < ldT) {
+          float v0 = acc[mt][nt][2 * hh], v1 = acc[mt][nt][2 * hh + 1];
+          if constexpr (kRFF) {
+            v0 = c < m ? scale * cosf(v0 + to_f32(cvec[c])) : 0.f;
+            v1 = c + 1 < m ? scale * cosf(v1 + to_f32(cvec[c + 1])) : 0.f;
+          }
           *reinterpret_cast<float2*>(T + static_cast<int64_t>(r) * ldT + c) =
-              make_float2(acc[mt][nt][2 * hh], acc[mt][nt][2 * hh + 1]);
+              make_float2(v0, v1);
+        }
       }
     }
 }
 
-// (b) One upper 32 x 32 tile (I, J) of G per CTA: G_IJ (+)= T_I^T T_J over
-// the chunk's rows, written with its mirror; diagonal CTAs also h_I (+)=
-// T_I^T b. `accumulate` adds to what the earlier chunks wrote. There are few
-// tiles and the sums are long, so four one-warp groups take the 16-row
-// slices of each 64-row tile in turn, and the groups' sums are added in
-// group order at the end.
-constexpr int kSyrkBT = 32;                     // tile edge: 528 CTAs at m 1024
-constexpr int kSyrkGroups = 4;                  // one warp each
-constexpr int kSyrkThreads = 32 * kSyrkGroups;
-constexpr int kSyrkGK = 16;                     // rows per group per tile
-constexpr int kSyrkBK = kSyrkGroups * kSyrkGK;
-constexpr int kSyrkLd = kSyrkBT + 8;            // B fragments on distinct banks
-constexpr int kSyrkStage = 2 * kSyrkBK * kSyrkLd + kSyrkBK;
-constexpr int kSyrkSmem = kStages * kSyrkStage * static_cast<int>(sizeof(float));
-
-template <typename TB>
-__global__ void __launch_bounds__(kSyrkThreads)
-sketch_syrk_kernel(const float* __restrict__ T, const TB* __restrict__ b,
-                   float* __restrict__ G, float* __restrict__ h, int rows, int m,
-                   int ldT, int tiles, int accumulate) {
-  constexpr int MT = kSyrkBT / 16, NT = kSyrkBT / 8;   // a warp: the whole tile
-  constexpr int kRed = MT * NT * 4 * 32 + 32;          // one group's sums in shared memory
-  static_assert((kSyrkGroups - 1) * kRed <= kStages * kSyrkStage, "reduction does not fit");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* smem = reinterpret_cast<float*>(smem_raw);
-  int tt = blockIdx.x;
-  int ti = 0;
-  while (tt >= tiles - ti) {
-    tt -= tiles - ti;
-    ++ti;
-  }
-  const int tj = ti + tt;
-  const bool diag = ti == tj;
-  const int i0 = ti * kSyrkBT, j0 = tj * kSyrkBT;
-  const int tid = threadIdx.x, lane = tid % 32;
-  const int group = tid / 32;
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  float hacc = 0.f;
-
-  pipeline(
-      (rows + kSyrkBK - 1) / kSyrkBK,
-      [&](int kt, int stage) {
-        float* As = smem + stage * kSyrkStage;
-        float* Bs = As + kSyrkBK * kSyrkLd;
-        float* bs = Bs + kSyrkBK * kSyrkLd;
-        const int k0 = kt * kSyrkBK;
-        load_tile<kSyrkBK, kSyrkBT, kSyrkThreads, true>(As, kSyrkLd, T, ldT, k0, i0, rows, ldT, tid);
-        load_tile<kSyrkBK, kSyrkBT, kSyrkThreads, true>(Bs, kSyrkLd, T, ldT, k0, j0, rows, ldT, tid);
-        if (diag && tid < kSyrkBK) bs[tid] = k0 + tid < rows ? cvt(b[k0 + tid], 0.f) : 0.f;
-      },
-      [&](int stage) {
-        const float* As = smem + stage * kSyrkStage + group * kSyrkGK * kSyrkLd;
-        const float* Bs = As + kSyrkBK * kSyrkLd;
-        mma_ktile<MT, NT, true, kSyrkGK>(acc, As, kSyrkLd, Bs, kSyrkLd, 0, 0, lane);
-        if (diag) {
-          const float* bs = smem + stage * kSyrkStage + 2 * kSyrkBK * kSyrkLd + group * kSyrkGK;
-#pragma unroll
-          for (int k = 0; k < kSyrkGK; ++k) hacc = fmaf(As[k * kSyrkLd + lane], bs[k], hacc);
-        }
-      });
-
-  // groups 1.. leave their sums in shared memory; group 0 adds them in order
-  __syncthreads();
-  if (group > 0) {
-    float* red = smem + (group - 1) * kRed;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) red[((mt * NT + nt) * 4 + e) * 32 + lane] = acc[mt][nt][e];
-    red[MT * NT * 4 * 32 + lane] = hacc;
-  }
-  __syncthreads();
-  if (group > 0) return;
-  for (int q = 0; q < kSyrkGroups - 1; ++q) {
-    const float* red = smem + q * kRed;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += red[((mt * NT + nt) * 4 + e) * 32 + lane];
-    hacc += red[MT * NT * 4 * 32 + lane];
-  }
-
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = i0 + mt * 16 + g + 8 * (e / 2);
-        const int c = j0 + nt * 8 + 2 * t + (e & 1);
-        if (r < m && c < m && (!diag || r <= c)) {
-          const int64_t rc = static_cast<int64_t>(r) * m + c;
-          const float val = accumulate ? G[rc] + acc[mt][nt][e] : acc[mt][nt][e];
-          G[rc] = val;
-          G[static_cast<int64_t>(c) * m + r] = val;
-        }
-      }
-  if (diag && i0 + lane < m) h[i0 + lane] = accumulate ? h[i0 + lane] + hacc : hacc;
-}
-
-template <typename TA, typename TR>
-int launch_sketch(const void* A, const void* b, const void* R, void* G, void* h, void* work,
-                  int n, int d, int m, int chunks, int chunk_rows, cudaStream_t stream) {
+// For each chunk of chunk_rows rows, in order: (a) T_c into the workspace,
+// (b) G (+)= T_c^T T_c and h (+)= T_c^T b_c by the SYRK with BT-wide tiles
+// (the first chunk writes, later ones add). T's rows are padded to ldT, a
+// multiple of 4 floats, with zeros.
+template <typename TA, typename TR, bool kRFF>
+int launch_chunks(const void* A, const void* b, const void* R, const void* cvec, void* G,
+                  void* h, void* work, int n, int d, int m, int chunks, int chunk_rows,
+                  double scale, int bt, cudaStream_t stream) {
   if (chunks < 1 || chunk_rows < 1 || static_cast<int64_t>(chunks) * chunk_rows < n ||
-      (n > 0 && static_cast<int64_t>(chunks - 1) * chunk_rows >= n) || work == nullptr)
+      (n > 0 && static_cast<int64_t>(chunks - 1) * chunk_rows >= n) || work == nullptr ||
+      (bt != 32 && bt != 128))
     return -1;
   const int ldT = (m + 3) / 4 * 4;
   const bool vec = d % 4 == 0 && m % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(R) % 16 == 0;
-  auto featurize = vec ? sketch_featurize_kernel<TA, TR, true>
-                       : sketch_featurize_kernel<TA, TR, false>;
+  auto featurize = vec ? featurize_kernel<TA, TR, true, kRFF>
+                       : featurize_kernel<TA, TR, false, kRFF>;
   constexpr int kFeatSmem = kStages * kFeatStage * static_cast<int>(sizeof(float));
-  auto syrk = sketch_syrk_kernel<TA>;
   cudaError_t err = cudaFuncSetAttribute(
       featurize, cudaFuncAttributeMaxDynamicSharedMemorySize, kFeatSmem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(syrk, cudaFuncAttributeMaxDynamicSharedMemorySize, kSyrkSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (m + kSyrkBT - 1) / kSyrkBT;
   const TA* Ab = static_cast<const TA*>(A);
   const TA* bb = static_cast<const TA*>(b);
   float* Tw = static_cast<float*>(work);
@@ -679,15 +404,15 @@ int launch_sketch(const void* A, const void* b, const void* R, void* G, void* h,
     if (rows > 0) {
       const dim3 grid((m + kFeatBN - 1) / kFeatBN, (rows + kFeatBM - 1) / kFeatBM);
       featurize<<<grid, kFeatThreads, kFeatSmem, stream>>>(
-          Ab + static_cast<int64_t>(r0) * d, static_cast<const TR*>(R), Tw, rows, d, m, ldT);
+          Ab + static_cast<int64_t>(r0) * d, static_cast<const TR*>(R),
+          static_cast<const TR*>(cvec), static_cast<float>(scale), Tw, rows, d, m, ldT);
       err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    syrk<<<tiles * (tiles + 1) / 2, kSyrkThreads, kSyrkSmem, stream>>>(
-        Tw, bb + r0, static_cast<float*>(G), static_cast<float*>(h), rows > 0 ? rows : 0, m,
-        ldT, tiles, c > 0);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const int rc = launch_syrk<float, TA, true>(bt, Tw, ldT, ldT, bb + r0, static_cast<float*>(G),
+                                                static_cast<float*>(h), rows > 0 ? rows : 0, m,
+                                                c > 0, stream);
+    if (rc != 0) return rc;
   }
   return 0;
 }
@@ -698,40 +423,47 @@ int launch_sketch(const void* A, const void* b, const void* R, void* G, void* h,
 // with R float32. G (m, m) and h (m,) are float64 for float64 input, float32
 // otherwise. rows_per_split * splits must cover n. For dtype 1 (the tile
 // routine) work holds splits * (m * m + m) accumulators when splits > 1 (may
-// be null otherwise). For dtypes 0, 2, 3 (the chunk route) splits is the
-// number of row chunks, rows_per_split the rows of a chunk (the last chunk
-// holds at least one row), and work holds min(n, rows_per_split) rows of
-// (m + 3) / 4 * 4 float32 (the chunk of T); it must not be null.
+// be null otherwise), and tile is not read. For dtypes 0, 2, 3 (the chunk
+// route) splits is the number of row chunks, rows_per_split the rows of a
+// chunk (the last chunk holds at least one row), work holds min(n,
+// rows_per_split) rows of (m + 3) / 4 * 4 float32 (the chunk of T) and must
+// not be null, and tile (32 or 128) is the edge of the SYRK's G tiles.
 // Returns the cudaError_t of the launches (0 on success), -1 for a bad argument.
 extern "C" int sketch_gram(const void* A, const void* b, const void* R, void* G,
                            void* h, void* work, int n, int d, int m, int splits,
-                           int rows_per_split, int dtype, void* stream) {
+                           int rows_per_split, int tile, int dtype, void* stream) {
   if (n < 0 || d <= 0 || m <= 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_sketch<float, float>(A, b, R, G, h, work, n, d, m, splits, rows_per_split, s);
+    case 0: return launch_chunks<float, float, false>(A, b, R, nullptr, G, h, work, n, d, m,
+                                                      splits, rows_per_split, 0.0, tile, s);
     case 1: return launch<double, double, double, false>(A, b, R, nullptr, G, h, work, n, d, m,
-                                                          splits, rows_per_split, 0.0, s);
-    case 2: return launch_sketch<__nv_bfloat16, __nv_bfloat16>(A, b, R, G, h, work, n, d, m, splits, rows_per_split, s);
-    case 3: return launch_sketch<__nv_bfloat16, float>(A, b, R, G, h, work, n, d, m, splits, rows_per_split, s);
+                                                 splits, rows_per_split, 0.0, s);
+    case 2: return launch_chunks<__nv_bfloat16, __nv_bfloat16, false>(
+        A, b, R, nullptr, G, h, work, n, d, m, splits, rows_per_split, 0.0, tile, s);
+    case 3: return launch_chunks<__nv_bfloat16, float, false>(
+        A, b, R, nullptr, G, h, work, n, d, m, splits, rows_per_split, 0.0, tile, s);
     default: return -1;
   }
 }
 
-// As sketch_gram with W (d, D) for R and c (D,) of W's dtype, on the tile
-// routine for every dtype (work and splits as for dtype 1 there); scale is
+// As sketch_gram with W (d, D) for R and c (D,) of W's dtype; scale is
 // sqrt(2 / D) for the true feature count D.
 extern "C" int rff_gram(const void* X, const void* b, const void* W, const void* c,
                         void* G, void* h, void* work, int n, int d, int m,
-                        int splits, int rows_per_split, double scale, int dtype,
+                        int splits, int rows_per_split, double scale, int tile, int dtype,
                         void* stream) {
   if (n < 0 || d <= 0 || m <= 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float, float, float, true>(X, b, W, c, G, h, work, n, d, m, splits, rows_per_split, scale, s);
-    case 1: return launch<double, double, double, true>(X, b, W, c, G, h, work, n, d, m, splits, rows_per_split, scale, s);
-    case 2: return launch<__nv_bfloat16, __nv_bfloat16, float, true>(X, b, W, c, G, h, work, n, d, m, splits, rows_per_split, scale, s);
-    case 3: return launch<__nv_bfloat16, float, float, true>(X, b, W, c, G, h, work, n, d, m, splits, rows_per_split, scale, s);
+    case 0: return launch_chunks<float, float, true>(X, b, W, c, G, h, work, n, d, m, splits,
+                                                     rows_per_split, scale, tile, s);
+    case 1: return launch<double, double, double, true>(X, b, W, c, G, h, work, n, d, m, splits,
+                                                rows_per_split, scale, s);
+    case 2: return launch_chunks<__nv_bfloat16, __nv_bfloat16, true>(
+        X, b, W, c, G, h, work, n, d, m, splits, rows_per_split, scale, tile, s);
+    case 3: return launch_chunks<__nv_bfloat16, float, true>(
+        X, b, W, c, G, h, work, n, d, m, splits, rows_per_split, scale, tile, s);
     default: return -1;
   }
 }

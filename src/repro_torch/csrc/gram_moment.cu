@@ -7,11 +7,23 @@
 // triangle of G needs n * d * (d + 1) / 2 multiply-adds, while A is read once
 // (n * d elements) and G written once (d * d): at n = 16384, d = 4096 in
 // float32 that is 2.75e11 operations against 0.3 GB, far above the card's
-// balance point. It runs on the CUDA cores in full float32 (no TF32, no
-// bf16 rounding of float32 inputs), so the bound is the FP32 (non-tensor)
-// peak.
+// balance point.
 //
-// Design:
+// Two routes, chosen by the wrapper from the shape and dtype
+// (`kernels/gram.py::gram_tile`).
+//   * Float32, bfloat16 and float16 from 2 rows on: the tensor-core SYRK of
+//     tc_syrk.cuh
+//     with T = A read in place (no workspace, one launch): one CTA per upper
+//     G tile, 3xTF32 `mma.sync`, rows in a fixed order, G mirrored, h from
+//     the diagonal CTAs. A ragged d, or a d or pointer that is not 16-byte
+//     aligned, takes the 4-byte `cp.async` copies; bfloat16 and float16 are
+//     converted to float32 on load (exact in TF32). Its bound is the same
+//     work at a third of the TF32 peak, 1.67 ms at the shape above.
+//   * Float64, and a single row of any dtype (a streamed row, where both
+//     routes mostly write G): `gram_moment_kernel` below, on the CUDA
+//     cores, converting bfloat16 / float16 to float32 on load.
+//
+// `gram_moment_kernel`:
 //   * One CTA per upper-triangular output tile (ti <= tj) of G; the strict
 //     lower triangle is written as the mirror of the same registers, so G is
 //     exactly symmetric and only half the products are computed.
@@ -24,15 +36,15 @@
 //     column block of A in shared memory: one extra multiply-add chain per
 //     column against the matching chunk of b.
 //   * 256 threads as a 16 x 16 grid, each holding a TM x TM block of
-//     accumulators; rows of A stream through shared memory BK at a time and
-//     are converted to the accumulation type on load (bf16/f16 -> float32,
-//     float64 stays float64). Ragged n and d are masked on load and on store.
-// Simple and correct first: no tensor cores, TMA or double buffering yet.
+//     accumulators; rows of A stream through shared memory BK at a time.
+//     Ragged n and d are masked on load and on store.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_syrk.cuh"
 
 namespace {
 
@@ -138,20 +150,37 @@ int launch(const void* A, const void* b, void* G, void* h, int n, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename In>
+int launch_tc(const void* A, const void* b, void* G, void* h, int n, int d, int tile,
+              cudaStream_t stream) {
+  if (tile == 0) return launch<In, float, 8>(A, b, G, h, n, d, stream);
+  const In* Ap = static_cast<const In*>(A);
+  const In* bp = static_cast<const In*>(b);
+  float* Gp = static_cast<float*>(G);
+  float* hp = static_cast<float*>(h);
+  if constexpr (sizeof(In) == 4) {
+    if (d % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0)
+      return launch_syrk<In, In, true>(tile, Ap, d, d, bp, Gp, hp, n, d, 0, stream);
+  }
+  return launch_syrk<In, In, false>(tile, Ap, d, d, bp, Gp, hp, n, d, 0, stream);
+}
+
 }  // namespace
 
 // dtype of A and b: 0 float32, 1 float64, 2 bfloat16, 3 float16.
 // G (d, d) and h (d,) are float64 for float64 input, float32 otherwise.
+// tile: 0 for the CUDA-core kernel, 32 or 128 for the tensor-core SYRK's
+// tile edge (float32, bfloat16, float16).
 // Returns the cudaError_t of the launch (0 on success), -1 for a bad argument.
 extern "C" int gram_moment(const void* A, const void* b, void* G, void* h,
-                           int n, int d, int dtype, void* stream) {
-  if (n < 0 || d <= 0) return -1;
+                           int n, int d, int dtype, int tile, void* stream) {
+  if (n < 0 || d <= 0 || (dtype == 1 && tile != 0)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float, float, 8>(A, b, G, h, n, d, s);
+    case 0: return launch_tc<float>(A, b, G, h, n, d, tile, s);
     case 1: return launch<double, double, 4>(A, b, G, h, n, d, s);
-    case 2: return launch<__nv_bfloat16, float, 8>(A, b, G, h, n, d, s);
-    case 3: return launch<__half, float, 8>(A, b, G, h, n, d, s);
+    case 2: return launch_tc<__nv_bfloat16>(A, b, G, h, n, d, tile, s);
+    case 3: return launch_tc<__half>(A, b, G, h, n, d, tile, s);
     default: return -1;
   }
 }

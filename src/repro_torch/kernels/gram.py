@@ -16,9 +16,13 @@ by one where it launches its kernel and nowhere else.
   K5 ``swa_flash_cuda``       — sliding-window flash attention (prefill);
                                 replaces ``swa_flash_pallas``
 
-K3 and K4 share one source, ``csrc/feature_gram.cu``: K4 and float64 K3 on
-its tile routine, float32 and bfloat16-input K3 on its chunk route. The
-libraries are compiled on the first call (``kernels._build``).
+K1 in float32, bfloat16 and float16, and K3 and K4 with float32 or
+bfloat16 input, run on one tensor-core SYRK (``csrc/tc_syrk.cuh``) whose
+tile edge :func:`syrk_tile` picks from the Gram's size; float64 K1 runs
+its CUDA-core kernel. K3 and K4 share one source,
+``csrc/feature_gram.cu``: float64 on its tile routine, float32 and
+bfloat16 input on its chunk route. The libraries are compiled on the
+first call (``kernels._build``).
 """
 from __future__ import annotations
 
@@ -37,11 +41,11 @@ _GRAM_DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2,
 _FLOAT_DTYPES = {torch.float32: 0, torch.float64: 1}
 
 _SIGNATURES = {
-    "gram_moment": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
+    "gram_moment": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
     "gemm_nt": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _DBL, _INT, _VP],
     "panel_transform": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _DBL, _INT, _VP],
-    "sketch_gram": [_VP] * 6 + [_INT] * 6 + [_VP],
-    "rff_gram": [_VP] * 7 + [_INT] * 5 + [_DBL, _INT, _VP],
+    "sketch_gram": [_VP] * 6 + [_INT] * 7 + [_VP],
+    "rff_gram": [_VP] * 7 + [_INT] * 5 + [_DBL, _INT, _INT, _VP],
     "swa_flash": [_VP] * 4 + [_INT] * 7 + [_FLT, _INT, _VP],
 }
 _SOURCE = {"sketch_gram": "feature_gram", "rff_gram": "feature_gram"}
@@ -54,7 +58,43 @@ _FEATURE_DTYPES = {(torch.float32, torch.float32): 0,
 _FEATURE_ROWS = 64        # rows of T per chunk (kRows in feature_gram.cu)
 _FEATURE_SMS = 132        # SMs of an H100 SXM; one tile-routine CTA fits per SM
 _FEATURE_MAX_SPLITS = 16
-_SKETCH_CHUNK_ROWS = 4096  # rows of K3's T workspace: 16 MB at m 1024, in L2
+_SKETCH_CHUNK_ROWS = 4096  # rows of the chunk route's T workspace (K3, K4)
+_SYRK_WIDE = 128           # the SYRK's tile edges (csrc/tc_syrk.cuh)
+_SYRK_NARROW = 32
+_SYRK_MIN_FILL = 0.75      # least share of the wide tiles' waves kept busy
+
+
+def syrk_tile(m: int) -> int:
+    """Edge of the tensor-core SYRK's G tiles for an m x m Gram (K1, and the
+    chunk route of K3 and K4).
+
+    A 128-wide tile CTA fills an SM, so the upper triangle of 128-tiles runs
+    in waves of ``_FEATURE_SMS``. Where those waves are at least 3/4 busy
+    (m 4096: 528 CTAs, 4 whole waves) the wide tile is taken; else the
+    32-wide tile, whose many small CTAs fill the card (m 1024: 528 CTAs
+    where 128-tiles give 36). Depends only on m, so the bits of G do not
+    depend on the card.
+    """
+    tiles = -(-m // _SYRK_WIDE)
+    ctas = tiles * (tiles + 1) // 2
+    waves = -(-ctas // _FEATURE_SMS)
+    return _SYRK_WIDE if ctas >= _SYRK_MIN_FILL * waves * _FEATURE_SMS else _SYRK_NARROW
+
+
+_GRAM_SYRK_MIN_ROWS = 2    # fewer rows: K1 keeps its CUDA-core kernel
+
+
+def gram_tile(n: int, d: int, dtype: torch.dtype) -> int:
+    """K1's route for (n, d) input of ``dtype``: 0 for the CUDA-core kernel,
+    else the SYRK's tile edge :func:`syrk_tile` (d).
+
+    Float64 always takes the CUDA-core kernel, and so does a single
+    streamed row (n = 1): there both routes mostly write G, and the SYRK
+    measured 2-3% slower (PERF.md §6). Depends only on the shape and dtype.
+    """
+    if dtype == torch.float64 or n < _GRAM_SYRK_MIN_ROWS:
+        return 0
+    return syrk_tile(d)
 
 
 def _fn(name: str):
@@ -105,7 +145,9 @@ def gram_moment_cuda(A: torch.Tensor, b: torch.Tensor
     """K1: (G, h) = (A^T A, A^T b) in one pass over A, deterministic.
 
     A: (n, d), b: (n,), both f32 / f64 / bf16 / f16 of one dtype. G (d, d)
-    and h (d,) are float64 for float64 input, float32 otherwise.
+    and h (d,) are float64 for float64 input, float32 otherwise. Float32,
+    bfloat16 and float16 run the 3xTF32 tensor-core SYRK on A in place,
+    float64 and a single row the CUDA-core kernel (:func:`gram_tile`).
     """
     device = _check("gram_moment", {"A": A, "b": b}, _GRAM_DTYPES)
     if A.ndim != 2 or b.shape != (A.shape[0],):
@@ -113,15 +155,22 @@ def gram_moment_cuda(A: torch.Tensor, b: torch.Tensor
                          f"{tuple(A.shape)} and {tuple(b.shape)}")
     if A.dtype != b.dtype:
         raise TypeError(f"gram_moment: A is {A.dtype} but b is {b.dtype}")
+    G, h = _gram_moment(A, b, gram_tile(*A.shape, A.dtype))
+    gram_moment_cuda.launches += A.shape[1] > 0      # d = 0 launches nothing
+    return G, h
+
+
+def _gram_moment(A: torch.Tensor, b: torch.Tensor, tile: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's launch with its route given (``tile``: see :func:`gram_tile`);
+    the wrapper's arguments already checked."""
     n, d = A.shape
     acc = torch.float64 if A.dtype == torch.float64 else torch.float32
-    G = torch.empty((d, d), dtype=acc, device=device)
-    h = torch.empty((d,), dtype=acc, device=device)
-    if d == 0:
-        return G, h
-    _launch("gram_moment", device, A.data_ptr(), b.data_ptr(), G.data_ptr(),
-            h.data_ptr(), n, d, _GRAM_DTYPES[A.dtype])
-    gram_moment_cuda.launches += 1
+    G = torch.empty((d, d), dtype=acc, device=A.device)
+    h = torch.empty((d,), dtype=acc, device=A.device)
+    if d > 0:
+        _launch("gram_moment", A.device, A.data_ptr(), b.data_ptr(), G.data_ptr(),
+                h.data_ptr(), n, d, _GRAM_DTYPES[A.dtype], tile)
     return G, h
 
 
@@ -174,8 +223,9 @@ def panel_transform_cuda(L11: torch.Tensor, X1: torch.Tensor, *,
 
 
 def feature_splits(n: int, m: int, dtype: torch.dtype) -> tuple[int, int]:
-    """(splits, rows per split) of the tile routine's row split (K4, and
-    K3 in float64) for n rows, m features.
+    """(splits, rows per split) of the tile routine's row split for n rows,
+    m features (float64 K3 and K4 run it; the float32 figures describe
+    the routine at 128-wide tiles).
 
     A tile-routine CTA fills an SM (``__launch_bounds__(256, 1)``), so the CTAs of
     one launch run in waves of ``_FEATURE_SMS``. The split count minimises
@@ -201,9 +251,9 @@ def feature_splits(n: int, m: int, dtype: torch.dtype) -> tuple[int, int]:
 
 
 def sketch_chunks(n: int) -> tuple[int, int]:
-    """(chunks, rows per chunk) of K3's chunk route for n rows.
+    """(chunks, rows per chunk) of the chunk route (K3, K4) for n rows.
 
-    Float32 and bfloat16-input K3 walks its rows in chunks of a fixed
+    Float32 and bfloat16-input K3 and K4 walk their rows in chunks of a fixed
     ``_SKETCH_CHUNK_ROWS``: T of one chunk goes through a workspace of that
     many rows, whatever n is, and the chunks' Gram contributions are added
     in chunk order. Depends only on n, so the bits of G do not depend on the
@@ -213,9 +263,10 @@ def sketch_chunks(n: int) -> tuple[int, int]:
 
 
 def _feature_gram(name: str, X: torch.Tensor, b: torch.Tensor,
-                  M: torch.Tensor, c: torch.Tensor | None
+                  M: torch.Tensor, c: torch.Tensor | None, tile: int | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Checks, outputs and launch shared by K3 (c None) and K4."""
+    """Checks, outputs and launch shared by K3 (c None) and K4; ``tile``
+    (the chunk route's SYRK tile edge) defaults to :func:`syrk_tile` (m)."""
     tensors = {"A" if c is None else "X": X, "b": b,
                "R" if c is None else "W": M}
     if c is not None:
@@ -241,7 +292,7 @@ def _feature_gram(name: str, X: torch.Tensor, b: torch.Tensor,
     acc = torch.float64 if X.dtype == torch.float64 else torch.float32
     G = torch.empty((m, m), dtype=acc, device=device)
     h = torch.empty((m,), dtype=acc, device=device)
-    if c is None and acc == torch.float32:
+    if acc == torch.float32:
         # the chunk route: the workspace holds one chunk of T, each row padded
         # to a multiple of 4 floats
         splits, rows = sketch_chunks(n)
@@ -252,13 +303,14 @@ def _feature_gram(name: str, X: torch.Tensor, b: torch.Tensor,
         work = (torch.empty(splits * (m * m + m), dtype=acc, device=device)
                 if splits > 1 else None)
     wptr = None if work is None else work.data_ptr()
+    tile = syrk_tile(m) if tile is None else tile
     if c is None:
         _launch(name, device, X.data_ptr(), b.data_ptr(), M.data_ptr(),
-                G.data_ptr(), h.data_ptr(), wptr, n, d, m, splits, rows, code)
+                G.data_ptr(), h.data_ptr(), wptr, n, d, m, splits, rows, tile, code)
     else:
         _launch(name, device, X.data_ptr(), b.data_ptr(), M.data_ptr(),
                 c.data_ptr(), G.data_ptr(), h.data_ptr(), wptr, n, d, m,
-                splits, rows, math.sqrt(2.0 / m), code)
+                splits, rows, math.sqrt(2.0 / m), tile, code)
     return G, h
 
 
@@ -270,9 +322,10 @@ def sketch_gram_cuda(A: torch.Tensor, b: torch.Tensor, R: torch.Tensor
     bfloat16 with a bfloat16 or float32 R, or float64 throughout. G (m, m)
     and h (m,) are float64 for float64 input, float32 otherwise.
     Float32 and bfloat16 input compute T = AR once per row, 4096 rows at a
-    time through a workspace of one chunk (:func:`sketch_chunks`), at
-    float32 accuracy on the tensor cores; float64 keeps T in shared memory
-    and rebuilds it per G tile. Bitwise deterministic.
+    time through a workspace of one chunk (:func:`sketch_chunks`), and fold
+    each chunk into G with the SYRK (:func:`syrk_tile`), at float32 accuracy
+    on the tensor cores; float64 keeps T in shared memory and rebuilds it
+    per G tile. Bitwise deterministic.
     """
     G, h = _feature_gram("sketch_gram", A, b, R, None)
     sketch_gram_cuda.launches += 1
@@ -281,11 +334,12 @@ def sketch_gram_cuda(A: torch.Tensor, b: torch.Tensor, R: torch.Tensor
 
 def rff_gram_cuda(X: torch.Tensor, b: torch.Tensor, W: torch.Tensor,
                   c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """K4: T = sqrt(2/D) cos(XW + c), (G, h) = (T^T T, T^T b), T never in
-    device memory.
+    """K4: T = sqrt(2/D) cos(XW + c), (G, h) = (T^T T, T^T b).
 
     X: (n, d), b: (n,), W: (d, D), c: (D,); dtypes as for K3, with c in W's
-    dtype. The scale uses D = W.shape[1].
+    dtype. The scale uses D = W.shape[1]. Float32 and bfloat16 input take
+    K3's chunk route, the cosine as the featurize GEMM's epilogue (T of one
+    4096-row chunk at a time in device memory); float64 never writes T.
     """
     G, h = _feature_gram("rff_gram", X, b, W, c)
     rff_gram_cuda.launches += 1

@@ -99,6 +99,18 @@ def init_cache(cfg: ArchConfig, kind: str, batch: int, seq_len: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def decode_slot(kind: str, pos: int, L: int) -> int:
+    """The cache slot that decode position ``pos`` writes: ``pos % L`` in an
+    SWA ring buffer, ``pos`` in a full layer's cache of length L, where
+    ``pos >= L`` raises ValueError."""
+    if kind == "swa":
+        return pos % L
+    if pos >= L:
+        raise ValueError(f"decode position {pos} is past the full-attention "
+                         f"cache length {L}; prefill with a larger max_len")
+    return pos
+
+
 def attention_decode(attn: Attention, x: torch.Tensor, cache: dict, pos: int,
                      cfg: ArchConfig, *, kind: str) -> tuple[torch.Tensor, dict]:
     """One decode step: x (B, 1, d) at absolute position ``pos``.
@@ -107,13 +119,17 @@ def attention_decode(attn: Attention, x: torch.Tensor, cache: dict, pos: int,
     ``pos`` (full) of ``cache`` in place, and returns (out, cache). Scores
     and the weighted sum are float32; the probabilities are rounded to the
     cache's dtype first, as in the reference.
+
+    A full layer's cache holds positions 0 .. L - 1: ``pos >= L`` raises
+    ValueError before anything is written. (The reference clamps the write
+    onto the last slot and returns wrong logits.)
     """
+    ck, cv = cache["k"], cache["v"]
+    L = ck.shape[1]
+    slot = decode_slot(kind, pos, L)
     B = x.shape[0]
     positions = torch.full((B, 1), pos, device=x.device)
     q, k, v = project_qkv(attn, x, cfg, positions)          # (B, 1, H/H_kv, hd)
-    ck, cv = cache["k"], cache["v"]
-    L = ck.shape[1]
-    slot = pos % L if kind == "swa" else pos
     ck[:, slot] = k[:, 0].to(ck.dtype)
     cv[:, slot] = v[:, 0].to(cv.dtype)
 

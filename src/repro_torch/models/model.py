@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.models import blocks, layers
+from repro_torch.models import attention, blocks, layers
 from repro_torch.models.config import ArchConfig
 
 
@@ -103,8 +103,12 @@ def prefill_step(model: BackboneLM, batch: dict, *,
 def decode_step(model: BackboneLM, cache: dict, batch: dict
                 ) -> tuple[torch.Tensor, dict]:
     """One-token serve step. batch = {"tokens": (B, 1)}; returns logits
-    (B, 1, vocab) and the cache, updated in place and advanced by one."""
+    (B, 1, vocab) and the cache, updated in place and advanced by one.
+    A position past a full layer's cache raises ValueError before any
+    layer's cache is written."""
     pos = cache["pos"]
+    for layer, c in zip(model.all_layers(), cache["layers"]):
+        attention.decode_slot(layer.spec.attn, pos, c["k"].shape[1])
     x = model.embed(batch["tokens"])
     for i, layer in enumerate(model.all_layers()):
         x, cache["layers"][i] = blocks.decode_layer(layer, x, cache["layers"][i],

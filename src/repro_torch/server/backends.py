@@ -10,7 +10,13 @@ Protocol: ``fuse`` (fold a stats delta into the backend-held state),
 ``factor``/``solve``/``solve_batch`` (Phase 3), ``update`` (incremental
 factor maintenance under PSD deltas; ``None`` declines and the engine
 evicts), ``spectral`` (the Corollary-1 eigh serving path), and
-``solve_operands`` (the ``(L, h)`` pair :func:`solve_snapshot` solves).
+``solve_operands`` (the ``(L, G, h, sigma)`` operands :func:`solve_snapshot`
+solves).
+
+Float32 solves off a factor are refined once in mixed precision
+(:func:`_factor_solve`), a deviation from the reference, which solves once:
+a float32 factor solve alone is off by up to kappa * 2^-24 of |w|, which
+reaches the port's 1e-4 checks for an RFF tenant at kappa ~ 2e4.
 
 Cholesky, triangular / Cholesky solves and ``eigh`` stay with
 ``torch.linalg`` (cuSOLVER on the card), as the reference left them to XLA.
@@ -53,7 +59,7 @@ class LinalgBackend(Protocol):
 
     def factor(self, sigma: float) -> Any: ...
 
-    def solve(self, factor: Any) -> torch.Tensor: ...
+    def solve(self, factor: Any, sigma: float) -> torch.Tensor: ...
 
     def solve_batch(self, sigmas: Sequence[float]
                     ) -> tuple[list[Any] | None, torch.Tensor]: ...
@@ -63,8 +69,7 @@ class LinalgBackend(Protocol):
 
     def spectral(self, sigmas: Sequence[float]) -> torch.Tensor | None: ...
 
-    def solve_operands(self, factor: Any
-                       ) -> tuple[torch.Tensor, torch.Tensor] | None: ...
+    def solve_operands(self, factor: Any, sigma: float) -> tuple | None: ...
 
 
 # -- dense algebra (shared with server.inference's cold reference) ----------
@@ -74,27 +79,44 @@ def _cold_factor(G: torch.Tensor, sigma: float) -> torch.Tensor:
     return torch.linalg.cholesky(G + sigma * eye)
 
 
-def _factor_solve(L: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    return torch.cholesky_solve(h.unsqueeze(-1), L).squeeze(-1)
+def _factor_solve(L: torch.Tensor, G: torch.Tensor, h: torch.Tensor,
+                  sigma: float) -> torch.Tensor:
+    """(G + sigma I)^{-1} h off L, a Cholesky factor of G + sigma I (cold or
+    updated).
+
+    A float32 factor is refined once: w0 from L, then w0 plus the L-solve of
+    the residual h - (G + sigma I) w0 taken in float64. That takes the error
+    from ~kappa 2^-24 to ~(kappa 2^-24)^2 of |w| (kappa 2^-24 < 1), and
+    absorbs what factor updates have drifted from G. Float64 solves once.
+    """
+    w = torch.cholesky_solve(h.unsqueeze(-1), L).squeeze(-1)
+    if L.dtype == torch.float64:
+        return w
+    w64 = w.double()
+    r = h.double() - torch.mv(G.double(), w64) - sigma * w64
+    return w + torch.cholesky_solve(r.to(L.dtype).unsqueeze(-1), L).squeeze(-1)
 
 
-def solve_snapshot(L: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """Solve off a snapshotted ``(L, h)`` pair — outside any tenant lock.
+def solve_snapshot(L: torch.Tensor, G: torch.Tensor, h: torch.Tensor,
+                   sigma: float) -> torch.Tensor:
+    """Solve off snapshotted ``(L, G, h, sigma)`` operands — outside any
+    tenant lock.
 
     The same function ``DenseBackend.solve`` runs, so a solve over operands
     snapshotted at some state is bit-identical to the engine's solve at that
-    state. The engine never writes a factor or moment in place (updates
+    state. The engine never writes a factor or a statistic in place (updates
     return new tensors), so the snapshot is a reference, not a copy.
     """
-    return _factor_solve(L, h)
+    return _factor_solve(L, G, h, sigma)
 
 
-def _multi_sigma_factor_solve(G, h, sigmas):
+def _multi_sigma_factor_solve(G, h, sigmas: Sequence[float]):
     """Batched Phase 3: one batched Cholesky over the stacked shifted Grams,
     then one Cholesky solve per sigma."""
     eye = torch.eye(G.shape[0], dtype=G.dtype, device=G.device)
-    Ls = torch.linalg.cholesky(G[None] + sigmas[:, None, None] * eye[None])
-    ws = torch.stack([_factor_solve(L, h) for L in Ls])
+    shifts = torch.tensor(list(sigmas), dtype=G.dtype, device=G.device)
+    Ls = torch.linalg.cholesky(G[None] + shifts[:, None, None] * eye[None])
+    ws = torch.stack([_factor_solve(L, G, h, s) for L, s in zip(Ls, sigmas)])
     return Ls, ws
 
 
@@ -168,14 +190,13 @@ class DenseBackend:
     def factor(self, sigma: float) -> torch.Tensor:
         return _cold_factor(self._stats.gram, sigma)
 
-    def solve(self, factor: torch.Tensor) -> torch.Tensor:
-        return _factor_solve(factor, self._stats.moment)
+    def solve(self, factor: torch.Tensor, sigma: float) -> torch.Tensor:
+        return _factor_solve(factor, self._stats.gram, self._stats.moment, sigma)
 
     def solve_batch(self, sigmas: Sequence[float]
                     ) -> tuple[list[torch.Tensor], torch.Tensor]:
-        Ls, ws = _multi_sigma_factor_solve(
-            self._stats.gram, self._stats.moment,
-            torch.tensor(list(sigmas), dtype=self.dtype, device=self.device))
+        Ls, ws = _multi_sigma_factor_solve(self._stats.gram, self._stats.moment,
+                                           sigmas)
         return list(Ls), ws
 
     def update(self, factor: torch.Tensor, update_vectors: torch.Tensor,
@@ -201,10 +222,10 @@ class DenseBackend:
             lam, Q, self._stats.moment,
             torch.tensor(list(sigmas), dtype=self.dtype, device=self.device))
 
-    def solve_operands(self, factor: torch.Tensor
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
-        """The (L, h) pair :func:`solve_snapshot` solves."""
-        return factor, self._stats.moment
+    def solve_operands(self, factor: torch.Tensor, sigma: float
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, float]:
+        """The (L, G, h, sigma) operands :func:`solve_snapshot` solves."""
+        return factor, self._stats.gram, self._stats.moment, sigma
 
     @property
     def state_bytes(self) -> int:

@@ -426,7 +426,7 @@ class FusionEngine:
 
     def solve(self, sigma: float) -> torch.Tensor:
         """Phase 3 (Thm 3): w = (G + sigma I)^{-1} h off the cached factor."""
-        return self.backend.solve(self.factor(sigma))
+        return self.backend.solve(self.factor(sigma), float(sigma))
 
     def solve_batch(self, sigmas: Sequence[float], *,
                     method: str = "auto") -> torch.Tensor:
@@ -513,11 +513,11 @@ class FusionEngine:
         if s.yty is None:
             return None
         factor = self.factor(sigma)
-        ops = self.backend.solve_operands(factor)
+        ops = self.backend.solve_operands(factor, float(sigma))
         if ops is None:
             return None
-        L, _ = ops
-        w = self.backend.solve(factor)
+        L = ops[0]
+        w = self.backend.solve(factor, float(sigma))
         return inference_report(L, s, w, sigma, level=level, queries=queries)
 
     def predict_batch(self, A: torch.Tensor, sigmas: Sequence[float]

@@ -127,6 +127,6 @@ def reference_inference(stats: SuffStats, sigma: float, *,
     from repro_torch.server import backends
 
     L = backends._cold_factor(stats.gram, sigma)
-    w = backends._factor_solve(L, stats.moment)
+    w = backends._factor_solve(L, stats.gram, stats.moment, float(sigma))
     return w, inference_report(L, stats, w, sigma, level=level,
                                queries=queries)

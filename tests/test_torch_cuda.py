@@ -53,6 +53,54 @@ def test_gram_moment_matches_plain(card, n, d, dtype):
     assert _rel(G, Gr) <= tol and _rel(h, hr) <= tol
 
 
+@pytest.mark.parametrize("n", [1, 31, 4097])
+@pytest.mark.parametrize("d", [100, 130, 2601])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_gram_moment_syrk_matches_plain(card, n, d, dtype):
+    """K1 on the tensor-core SYRK (n 31, 4097) and, for a streamed row (n
+    1), the CUDA-core kernel: d ragged against the tile (100), rows not
+    16-byte aligned (130, 2601: the 4-byte copies), the 128-wide tile
+    (2601) and the 32-wide one; held at the same 1e-5 as above."""
+    assert gram.gram_tile(n, d, dtype) == (0 if n == 1 else 128 if d == 2601 else 32)
+    A, b = _randn((n, d), dtype, seed=n).to(card), _randn((n,), dtype, seed=d).to(card)
+    G, h = gram.gram_moment_cuda(A, b)
+    G2, h2 = gram.gram_moment_cuda(A, b)
+    Gr, hr = ref.gram_moment_ref(A, b)
+    torch.cuda.synchronize()
+    assert G.dtype == h.dtype == torch.float32
+    assert torch.equal(G, G2) and torch.equal(h, h2) and torch.equal(G, G.T)
+    assert _rel(G, Gr) <= 1e-5 and _rel(h, hr) <= 1e-5
+
+
+@pytest.mark.parametrize("n,d", [(0, 40), (300, 129), (4097, 260)])
+@pytest.mark.parametrize("tile", [0, 32, 128])
+def test_gram_moment_every_route(card, n, d, tile):
+    """The CUDA-core kernel and both SYRK widths at shapes where the rule
+    would pick another route, and n = 0 (G and h zeros)."""
+    A, b = _randn((n, d), seed=1).to(card), _randn((n,), seed=2).to(card)
+    G, h = gram._gram_moment(A, b, tile)
+    Gr, hr = ref.gram_moment_ref(A, b)
+    torch.cuda.synchronize()
+    assert torch.equal(G, G.T)
+    if n == 0:
+        assert not G.any() and not h.any()
+    else:
+        assert _rel(G, Gr) <= 1e-5 and _rel(h, hr) <= 1e-5
+
+
+def test_gram_moment_unaligned_input(card):
+    """Rows that start 4 bytes into their buffer take the 4-byte copies and
+    give the bits of the same rows at an aligned address."""
+    A, b = _randn((4097, 4096)).to(card), _randn((4097,), seed=1).to(card)
+    buf = torch.empty(A.numel() + 1, device=card)
+    buf[1:] = A.reshape(-1)
+    Au = buf[1:].view(A.shape)
+    assert Au.data_ptr() % 16 == 4
+    G, h = gram.gram_moment_cuda(A, b)
+    Gu, hu = gram.gram_moment_cuda(Au, b)
+    assert torch.equal(G, Gu) and torch.equal(h, hu)
+
+
 @pytest.mark.parametrize("m,n,k,dtype", [(100, 37, 13, torch.float32),
                                          (4064, 96, 96, torch.float32),
                                          (65, 64, 1, torch.float64)])
@@ -165,6 +213,41 @@ def test_feature_gram_matches_plain(card, kind, n, d, m, dtype, map_dtype):
         torch.testing.assert_close(h, hr, rtol=1e-11, atol=1e-11)
     else:
         _feature_close(G, h, Gr, hr)
+
+
+@pytest.mark.parametrize("D", [96, 4096])
+@pytest.mark.parametrize("dtype,map_dtype", [(torch.float32, torch.float32),
+                                             (torch.bfloat16, torch.bfloat16),
+                                             (torch.bfloat16, torch.float32)])
+def test_rff_gram_chunk_route_matches_plain(card, D, dtype, map_dtype):
+    """K4 on the chunk route at n 4095 (one partial chunk), d 128, at D 96
+    (32-wide SYRK tiles) and the path's D 4096 (128-wide), with float32 and
+    bfloat16 rows."""
+    X, b, W, c = _feature_inputs(4095, 128, D, dtype, map_dtype, D, True)
+    W = W / 128 ** 0.5
+    G, h = gram.rff_gram_cuda(X, b, W, c)
+    G2, h2 = gram.rff_gram_cuda(X, b, W, c)
+    Gr, hr = ref.rff_gram_ref(X, b, W, c)
+    torch.cuda.synchronize()
+    assert torch.equal(G, G2) and torch.equal(h, h2) and torch.equal(G, G.T)
+    _feature_close(G, h, Gr, hr)
+
+
+@pytest.mark.parametrize("n,D", [(1, 5), (4097, 130), (300, 257)])
+@pytest.mark.parametrize("tile", [32, 128])
+@pytest.mark.parametrize("kind", ["sketch", "rff"])
+def test_chunk_route_both_tile_widths(card, n, D, tile, kind):
+    """The chunk route's SYRK at both widths, whatever the rule picks."""
+    X, b, M, c = _feature_inputs(n, 24, D, torch.float32, torch.float32, n + D, kind == "rff")
+    if kind == "sketch":
+        G, h = gram._feature_gram("sketch_gram", X, b, M, None, tile)
+        Gr, hr = ref.sketch_gram_ref(X, b, M)
+    else:
+        G, h = gram._feature_gram("rff_gram", X, b, M, c, tile)
+        Gr, hr = ref.rff_gram_ref(X, b, M, c)
+    torch.cuda.synchronize()
+    assert torch.equal(G, G.T)
+    _feature_close(G, h, Gr, hr)
 
 
 def test_sketch_gram_unaligned_input(card):

@@ -140,9 +140,36 @@ class TestPortContracts:
         _, et, _, rows, rows_b = _engines(max_update_rank=64)
         et.solve(0.1)
         et.ingest_rows(torch.from_numpy(rows), torch.from_numpy(rows_b))
-        L, h = et.backend.solve_operands(et.factor(0.1))
-        assert torch.equal(et.solve(0.1), tserver.solve_snapshot(L, h))
+        ops = et.backend.solve_operands(et.factor(0.1), 0.1)
+        assert torch.equal(et.solve(0.1), tserver.solve_snapshot(*ops))
         assert et.cold_factorizations == 1 and et.incremental_updates == 1
+
+    def test_float32_solve_is_refined(self):
+        """A float32 RFF-like Gram at kappa ~ 3e4: one factor solve is off
+        float64 by ~kappa 2^-24, so the engine refines it once with a
+        float64 residual, cold and after a streamed rank-16 factor update;
+        batched and lone solves agree bitwise."""
+        rng = np.random.default_rng(0)
+        X, W = rng.standard_normal((4000, 8)), rng.standard_normal((8, 128)) / 8 ** 0.5
+        T = (np.sqrt(2 / 128) * np.cos(X @ W + rng.uniform(0, 2 * np.pi, 128))).astype(np.float32)
+        y = rng.standard_normal(4000).astype(np.float32)
+        stats = [tcore.compute_stats(torch.from_numpy(T[:3000]), torch.from_numpy(y[:3000]))]
+        et = tserver.FusionEngine.from_clients(stats, max_update_rank=64)
+
+        def err(s):
+            G, h = et.stats.gram.double(), et.stats.moment.double()
+            w64 = torch.linalg.solve(G + s * torch.eye(128, dtype=torch.float64), h)
+            return float((et.solve(s).double() - w64).abs().max() / w64.abs().max()), w64
+
+        L = et.factor(0.01)
+        e, w64 = err(0.01)
+        plain = torch.cholesky_solve(et.stats.moment[:, None], L)[:, 0].double()
+        plain_err = float((plain - w64).abs().max() / w64.abs().max())
+        assert plain_err > 1e-5 and e <= 1e-6 and 100 * e < plain_err
+        et.ingest_rows(torch.from_numpy(T[3000:3016]), torch.from_numpy(y[3000:3016]))
+        assert et.incremental_updates == 1 and err(0.01)[0] <= 1e-6
+        ws = et.solve_batch([0.01, 0.1], method="chol")
+        assert torch.equal(ws[1], et.solve(0.1)) and err(0.1)[0] <= 1e-6
 
     def test_inference_equals_reference_bitwise(self):
         _, et, *_ = _engines()

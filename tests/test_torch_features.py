@@ -240,7 +240,7 @@ def _product(X, Y, arith, depth=32, groups=1):
     return out
 
 
-SYRK_TILE, SYRK_GROUPS, SYRK_DEPTH = 32, 4, 16   # csrc/feature_gram.cu: kSyrkBT, kSyrkGroups, kSyrkGK
+SYRK_TILE, SYRK_GROUPS, SYRK_DEPTH = 32, 4, 16   # csrc/tc_syrk.cuh: SyrkShape<32> GROUPS, GK
 
 
 def _sketch_chunk_model(A, b, R, chunk_rows=None, arith="f64"):
@@ -303,12 +303,14 @@ class TestKernelScheduleModel:
         (2500, 7, 130, "sketch"), (31, 32, 32, "rff"), (700, 16, 257, "rff"),
         (1, 3, 1, "rff")])
     def test_model_matches_plain(self, n, d, m, kind):
-        """float32 K3 takes the chunk route; K4 the tile routine."""
+        """float32 K3 takes the chunk route; float64 K4 the tile routine
+        (float32 K4 takes the chunk route, tests/test_torch_syrk.py)."""
         rng = np.random.default_rng(n + d + m)
         X, b = rng.standard_normal((n, d)), rng.standard_normal(n)
         M = rng.standard_normal((d, m))
         c = rng.uniform(0, 2 * np.pi, m) if kind == "rff" else None
-        G, h = _kernel_model(X, b, M, c) if kind == "rff" else _sketch_chunk_model(X, b, M)
+        G, h = (_kernel_model(X, b, M, c, torch.float64) if kind == "rff"
+                else _sketch_chunk_model(X, b, M))
         if kind == "rff":
             Gr, hr = ref.rff_gram_ref(*(torch.from_numpy(a) for a in (X, b, M, c)))
         else:

@@ -277,6 +277,63 @@ class TestModel:
         err = float((lg[:, 0] - full[:, -1]).abs().max())
         assert err < 3e-2 * max(scale, 1.0), err
 
+    def test_decode_past_the_cache_raises(self):
+        """A decode step one position past a ``prefill_step(max_len=S)``
+        cache: the full layers' caches end at S - 1, so the port raises
+        ValueError naming the cache length, and writes no layer's cache."""
+        _, lm, _, tcfg = _models()
+        toks = torch.from_numpy(_tokens(PROMPT + 1))
+        _, cache = model.prefill_step(lm, {"tokens": toks[:, :PROMPT]}, max_len=PROMPT)
+        before = [{k: c[k].clone() for k in ("k", "v")} for c in cache["layers"]]
+        with pytest.raises(ValueError, match=f"cache length {PROMPT}"):
+            model.decode_step(lm, cache, {"tokens": toks[:, PROMPT:]})
+        assert cache["pos"] == PROMPT
+        for c, b in zip(cache["layers"], before, strict=True):
+            assert torch.equal(c["k"], b["k"]) and torch.equal(c["v"], b["v"])
+        i, layer = next((i, l) for i, l in enumerate(lm.all_layers())
+                        if l.spec.attn == "full")
+        x = torch.zeros(BATCH, 1, tcfg.d_model)
+        with pytest.raises(ValueError, match=f"position {PROMPT} .* cache length {PROMPT}"):
+            attention.attention_decode(layer.attn, x, cache["layers"][i], PROMPT, tcfg,
+                                       kind="full")
+        assert torch.equal(cache["layers"][i]["k"], before[i]["k"])
+        # the SWA ring buffer wraps as before; the last in-cache position works
+        assert attention.decode_slot("swa", PROMPT, tcfg.window) == PROMPT % tcfg.window
+        _, cache = model.prefill_step(lm, {"tokens": toks[:, :PROMPT - 1]}, max_len=PROMPT)
+        lg, cache = model.decode_step(lm, cache, {"tokens": toks[:, PROMPT - 1:PROMPT]})
+        assert cache["pos"] == PROMPT and bool(torch.isfinite(lg).all())
+
+    def test_reference_clamps_decode_past_its_cache(self):
+        """The reference's caveat beside the port's error: its full layers
+        write ``pos`` with ``dynamic_update_slice``, which clamps a position
+        past the cache onto the last slot. Row S - 1 of every full layer's
+        cache is overwritten, and the logits miss the one-pass logits by
+        far more than the reference's own decode-consistency tolerance."""
+        params, lm, jcfg, tcfg = _models()
+        S = 8
+        toks = _tokens(S + 1)
+        _, jc = jmodel.prefill_step(params, {"tokens": jnp.asarray(toks[:, :S])}, jcfg,
+                                    chunk_size=16, max_len=S)
+        kinds = [s.attn for s in tcfg.stage_pattern * tcfg.num_stages + tcfg.tail_pattern]
+        assert "full" in kinds
+        before = [np.asarray(c["k"]) for c in _jax_layer_caches(jc, jcfg)]
+        decode = jax.jit(lambda p, c, b: jmodel.decode_step(p, c, b, jcfg))
+        jl, jc = decode(params, jc, {"tokens": jnp.asarray(toks[:, S:])})
+        after = [np.asarray(c["k"]) for c in _jax_layer_caches(jc, jcfg)]
+        for kind, b, a in zip(kinds, before, after, strict=True):
+            assert a.shape[1] == S
+            if kind == "full":
+                assert not np.array_equal(a[:, S - 1], b[:, S - 1])
+                np.testing.assert_array_equal(a[:, :S - 1], b[:, :S - 1])
+        one_pass, _ = jmodel.forward(params, {"tokens": jnp.asarray(toks)}, jcfg,
+                                     chunk_size=16)
+        one_pass = np.asarray(one_pass[:, -1], np.float64)
+        err = float(np.abs(np.asarray(jl[:, 0], np.float64) - one_pass).max())
+        assert err > 3e-2 * max(float(np.abs(one_pass).max()), 1.0), err
+        _, tc = model.prefill_step(lm, {"tokens": torch.from_numpy(toks[:, :S])}, max_len=S)
+        with pytest.raises(ValueError, match=f"cache length {S}"):
+            model.decode_step(lm, tc, {"tokens": torch.from_numpy(toks[:, S:])})
+
     def test_convert_rejects_mismatched_arrays(self):
         params, _, jcfg, tcfg = _models()
         p = jax.tree.map(np.asarray, params)
