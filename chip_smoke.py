@@ -11,7 +11,10 @@ drives two paths through the port's public entry points, each with the
 kernels' launch counts set to 0 just before it and read just after:
 
 - the dense main path at d = 4096, K = 8 clients of 16384 rows each,
-  float32 (one-shot, engine, streamed rows, drop/restore, inference);
+  float32 (one-shot, engine, streamed rows, drop/restore, inference); the
+  streamed rows' factor updates must launch P on every panel and K2 on
+  every panel but the last, and a profiled rank-64 update must run them
+  as P, K2 pairs with no other kernel between;
 - the §IV-F feature tenants at full width: a Gaussian sketch of the same
   data to m = 1024 and random Fourier features (D = 4096) of d = 128 data,
   each through Phase 1 on kernels K3 / K4, the packed upload, the engine in
@@ -122,6 +125,76 @@ def cuda_ms(fn, reps: int = REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def burst_ms(launch, count: int) -> float:
+    """CUDA-event time of ``count`` back-to-back calls of ``launch``, over
+    ``count``: a kernel's device time once launches outpace it."""
+    launch()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(count):
+        launch()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / count
+
+
+def bare_entry(K, name: str):
+    """The ctypes entry of kernel ``name`` on the current stream, called
+    without the wrapper's checks and allocations."""
+    _, fn = K._fn(name)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(*args):
+        rc = fn(*args, stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed ({rc})")
+    return call
+
+
+def p_bare(K, L11: torch.Tensor, X1: torch.Tensor, reps: int):
+    """P's device time (a burst of ``reps`` bare launches in place on a copy
+    of L11) and its split by phase (clock64 stamps of CTA 0 in one more
+    launch): staging L11, the wavefront of 2 bw + r - 1 steps, the stores;
+    each as cycles and as its share of that launch's event time."""
+    bw, r = X1.shape[1], X1.shape[0]
+    w = bw + r
+    T = torch.empty(w, w, dtype=L11.dtype, device=L11.device)
+    arrivals = torch.zeros(1, dtype=torch.int32, device=L11.device)
+    stamps = torch.zeros(4, dtype=torch.int64, device=L11.device)
+    work = L11.clone()
+    call = bare_entry(K, "panel_transform")
+    args = [work.data_ptr(), bw, X1.data_ptr(), bw, T.data_ptr(),
+            arrivals.data_ptr(), None, bw, r, 1.0, K._FLOAT_DTYPES[L11.dtype]]
+    device_ms = burst_ms(lambda: call(*args), reps)
+    args[6] = stamps.data_ptr()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    call(*args)
+    end.record()
+    end.synchronize()
+    names = ("stage", "wavefront", "store")
+    cyc = np.diff(stamps.cpu().numpy())
+    launch_ms = start.elapsed_time(end)
+    total = max(int(cyc.sum()), 1)
+    phases = {"cycles": dict(zip(names, map(int, cyc))),
+              "ms": {n: launch_ms * int(c) / total for n, c in zip(names, cyc)},
+              "cycles_per_step": int(cyc[1]) / (2 * bw + r - 1)}
+    return device_ms, phases
+
+
+def k2_bare(K, L: torch.Tensor, X: torch.Tensor, T: torch.Tensor, c0: int = 0):
+    """One bare in-place launch of K2's panel entry on the panel at c0 of
+    width 32 (T: (32 + r, 32 + r)), as ``chol_update_blocked`` makes it."""
+    d, r, bw = L.shape[0], X.shape[0], PANEL
+    c1, es = c0 + bw, L.element_size()
+    call = bare_entry(K, "gemm_nt_panel")
+    args = (L.data_ptr() + (c1 * d + c0) * es, d, X.data_ptr() + c1 * es, d,
+            T.data_ptr(), None, d - c1, bw, bw + r, K._FLOAT_DTYPES[L.dtype])
+    return lambda: call(*args)
 
 
 def rel_err(x: torch.Tensor, ref: torch.Tensor) -> float:
@@ -290,12 +363,45 @@ def kernel_phase(peaks) -> tuple[dict, dict]:
     detail["gram_moment"] = {**k1, "shape": [n, d], "tolerance": "rel 1e-4 (f32, bf16), 1e-12 (f64); float64: 1e-4 Frobenius"}
     del A, b, G, G2, Gr, Ab, Gb, Gbr, A1, b1
 
-    # K2 at the first panel's trailing-GEMM shape of a rank-64 update.
+    # K2 as the main path launches it: the panel entry on the first trailing
+    # panel of a rank-64 update, [L21 | X2^T] @ T in place (m 4064, n = k =
+    # 96); then the reference's contract C + alpha A B^T on dense operands.
     m, nn, k = DIM - PANEL, PANEL + COALESCE_RANK, PANEL + COALESCE_RANK
+    k2 = {}
+    Lf, Xf = randn(DIM, DIM), randn(COALESCE_RANK, DIM)
+    Tq = torch.linalg.qr(randn(nn, nn))[0].contiguous()      # a panel T is orthogonal
+    for dt in (torch.float32, torch.float64):
+        Lk, Xk = Lf.to(dt), Xf.to(dt)
+        Lp, Xp = Lk.clone(), Xk.clone()
+        K.panel_gemm_cuda(Lk, Xk, 0, PANEL, Tq.to(dt))
+        ref.panel_gemm_ref(Lp, Xp, 0, PANEL, Tq.to(dt))
+        got = torch.cat([Lk[PANEL:, :PANEL], Xk[:, PANEL:].T], dim=1)
+        want = torch.cat([Lp[PANEL:, :PANEL], Xp[:, PANEL:].T], dim=1)
+        key = "panel_rel" if dt == torch.float32 else "panel_f64_rel"
+        k2[key] = rel_err(got, want)
+        check(torch.equal(Lk[:PANEL], Lp[:PANEL]) and torch.equal(Lk[:, PANEL:], Lp[:, PANEL:])
+              and torch.equal(Xk[:, :PANEL], Xp[:, :PANEL]),
+              "K2's panel entry wrote outside [L21 | X2^T]")
+        if dt == torch.float32:
+            k2["max_abs_err"] = float((got - want).abs().max())
+    # the out-of-place route: a rank-1024 update's panel (n 1056), and a
+    # ragged strip (m 100 = 3 x 32 + 4)
+    rw = 1024
+    Lo, Xo, To = randn(DIM, DIM), randn(rw, DIM), torch.linalg.qr(randn(PANEL + rw, PANEL + rw))[0]
+    Lop, Xop = Lo.clone(), Xo.clone()
+    K.panel_gemm_cuda(Lo, Xo, 0, PANEL, To.contiguous())
+    ref.panel_gemm_ref(Lop, Xop, 0, PANEL, To)
+    k2["out_of_place_r1024_rel"] = max(rel_err(Lo, Lop), rel_err(Xo, Xop))
+    del Lo, Xo, Lop, Xop
+    Lr_, Xr_ = randn(164, 164), randn(64, 164)
+    Lrp, Xrp = Lr_.clone(), Xr_.clone()
+    K.panel_gemm_cuda(Lr_, Xr_, 32, 64, Tq)
+    ref.panel_gemm_ref(Lrp, Xrp, 32, 64, Tq)
+    k2["ragged_panel_rel"] = max(rel_err(Lr_, Lrp), rel_err(Xr_, Xrp))
     C, Am, Bm = torch.zeros(m, nn, device="cuda"), randn(m, k), randn(nn, k)
     O = K.gemm_nt_cuda(C, Am, Bm, alpha=1.0)
     Or = ref.gemm_nt_ref(C, Am, Bm, alpha=1.0)
-    k2 = {"rel": rel_err(O, Or), "max_abs_err": float((O - Or).abs().max())}
+    k2["rel"] = rel_err(O, Or)
     C2, A2, B2 = randn(100, 37), randn(100, 13), randn(37, 13)
     k2["ragged_rel"] = rel_err(K.gemm_nt_cuda(C2, A2, B2, alpha=-1.0),
                                ref.gemm_nt_ref(C2, A2, B2, alpha=-1.0))
@@ -303,49 +409,70 @@ def kernel_phase(peaks) -> tuple[dict, dict]:
     k2["f64_rel"] = rel_err(K.gemm_nt_cuda(Cd, Ad2, Bd2, alpha=1.0),
                             ref.gemm_nt_ref(Cd, Ad2, Bd2, alpha=1.0))
     # k = 96 float32 products per entry, summed in two orders.
-    check(k2["rel"] <= 1e-5 and k2["ragged_rel"] <= 1e-5,
-          f"K2 error {k2['rel']}, {k2['ragged_rel']} > 1e-5")
-    check(k2["f64_rel"] <= 1e-13, f"K2 float64 error {k2['f64_rel']} > 1e-13")
-    ms = cuda_ms(lambda: K.gemm_nt_cuda(C, Am, Bm, alpha=1.0))
-    plain_ms = cuda_ms(lambda: ref.gemm_nt_ref(C, Am, Bm, alpha=1.0))
-    lib_ms = cuda_ms(lambda: torch.addmm(C, Am, Bm.T, alpha=1.0))
-    bms, by = bound(2 * m * nn * k + 2 * m * nn,
-                    4 * (2 * m * nn + m * k + nn * k), peaks)
+    for key in ("panel_rel", "out_of_place_r1024_rel", "ragged_panel_rel", "rel", "ragged_rel"):
+        check(k2[key] <= 1e-5, f"K2 {key} = {k2[key]} > 1e-5")
+    check(k2["f64_rel"] <= 1e-13 and k2["panel_f64_rel"] <= 1e-13,
+          f"K2 float64 error {k2['f64_rel']}, {k2['panel_f64_rel']} > 1e-13")
+    # timed in place, over and over: T is orthogonal, so values stay bounded
+    Lp, Xp = Lf.clone(), Xf.clone()
+    ms = cuda_ms(lambda: K.panel_gemm_cuda(Lf, Xf, 0, PANEL, Tq))
+    plain_ms = cuda_ms(lambda: ref.panel_gemm_ref(Lp, Xp, 0, PANEL, Tq))
+    Z = torch.cat([Lf[PANEL:, :PANEL], Xf[:, PANEL:].T], dim=1)
+    Zo = torch.empty_like(Z)
+    lib_ms = cuda_ms(lambda: torch.addmm(C, Z, Tq))
+    k2.update(device_ms=burst_ms(k2_bare(K, Lf, Xf, Tq), 200),
+              addmm_device_ms=burst_ms(lambda: torch.addmm(C, Z, Tq, out=Zo), 200),
+              general_ms=cuda_ms(lambda: K.gemm_nt_cuda(C, Am, Bm, alpha=1.0)),
+              in_place=K.panel_in_place(nn, torch.float32))
+    bms, by = bound(2 * m * nn * k, 4 * (2 * m * nn + nn * k), peaks)
     rows["gemm_nt"] = dict(
         name="gemm_nt", route="cuda", source="src/repro_torch/csrc/gemm_nt.cu",
         replaces="src/repro/kernels/gram.py:86", max_abs_err=k2["max_abs_err"],
-        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        ms=ms, device_ms=k2["device_ms"], plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=lib_ms)
     detail["gemm_nt"] = {**k2, "shape": [m, nn, k], "tolerance": "rel 1e-5 (f32), 1e-13 (f64)"}
+    del Lf, Lp, Xf, Xp, Z, Zo, C, Am, Bm
 
     # P at the main path's panel: bw = 32 against r = 64 update rows, on a
-    # diagonal panel of a real Gram's factor.
-    bw, r = PANEL, COALESCE_RANK
+    # diagonal panel of a real Gram's factor; once more at r = 1024.
+    bw = PANEL
     M = randn(ROWS, bw)
     # torch.linalg.cholesky returns column-major strides; the kernel takes
-    # row-major (chol_update_blocked copies each panel the same way).
+    # row-major (chol_update_blocked works on a row-major copy).
     L11 = torch.linalg.cholesky(
         M.T @ M + SIGMA * torch.eye(bw, device="cuda")).contiguous()
-    X1 = randn(r, bw)
     k3 = {}
-    for sign in (1.0, -1.0):
-        # the downdate removes rows that the update just added: stays PD
-        base = L11 if sign > 0 else K.panel_transform_cuda(L11, X1)[0]
-        Lk, Tk = K.panel_transform_cuda(base, X1, sign=sign)
-        Lp, Tp = panel_transform_ref(base, X1, sign=sign)
-        key = "up" if sign > 0 else "down"
-        k3[f"{key}_L_rel"], k3[f"{key}_T_rel"] = rel_err(Lk, Lp), rel_err(Tk, Tp)
-        k3[f"{key}_max_abs_err"] = float(max((Lk - Lp).abs().max(),
-                                             (Tk - Tp).abs().max()))
-    Ld, Td = K.panel_transform_cuda(L11.double(), X1.double())
-    Lpd, Tpd = panel_transform_ref(L11.double(), X1.double())
-    k3["f64_rel"] = max(rel_err(Ld, Lpd), rel_err(Td, Tpd))
-    # Same elementary operations; only fused multiply-adds round differently,
-    # and the r * bw = 2048-step chain carries that.
-    for key in ("up_L_rel", "up_T_rel", "down_L_rel", "down_T_rel"):
+    for r in (COALESCE_RANK, 1024):
+        X1 = randn(r, bw)
+        tag = "" if r == COALESCE_RANK else f"r{r}_"
+        for sign in (1.0, -1.0):
+            # the downdate removes rows that the update just added: stays PD
+            base = L11 if sign > 0 else K.panel_transform_cuda(L11, X1)[0]
+            Lk, Tk = K.panel_transform_cuda(base, X1, sign=sign)
+            Lp, Tp = panel_transform_ref(base, X1, sign=sign)
+            key = tag + ("up" if sign > 0 else "down")
+            k3[f"{key}_L_rel"], k3[f"{key}_T_rel"] = rel_err(Lk, Lp), rel_err(Tk, Tp)
+            k3[f"{key}_max_abs_err"] = float(max((Lk - Lp).abs().max(),
+                                                 (Tk - Tp).abs().max()))
+            k3[f"{key}_bitwise_plain"] = bool(torch.equal(Lk, Lp) and torch.equal(Tk, Tp))
+        if r == COALESCE_RANK:
+            Ld, Td = K.panel_transform_cuda(L11.double(), X1.double())
+            Lpd, Tpd = panel_transform_ref(L11.double(), X1.double())
+            k3["f64_rel"] = max(rel_err(Ld, Lpd), rel_err(Td, Tpd))
+            k3["f64_bitwise_plain"] = bool(torch.equal(Ld, Lpd) and torch.equal(Td, Tpd))
+            ms = cuda_ms(lambda: K.panel_transform_cuda(L11, X1))
+            plain_ms = cuda_ms(lambda: panel_transform_ref(L11, X1))
+        k3[tag + "device_ms"], k3[tag + "phases"] = p_bare(
+            K, L11, X1, 200 if r == COALESCE_RANK else 20)
+        if r != COALESCE_RANK:
+            k3[tag + "ms"] = cuda_ms(lambda: K.panel_transform_cuda(L11, X1))
+    # Same elementary operations, each rounded once; the r * bw-step chain
+    # carries any difference.
+    for key in ("up_L_rel", "up_T_rel", "down_L_rel", "down_T_rel", "r1024_up_L_rel",
+                "r1024_up_T_rel", "r1024_down_L_rel", "r1024_down_T_rel"):
         check(k3[key] <= 1e-4, f"P {key} = {k3[key]} > 1e-4")
     check(k3["f64_rel"] <= 1e-12, f"P float64 error {k3['f64_rel']} > 1e-12")
-    ms = cuda_ms(lambda: K.panel_transform_cuda(L11, X1))
-    plain_ms = cuda_ms(lambda: panel_transform_ref(L11, X1))
+    r = COALESCE_RANK
     rotations = bw * (bw - 1) // 2 * r + bw * r + (bw + r) * bw * r
     bms, by = bound(6 * rotations, 4 * (2 * bw * bw + r * bw + (bw + r) ** 2),
                     peaks)
@@ -354,7 +481,8 @@ def kernel_phase(peaks) -> tuple[dict, dict]:
         source="src/repro_torch/csrc/panel_transform.cu",
         replaces="src/repro/server/cholesky.py:83",
         max_abs_err=max(k3["up_max_abs_err"], k3["down_max_abs_err"]),
-        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
+        ms=ms, device_ms=k3["device_ms"], plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None)
     detail["panel_transform"] = {**k3, "shape": [bw, r], "tolerance": "rel 1e-4 (f32), 1e-12 (f64)"}
     del M, L11, X1
 
@@ -664,6 +792,7 @@ def main_path_phase() -> tuple:
     #    cached factors are updated (kernels P and K2), never refactored.
     cold0 = eng.cold_factorizations
     rows_A, rows_b = ds.test_A[:STREAM_ROWS + 1], ds.test_b[:STREAM_ROWS + 1]
+    updates0, launches0 = eng.incremental_updates, K.launch_counts()
     t0 = time.perf_counter()
     for i in range(STREAM_ROWS):
         eng.ingest_rows_async(rows_A[i:i + 1], rows_b[i:i + 1], client_id=7)
@@ -671,6 +800,14 @@ def main_path_phase() -> tuple:
     sync()
     steps["stream_rows_s"] = time.perf_counter() - t0
     check(eng.incremental_updates > 0, "no incremental factor update")
+    # once per panel: P on each of the d / 32 diagonal panels, K2 on each
+    # that has trailing rows (all but the last)
+    panels = -(-DIM // PANEL)
+    updates = eng.incremental_updates - updates0
+    stream = {k: K.launch_counts()[k] - launches0[k] for k in ("panel_transform", "gemm_nt")}
+    check(stream["panel_transform"] == updates * panels
+          and stream["gemm_nt"] == updates * (panels - 1),
+          f"streaming: {stream} launches for {updates} updates of {panels} panels")
     check(eng.cold_factorizations == cold0, "streaming refactorized")
     for s in SIGMAS:
         errs[f"stream_{s}_vs_f64"] = rel_err(eng.solve(s), f64_solve(eng.stats, s))
@@ -721,9 +858,26 @@ def main_path_phase() -> tuple:
     launches = K.launch_counts()
     for name in ("gram_moment", "gemm_nt", "panel_transform"):
         check(launches[name] > 0, f"kernel {name} was not launched on the main path")
+
+    # one more rank-64 update of a cached factor, as a flush makes it, under
+    # the profiler: from its first P to its last the card runs P and K2 in
+    # turns, one pair a panel, and no other kernel
+    L, U = eng.factor(SIGMA), rows_A[:COALESCE_RANK]
+    names = kernel_sequence(lambda: eng.backend.update(L, U, 1.0))
+    tags = ["P" if "panel_transform_kernel" in n else
+            "K2" if "gemm_nt_panel_kernel" in n else n[:60] for n in names]
+    check("P" in tags, f"no P in the profiled update: {tags[:8]}")
+    first, last = tags.index("P"), len(tags) - 1 - tags[::-1].index("P")
+    check(tags[first:last + 1] == ["P", "K2"] * (panels - 1) + ["P"],
+          f"the update's panels did not run as P, K2 pairs: {tags[first:first + 8]}")
+    del L
     return ds, res.weights, {"phase": "main_path", "dim": DIM, "clients": CLIENTS,
             "rows_per_client": ROWS, "dtype": "float32", "errors": errs,
             "steps_s": steps, "launches": launches,
+            "stream_launches": {**stream, "updates": updates, "panels": panels},
+            "profiled_update": {"kernels_before_first_P": tags[:first],
+                                "kernels_after_last_P": tags[last + 1:],
+                                "panel_kernels": last + 1 - first},
             "upload_wire_bytes_per_client": upload,
             "engine": eng.summary(),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
@@ -892,6 +1046,20 @@ def feature_phase(ds, w_dense) -> dict:
             "launches": launches, "engine_rff": eng.summary(),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
             "seconds": time.perf_counter() - t_all}
+
+
+def kernel_sequence(fn) -> list[str]:
+    """Names of the device kernels that ``fn`` launches, in the order the
+    card ran them (``torch.profiler``'s device events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
 
 
 def profile_top(fn, top: int = 8) -> dict:
@@ -1079,8 +1247,8 @@ def main() -> int:
                else serving if kname == "swa_flash" else path)
         row["launches"] = run["launches"][kname]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: row[k] for k in order} for row in rows.values()]})
+             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"kernels": [{k: row[k] for k in order if k in row} for row in rows.values()]})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,22 +1,38 @@
-// K2: O = C + alpha * A @ B^T for one panel of the blocked Cholesky update.
+// K2: O = C + alpha * A @ B^T, and the panel product of the blocked
+// Cholesky update in place.
 //
 // Replaces the TPU kernel `gemm_nt_pallas` (src/repro/kernels/gram.py, body
-// `_gemm_nt_kernel`). On the port's main path it is the trailing GEMM of
+// `_gemm_nt_kernel`). On the port's main path it is the trailing product of
 // every blocked rank-r factor up/downdate (server/cholesky.py,
 // `chol_update_blocked`): Z @ T with Z = [L21 | X2^T] of shape
-// (d - c1, bw + r) and T the (bw + r, bw + r) panel transformation, called as
-// gemm_nt(0, Z, T^T, alpha=1) once per diagonal panel.
+// (d - c1, bw + r) and T the (bw + r, bw + r) panel transformation, which
+// the reference calls as gemm_nt(0, Z, T^T, alpha=1) once per diagonal
+// panel. Two entries:
 //
-// What bounds it on an H100: at the panel shapes (m <= 4064, n = k = 96 for
-// bw = 32, r = 64) one launch moves about 3 MB and does 75 MFLOP, a few
-// microseconds of either; a factor update makes d / bw = 128 such launches
-// in sequence, so its cost is launch latency, not bytes or operations.
+//   `gemm_nt`        the reference's contract on dense row-major operands:
+//                    one CTA per 64 x 64 output tile, 256 threads as a
+//                    16 x 16 grid each holding a 4 x 4 block of
+//                    accumulators, k staged 16 deep through shared memory.
+//   `gemm_nt_panel`  the panel product with no C and no copies: Z is read
+//                    where it lies, L21 = L[c1:, c0:c1] at its leading
+//                    dimension and X2^T from the rows of X = X[:, c1:], and
+//                    the result goes back over the same elements.
 //
-// Design: one CTA per 64 x 64 output tile, 256 threads as a 16 x 16 grid
-// each holding a 4 x 4 block of accumulators, with the (small) k loop inside
-// the CTA in chunks of 16 staged through shared memory. float32 and float64,
-// plain fused multiply-adds on the CUDA cores (no TF32). Ragged m, n and k
-// are masked, so the wrapper pads nothing.
+// What bounds the panel product on an H100: at bw = 32, r = 64 (m <= 4064,
+// n = k = 96) a launch moves ~3.2 MB and does 75 MFLOP, ~1 us of either,
+// so its time is the launch and the latency of one load-compute-store pass.
+// Design (in place): one CTA owns a strip of 32 trailing rows across all n
+// columns. It stages its strip of Z and all of T in shared memory with
+// cp.async, computes the 32 x n strip with plain FP32 (or FP64) fused
+// multiply-adds on the CUDA cores (warp w: rows w + 8p; lane: columns
+// lane + 32q), stages the result over its Z strip, and stores it back with
+// the load's coalesced mapping. No other CTA reads or writes those rows, so
+// the in-place write cannot race. That takes T and the strip in shared
+// memory, (n * 32 NQ + 32 (n + 1)) elements for n <= 32 NQ: up to n = 160 in
+// float32 (r <= 128) and n = 96 in float64 (r <= 64). Wider panels (the rare
+// large-rank updates, where the product dominates) run out of place: the
+// `gemm_nt` tile loop reads Z and T through the same strides into a
+// workspace O (m, n), which the caller copies back.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -26,15 +42,49 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = 64;
 constexpr int kBK = 16;
+constexpr int kStrip = 32;              // rows of Z per CTA of the panel entry
+constexpr int kStripRows = kStrip / 8;  // of them, per warp
+constexpr int kPanelSmem = 200 * 1024;  // its shared memory cap (bytes)
 
 __device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
 
+// The reference's operands: A (m, k), B (n, k), C and O (m, n), row-major.
 template <typename T>
+struct DenseNT {
+  const T* C;
+  const T* A;
+  const T* B;
+  T* O;
+  int n, k;
+  T alpha;
+  __device__ T a(int i, int kk) const { return A[static_cast<int64_t>(i) * k + kk]; }
+  __device__ T b(int j, int kk) const { return B[static_cast<int64_t>(j) * k + kk]; }
+  __device__ void store(int i, int j, T acc) const {
+    const int64_t at = static_cast<int64_t>(i) * n + j;
+    O[at] = C[at] + alpha * acc;
+  }
+};
+
+// The panel's operands: A = Z = [L21 | X2^T], B = T^T, O a workspace.
+template <typename T>
+struct PanelZT {
+  const T* L;   // L[c1, c0], leading dimension ldl
+  const T* X;   // X[0, c1], leading dimension ldx
+  const T* Tm;  // T (n, n)
+  T* O;         // (m, n)
+  int ldl, ldx, bw, n;
+  __device__ T a(int i, int kk) const {
+    return kk < bw ? L[static_cast<int64_t>(i) * ldl + kk]
+                   : X[static_cast<int64_t>(kk - bw) * ldx + i];
+  }
+  __device__ T b(int j, int kk) const { return Tm[static_cast<int64_t>(kk) * n + j]; }
+  __device__ void store(int i, int j, T acc) const { O[static_cast<int64_t>(i) * n + j] = acc; }
+};
+
+template <typename T, typename Ops>
 __global__ void __launch_bounds__(kThreads)
-gemm_nt_kernel(const T* __restrict__ C, const T* __restrict__ A,
-               const T* __restrict__ B, T* __restrict__ O,
-               int m, int n, int k, T alpha) {
+gemm_nt_kernel(Ops ops, int m, int n, int k) {
   // +1 column of padding: the loads below write consecutive kk from
   // consecutive threads, which would otherwise hit one bank.
   __shared__ T As[kBK][kTile + 1];
@@ -56,8 +106,8 @@ gemm_nt_kernel(const T* __restrict__ C, const T* __restrict__ A,
       const int r = e / kBK;
       const int kk = e % kBK;
       const bool kin = k0 + kk < k;
-      As[kk][r] = (kin && i0 + r < m) ? A[static_cast<int64_t>(i0 + r) * k + k0 + kk] : T(0);
-      Bs[kk][r] = (kin && j0 + r < n) ? B[static_cast<int64_t>(j0 + r) * k + k0 + kk] : T(0);
+      As[kk][r] = (kin && i0 + r < m) ? ops.a(i0 + r, k0 + kk) : T(0);
+      Bs[kk][r] = (kin && j0 + r < n) ? ops.b(j0 + r, k0 + kk) : T(0);
     }
     __syncthreads();
 #pragma unroll
@@ -82,23 +132,151 @@ gemm_nt_kernel(const T* __restrict__ C, const T* __restrict__ A,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int c = j0 + tx + 16 * q;
-      if (r < m && c < n) {
-        const int64_t at = static_cast<int64_t>(r) * n + c;
-        O[at] = C[at] + alpha * acc[p][q];
-      }
+      if (r < m && c < n) ops.store(r, c, acc[p][q]);
     }
   }
 }
 
-template <typename T>
-int launch(const void* C, const void* A, const void* B, void* O, int m, int n,
-           int k, double alpha, cudaStream_t stream) {
+template <typename T, typename Ops>
+int launch_tiles(const Ops& ops, int m, int n, int k, cudaStream_t stream) {
   const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile);
-  gemm_nt_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(C), static_cast<const T*>(A),
-      static_cast<const T*>(B), static_cast<T*>(O), m, n, k,
-      static_cast<T>(alpha));
+  gemm_nt_kernel<T, Ops><<<grid, kThreads, 0, stream>>>(ops, m, n, k);
   return static_cast<int>(cudaGetLastError());
+}
+
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, float) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::
+                   "r"(static_cast<unsigned>(__cvta_generic_to_shared(smem))), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, double) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::
+                   "r"(static_cast<unsigned>(__cvta_generic_to_shared(smem))), "l"(gmem));
+}
+
+// Shared memory of the in-place panel entry at width n (NQ column groups).
+template <typename T>
+__host__ __device__ constexpr int panel_smem(int n, int nq) {
+  return static_cast<int>(sizeof(T)) * (n * 32 * nq + kStrip * (n + 1));
+}
+
+// One element of the strip: Z[i0 + i, c] lies in L (c < bw) or in X.
+template <typename T>
+__device__ __forceinline__ T* strip_at(T* L, int ldl, T* X, int ldx, int bw,
+                                       int row, int c) {
+  return c < bw ? L + static_cast<int64_t>(row) * ldl + c
+                : X + static_cast<int64_t>(c - bw) * ldx + row;
+}
+
+template <typename T, int NQ>
+__global__ void __launch_bounds__(kThreads)
+gemm_nt_panel_kernel(T* __restrict__ L, int ldl, T* __restrict__ X, int ldx,
+                     const T* __restrict__ Tm, int m, int bw, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kPitchT = 32 * NQ;
+  T* const Ts = reinterpret_cast<T*>(smem_raw);   // [n][kPitchT]
+  T* const Zs = Ts + n * kPitchT;                 // [kStrip][n + 1]
+  const int pz = n + 1;
+  const int i0 = blockIdx.x * kStrip;
+  const int rows = min(kStrip, m - i0);
+  const int tid = threadIdx.x;
+  const int r = n - bw;
+
+  for (int e = tid; e < n * kPitchT; e += kThreads) {
+    const int kk = e / kPitchT, c = e % kPitchT;
+    if (c < n) cp_async(Ts + e, Tm + static_cast<int64_t>(kk) * n + c, T(0));
+    else Ts[e] = T(0);
+  }
+  // L21 rows: consecutive threads on consecutive columns; X2^T: on
+  // consecutive rows of the strip, which are consecutive in X's rows.
+  for (int e = tid; e < kStrip * bw; e += kThreads) {
+    const int i = e / bw, c = e % bw;
+    if (i < rows) cp_async(Zs + i * pz + c, strip_at(L, ldl, X, ldx, bw, i0 + i, c), T(0));
+    else Zs[i * pz + c] = T(0);
+  }
+  for (int e = tid; e < kStrip * r; e += kThreads) {
+    const int i = e % kStrip, c = bw + e / kStrip;
+    if (i < rows) cp_async(Zs + i * pz + c, strip_at(L, ldl, X, ldx, bw, i0 + i, c), T(0));
+    else Zs[i * pz + c] = T(0);
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+
+  const int warp = tid >> 5, lane = tid & 31;
+  T acc[kStripRows][NQ];
+#pragma unroll
+  for (int p = 0; p < kStripRows; ++p)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) acc[p][q] = T(0);
+  for (int kk = 0; kk < n; ++kk) {
+    T a[kStripRows], b[NQ];
+#pragma unroll
+    for (int p = 0; p < kStripRows; ++p) a[p] = Zs[(warp + 8 * p) * pz + kk];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) b[q] = Ts[kk * kPitchT + lane + 32 * q];
+#pragma unroll
+    for (int p = 0; p < kStripRows; ++p)
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) acc[p][q] = fma_t(a[p], b[q], acc[p][q]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < kStripRows; ++p)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+      if (lane + 32 * q < n) Zs[(warp + 8 * p) * pz + lane + 32 * q] = acc[p][q];
+  __syncthreads();
+
+  for (int e = tid; e < rows * bw; e += kThreads) {
+    const int i = e / bw, c = e % bw;
+    *strip_at(L, ldl, X, ldx, bw, i0 + i, c) = Zs[i * pz + c];
+  }
+  for (int e = tid; e < kStrip * r; e += kThreads) {
+    const int i = e % kStrip, c = bw + e / kStrip;
+    if (i < rows) *strip_at(L, ldl, X, ldx, bw, i0 + i, c) = Zs[i * pz + c];
+  }
+}
+
+template <typename T, int NQ>
+int launch_panel(void* L, int ldl, void* X, int ldx, const void* Tm, int m,
+                 int bw, int n, cudaStream_t stream) {
+  // per kernel and device: set on the current device at every launch
+  const cudaError_t err = cudaFuncSetAttribute(
+      gemm_nt_panel_kernel<T, NQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      panel_smem<T>(32 * NQ, NQ));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int ctas = (m + kStrip - 1) / kStrip;
+  gemm_nt_panel_kernel<T, NQ><<<ctas, kThreads, panel_smem<T>(n, NQ), stream>>>(
+      static_cast<T*>(L), ldl, static_cast<T*>(X), ldx,
+      static_cast<const T*>(Tm), m, bw, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The least number of 32-column groups that covers n, or 0 if the in-place
+// entry's shared memory cannot hold width n.
+template <typename T>
+int panel_groups(int n) {
+  const int nq = (n + 31) / 32;
+  const int most = sizeof(T) == 4 ? 5 : 3;
+  return nq <= most && panel_smem<T>(n, nq) <= kPanelSmem ? nq : 0;
+}
+
+template <typename T>
+int panel(void* L, int ldl, void* X, int ldx, const void* Tm, void* O, int m,
+          int bw, int n, cudaStream_t s) {
+  if (O != nullptr) {
+    const PanelZT<T> ops{static_cast<const T*>(L), static_cast<const T*>(X),
+                         static_cast<const T*>(Tm), static_cast<T*>(O),
+                         ldl, ldx, bw, n};
+    return launch_tiles<T>(ops, m, n, n, s);
+  }
+  switch (panel_groups<T>(n)) {
+    case 1: return launch_panel<T, 1>(L, ldl, X, ldx, Tm, m, bw, n, s);
+    case 2: return launch_panel<T, 2>(L, ldl, X, ldx, Tm, m, bw, n, s);
+    case 3: return launch_panel<T, 3>(L, ldl, X, ldx, Tm, m, bw, n, s);
+    case 4: return launch_panel<T, 4>(L, ldl, X, ldx, Tm, m, bw, n, s);
+    case 5: return launch_panel<T, 5>(L, ldl, X, ldx, Tm, m, bw, n, s);
+    default: return -1;
+  }
 }
 
 }  // namespace
@@ -112,9 +290,51 @@ extern "C" int gemm_nt(const void* C, const void* A, const void* B, void* O,
   if (m <= 0 || n <= 0 || k < 0 || m > 65535 * kTile) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(C, A, B, O, m, n, k, alpha, s);
-    case 1: return launch<double>(C, A, B, O, m, n, k, alpha, s);
+    case 0: {
+      const DenseNT<float> ops{static_cast<const float*>(C), static_cast<const float*>(A),
+                               static_cast<const float*>(B), static_cast<float*>(O),
+                               n, k, static_cast<float>(alpha)};
+      return launch_tiles<float>(ops, m, n, k, s);
+    }
+    case 1: {
+      const DenseNT<double> ops{static_cast<const double*>(C), static_cast<const double*>(A),
+                                static_cast<const double*>(B), static_cast<double*>(O),
+                                n, k, alpha};
+      return launch_tiles<double>(ops, m, n, k, s);
+    }
     default: return -1;
+  }
+}
+
+// Z @ T for one panel: Z[i] = [L[c1 + i, c0:c1] | X[:, c1 + i]] for the
+// m trailing rows. L: L[c1, c0] (leading dimension ldl), X: X[0, c1]
+// (n - bw rows, leading dimension ldx), Tm: (n, n) row-major. With O null
+// the product goes back over Z in place (for n where
+// `gemm_nt_panel_in_place` holds); else into O (m, n) row-major and Z is
+// only read. One dtype: 0 float32,
+// 1 float64. Returns the cudaError_t of the launch (0 on success), -1 for a
+// bad argument.
+extern "C" int gemm_nt_panel(void* L, int ldl, void* X, int ldx,
+                             const void* Tm, void* O, int m, int bw, int n,
+                             int dtype, void* stream) {
+  if (m <= 0 || bw < 1 || n <= bw || ldl < bw || ldx < m || m > 65535 * kTile)
+    return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return panel<float>(L, ldl, X, ldx, Tm, O, m, bw, n, s);
+    case 1: return panel<double>(L, ldl, X, ldx, Tm, O, m, bw, n, s);
+    default: return -1;
+  }
+}
+
+// 1 if the panel entry takes an n-wide product in place (O null) for
+// dtype 0 float32 / 1 float64, else 0.
+extern "C" int gemm_nt_panel_in_place(int n, int dtype) {
+  if (n < 1) return 0;
+  switch (dtype) {
+    case 0: return panel_groups<float>(n) > 0;
+    case 1: return panel_groups<double>(n) > 0;
+    default: return 0;
   }
 }
 

@@ -9,7 +9,9 @@ by one where it launches its kernel and nowhere else.
 
   K1 ``gram_moment_cuda``     — (A^T A, A^T b); replaces ``gram_moment_pallas``
   K2 ``gemm_nt_cuda``         — C + alpha A B^T; replaces ``gemm_nt_pallas``
+     ``panel_gemm_cuda``      — its panel entry: [L21 | X2^T] @ T in place
   P  ``panel_transform_cuda`` — one panel of the blocked Cholesky update
+     ``blocked_update_cuda``  — every panel of one update, P then K2 in place
   K3 ``sketch_gram_cuda``     — ((AR)^T AR, (AR)^T b); replaces ``sketch_gram_pallas``
   K4 ``rff_gram_cuda``        — the same on sqrt(2/D) cos(XW + c); replaces
                                 ``rff_gram_pallas``
@@ -43,12 +45,17 @@ _FLOAT_DTYPES = {torch.float32: 0, torch.float64: 1}
 _SIGNATURES = {
     "gram_moment": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
     "gemm_nt": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _DBL, _INT, _VP],
-    "panel_transform": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _DBL, _INT, _VP],
+    "gemm_nt_panel": [_VP, _INT, _VP, _INT, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
+    "panel_transform": [_VP, _INT, _VP, _INT, _VP, _VP, _VP, _INT, _INT, _DBL,
+                        _INT, _VP],
     "sketch_gram": [_VP] * 6 + [_INT] * 7 + [_VP],
     "rff_gram": [_VP] * 7 + [_INT] * 5 + [_DBL, _INT, _INT, _VP],
     "swa_flash": [_VP] * 4 + [_INT] * 7 + [_FLT, _INT, _VP],
 }
-_SOURCE = {"sketch_gram": "feature_gram", "rff_gram": "feature_gram"}
+_SOURCE = {"sketch_gram": "feature_gram", "rff_gram": "feature_gram",
+           "gemm_nt_panel": "gemm_nt"}
+# A second entry of a kernel raises that kernel's launch count.
+_COUNTED_AS = {"gemm_nt_panel": "gemm_nt"}
 
 # (input dtype, map dtype) -> code of csrc/feature_gram.cu
 _FEATURE_DTYPES = {(torch.float32, torch.float32): 0,
@@ -134,6 +141,10 @@ def _launch(name: str, device: torch.device, *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, stream)
+    _raise_on(name, lib, rc)
+
+
+def _raise_on(name: str, lib: ctypes.CDLL, rc: int) -> None:
     if rc != 0:
         what = ("bad argument" if rc < 0
                 else lib.kernel_error_string(rc).decode())
@@ -200,7 +211,8 @@ def panel_transform_cuda(L11: torch.Tensor, X1: torch.Tensor, *,
     """P: ``(L11', T)`` of one diagonal panel against all r update vectors.
 
     L11: (bw, bw) lower-triangular with 1 <= bw <= 32, X1: (r, bw) with
-    r >= 1; f32 or f64. T is (bw + r, bw + r).
+    r >= 1; f32 or f64. T is (bw + r, bw + r). The kernel works in place;
+    here on a copy of L11, whose upper triangle it leaves as it was.
     """
     device = _check("panel_transform", {"L11": L11, "X1": X1}, _FLOAT_DTYPES)
     bw = L11.shape[0] if L11.ndim == 2 else -1
@@ -211,15 +223,131 @@ def panel_transform_cuda(L11: torch.Tensor, X1: torch.Tensor, *,
                          f"{tuple(X1.shape)}")
     if L11.dtype != X1.dtype:
         raise TypeError(f"panel_transform: L11 is {L11.dtype}, X1 is {X1.dtype}")
-    r = X1.shape[0]
-    L11o = torch.empty_like(L11)
-    T = torch.empty((bw + r, bw + r), dtype=L11.dtype, device=device)
-    table = torch.empty((2, bw, r), dtype=L11.dtype, device=device)
-    _launch("panel_transform", device, L11.data_ptr(), X1.data_ptr(),
-            L11o.data_ptr(), T.data_ptr(), table.data_ptr(), bw, r,
-            float(sign), _FLOAT_DTYPES[L11.dtype])
-    panel_transform_cuda.launches += 1
-    return L11o, T
+    panels = _Panels(L11.clone(), X1, bw, sign)
+    panels.transform(0, bw)
+    w = bw + X1.shape[0]
+    return panels.L, panels.T.view(w, w)
+
+
+def panel_in_place(n: int, dtype: torch.dtype) -> bool:
+    """Whether K2's panel entry takes an n-wide panel product (n = bw + r)
+    in place: all of T and a 32-row strip of Z in one CTA's shared memory
+    (float32 up to n = 160, float64 up to n = 96). Wider products go out of
+    place into a workspace and are copied back. The rule is the library's
+    (``gemm_nt_panel_in_place`` in ``csrc/gemm_nt.cu``), so this loads it."""
+    fn = _build.load("gemm_nt").gemm_nt_panel_in_place
+    fn.argtypes, fn.restype = [_INT, _INT], _INT
+    return bool(fn(n, _FLOAT_DTYPES[dtype]))
+
+
+def _panel_gemm(entry, L: torch.Tensor, X: torch.Tensor, c0: int, c1: int,
+                T: torch.Tensor, O: torch.Tensor | None, stream: int) -> None:
+    """One launch of K2's panel entry (``entry``: its library and function)
+    on the trailing rows c1: of the panel L[:, c0:c1]: Z @ T back over Z in
+    place, or with a workspace O (at least d - c1 rows of bw + r) out of
+    place and copied back. Arguments already checked."""
+    lib, fn = entry
+    d, s = L.shape[0], L.element_size()
+    bw = c1 - c0
+    m, n = d - c1, bw + X.shape[0]
+    rc = fn(L.data_ptr() + (c1 * d + c0) * s, d, X.data_ptr() + c1 * s, d,
+            T.data_ptr(), None if O is None else O.data_ptr(), m, bw, n,
+            _FLOAT_DTYPES[L.dtype], stream)
+    _raise_on("gemm_nt_panel", lib, rc)
+    gemm_nt_cuda.launches += 1          # K2's count, from either entry
+    if O is not None:
+        L[c1:, c0:c1].copy_(O[:m, :bw])
+        X[:, c1:].copy_(O[:m, bw:].T)
+
+
+class _Panels:
+    """P and K2 over one factor L (d, d) and its update vectors X (r, d),
+    both row-major and updated in place.
+
+    Checks the operands and allocates the workspaces (T, P's arrival count,
+    and the out-of-place product when the panels are too wide to take in
+    place) once, and takes the library entries and the stream once, so that
+    each panel is two bare launches: :meth:`transform` (P) writes L11' into
+    L and T into its workspace, :meth:`gemm` (K2) writes [L21 | X2^T] @ T
+    back over L21 and X2.
+    """
+
+    def __init__(self, L: torch.Tensor, X: torch.Tensor, block_size: int,
+                 sign: float):
+        device = _check("chol_update_blocked", {"L": L, "X": X}, _FLOAT_DTYPES)
+        d = L.shape[0] if L.ndim == 2 else -1
+        if L.shape != (d, d) or X.ndim != 2 or X.shape[1] != d or X.shape[0] < 1:
+            raise ValueError(f"panels: need L (d, d) and X (r >= 1, d), got "
+                             f"{tuple(L.shape)}, {tuple(X.shape)}")
+        if not 1 <= block_size <= 32:
+            raise ValueError(f"panels: block size {block_size} not in 1..32")
+        if L.dtype != X.dtype:
+            raise TypeError(f"panels: L is {L.dtype}, X is {X.dtype}")
+        self.L, self.X, self.d, self.r = L, X, d, X.shape[0]
+        self.sign, self.code = float(sign), _FLOAT_DTYPES[L.dtype]
+        w = min(block_size, d) + self.r
+        self.T = torch.empty(w * w, dtype=L.dtype, device=device)
+        self.arrivals = torch.zeros(1, dtype=torch.int32, device=device)
+        self.O = (None if panel_in_place(w, L.dtype) else
+                  torch.empty((max(d - block_size, 0), w), dtype=L.dtype, device=device))
+        self.p_lib, self.p = _fn("panel_transform")
+        self.k2 = _fn("gemm_nt_panel")
+        with torch.cuda.device(device):
+            self.stream = torch.cuda.current_stream(device).cuda_stream
+
+    def transform(self, c0: int, c1: int) -> None:
+        """P on the panel L[c0:c1, c0:c1]: L11' in place, T (bw + r square)
+        at the head of its workspace."""
+        bw, d, s = c1 - c0, self.d, self.L.element_size()
+        rc = self.p(self.L.data_ptr() + (c0 * d + c0) * s, d,
+                    self.X.data_ptr() + c0 * s, d, self.T.data_ptr(),
+                    self.arrivals.data_ptr(), None, bw, self.r, self.sign,
+                    self.code, self.stream)
+        _raise_on("panel_transform", self.p_lib, rc)
+        panel_transform_cuda.launches += 1
+
+    def gemm(self, c0: int, c1: int) -> None:
+        """K2 on the trailing rows c1: of the panel: Z @ T back over Z."""
+        _panel_gemm(self.k2, self.L, self.X, c0, c1, self.T, self.O, self.stream)
+
+
+def blocked_update_cuda(L: torch.Tensor, X: torch.Tensor, *, sign: float,
+                        block_size: int) -> None:
+    """Every diagonal panel of the blocked rank-r up/downdate of L (d, d)
+    by X (r, d), in place on both: P then K2 a panel, two launches and no
+    allocation (plus K2's copy back above :func:`panel_in_place`)."""
+    d = L.shape[0]
+    panels = _Panels(L, X, block_size, sign)
+    for c0 in range(0, d, block_size):
+        c1 = min(c0 + block_size, d)
+        panels.transform(c0, c1)
+        if c1 < d:
+            panels.gemm(c0, c1)
+
+
+def panel_gemm_cuda(L: torch.Tensor, X: torch.Tensor, c0: int, c1: int,
+                    T: torch.Tensor) -> None:
+    """K2's panel entry alone: Z = [L[c1:, c0:c1] | X[:, c1:]^T] becomes
+    Z @ T in place. L (d, d), X (r, d), T (c1 - c0 + r, c1 - c0 + r); all
+    row-major of one dtype (f32 or f64). Out of place through a workspace
+    above :func:`panel_in_place`."""
+    device = _check("gemm_nt_panel", {"L": L, "X": X, "T": T}, _FLOAT_DTYPES)
+    d = L.shape[0] if L.ndim == 2 else -1
+    bw, r = c1 - c0, X.shape[0] if X.ndim == 2 else -1
+    if (L.shape != (d, d) or X.ndim != 2 or X.shape[1] != d or r < 1
+            or T.shape != (bw + r, bw + r) or not 0 <= c0 < c1 < d):
+        raise ValueError(f"gemm_nt_panel: need L (d, d), X (r >= 1, d), "
+                         f"0 <= c0 < c1 < d and T (c1 - c0 + r square), got L "
+                         f"{tuple(L.shape)}, X {tuple(X.shape)}, c0 {c0}, c1 "
+                         f"{c1}, T {tuple(T.shape)}")
+    if not L.dtype == X.dtype == T.dtype:
+        raise TypeError(f"gemm_nt_panel: mixed dtypes {L.dtype}, {X.dtype}, {T.dtype}")
+    n = bw + r
+    O = (None if panel_in_place(n, L.dtype) else
+         torch.empty((d - c1, n), dtype=L.dtype, device=device))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+    _panel_gemm(_fn("gemm_nt_panel"), L, X, c0, c1, T, O, stream)
 
 
 def feature_splits(n: int, m: int, dtype: torch.dtype) -> tuple[int, int]:

@@ -54,6 +54,18 @@ def gemm_nt_ref(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *,
     return C + alpha * (A @ B.T)
 
 
+def panel_gemm_ref(L: torch.Tensor, X: torch.Tensor, c0: int, c1: int,
+                   T: torch.Tensor) -> None:
+    """Plain version of K2's panel entry: Z = [L[c1:, c0:c1] | X[:, c1:]^T]
+    becomes Z @ T in place, computed as the reference calls K2,
+    ``gemm_nt(0, Z, T^T, alpha=1)``."""
+    bw = c1 - c0
+    Z = torch.cat([L[c1:, c0:c1], X[:, c1:].T], dim=1)
+    Zn = gemm_nt_ref(torch.zeros_like(Z), Z, T.T.contiguous(), alpha=1.0)
+    L[c1:, c0:c1] = Zn[:, :bw]
+    X[:, c1:] = Zn[:, bw:].T
+
+
 _SWA_BLOCK_Q = 256    # query rows per step: a (B, H, 256, S) float32 score block
 
 

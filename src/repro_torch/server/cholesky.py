@@ -16,9 +16,11 @@ Two implementations of the same algebra:
     in (bw x bw) diagonal panels; ``panel_transform`` runs the scalar
     recurrence of one panel against all r update vectors at once and
     returns the (bw+r) x (bw+r) right-transformation T, and the trailing
-    rows absorb the whole panel in one product ``[L21 | X2^T] @ T`` through
-    ``kernels.ops.gemm_nt`` (kernel K2 on the card). On CUDA tensors
-    ``panel_transform`` is kernel P; on CPU tensors its plain loop below.
+    rows absorb the whole panel in one product ``[L21 | X2^T] @ T``. On CUDA
+    tensors each panel is two launches on the update's own copies of L and
+    X, kernel P then kernel K2's panel entry, both in place
+    (``kernels.gram.blocked_update_cuda``); on CPU tensors the plain loop
+    below (``panel_transform_ref``, then ``kernels.ref.panel_gemm_ref``).
 
 Both perform identical elementary operations, so the blocked path is the
 reference up to float associativity in the GEMM.
@@ -33,6 +35,7 @@ import torch
 
 from repro_torch.kernels import gram as gram_kernel
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels import ref
 
 
 def chol_rank1(L: torch.Tensor, x: torch.Tensor, *,
@@ -121,26 +124,25 @@ def chol_update_blocked(L: torch.Tensor, U: torch.Tensor, *,
                         block_size: int = 32) -> torch.Tensor:
     """Blocked factor of ``L L^T + sign * U^T U`` for U of shape (r, d).
 
-    The trailing-panel product carries the O(r d^2) bulk, through
-    ``kernels.ops.gemm_nt`` (kernel K2 on CUDA). ``chol_update`` is the
-    pinned scan-of-rank-1 reference.
+    The trailing-panel product carries the O(r d^2) bulk (kernel K2 on
+    CUDA). ``chol_update`` is the pinned scan-of-rank-1 reference. L and U
+    are copied once into row-major working tensors, which the panels update
+    in place.
     """
     d = L.shape[0]
     if U.shape[0] == 0:
         return L
-    L = L.clone()
-    X = U.to(L.dtype).clone()
+    L = L.clone(memory_format=torch.contiguous_format)
+    X = U.to(L.dtype).clone(memory_format=torch.contiguous_format)
+    if kernel_ops.on_card(L.device, "chol_update_blocked"):
+        gram_kernel.blocked_update_cuda(L, X, sign=sign, block_size=block_size)
+        return L
     for c0 in range(0, d, block_size):
         c1 = min(c0 + block_size, d)
-        bw = c1 - c0
-        L11, T = panel_transform(L[c0:c1, c0:c1], X[:, c0:c1], sign=sign)
+        L11, T = panel_transform_ref(L[c0:c1, c0:c1], X[:, c0:c1], sign=sign)
         L[c0:c1, c0:c1] = L11
         if c1 < d:
-            Z = torch.cat([L[c1:, c0:c1], X[:, c1:].T], dim=1)
-            Zn = kernel_ops.gemm_nt(torch.zeros_like(Z), Z,
-                                    T.T.contiguous(), alpha=1.0)
-            L[c1:, c0:c1] = Zn[:, :bw]
-            X[:, c1:] = Zn[:, bw:].T
+            ref.panel_gemm_ref(L, X, c0, c1, T)
     return L
 
 

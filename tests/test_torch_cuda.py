@@ -112,7 +112,8 @@ def test_gemm_nt_matches_plain(card, m, n, k, dtype):
     assert _rel(out, ref.gemm_nt_ref(C, A, B, alpha=-0.5)) <= tol
 
 
-@pytest.mark.parametrize("bw,r", [(1, 1), (7, 3), (32, 64), (32, 300)])
+@pytest.mark.parametrize("bw,r", [(1, 1), (7, 3), (32, 64), (32, 300), (5, 200),
+                                  (32, 1024)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_panel_transform_matches_plain(card, bw, r, dtype):
     M = _randn((4 * bw, bw), torch.float64)
@@ -123,6 +124,123 @@ def test_panel_transform_matches_plain(card, bw, r, dtype):
     Lp, Tp = cholesky.panel_transform_ref(L11, X1)
     tol = 1e-12 if dtype == torch.float64 else 1e-4
     assert _rel(Lk, Lp) <= tol and _rel(Tk, Tp) <= tol
+
+
+def _factor(d, dtype, seed=0):
+    M = _randn((2 * d, d), torch.float64, seed=seed)
+    return torch.linalg.cholesky(M.T @ M / d + 0.1 * torch.eye(d, dtype=torch.float64)).to(dtype)
+
+
+@pytest.mark.parametrize("d,c0,bw,r", [(100, 32, 32, 64), (100, 96, 4, 8),
+                                       (300, 0, 32, 200), (70, 64, 6, 200)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_panel_transform_in_place(card, d, c0, bw, r, sign, dtype):
+    """P on a panel inside a factor, as the blocked update launches it: the
+    panel's lower triangle becomes the plain L11', nothing else of L or X
+    changes, T is the plain T, and the arrival count is back at 0."""
+    c1 = c0 + bw
+    L = _factor(d, dtype).contiguous().to(card)
+    X = (0.3 * _randn((r, d), dtype, seed=3)).to(card)
+    if sign < 0:    # downdate what an update added: stays positive definite
+        L[c0:c1, c0:c1] = cholesky.panel_transform_ref(L[c0:c1, c0:c1], X[:, c0:c1])[0]
+    L0, X0 = L.clone(), X.clone()
+    Lp, Tp = cholesky.panel_transform_ref(L[c0:c1, c0:c1], X[:, c0:c1], sign=sign)
+    panels = gram._Panels(L, X, bw, sign)
+    panels.transform(c0, c1)
+    T = panels.T[:(bw + r) ** 2].view(bw + r, bw + r)
+    torch.cuda.synchronize()
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    assert _rel(torch.tril(L[c0:c1, c0:c1]), torch.tril(Lp)) <= tol
+    assert _rel(T, Tp) <= tol
+    keep = torch.ones(d, d, dtype=torch.bool, device=card)
+    keep[c0:c1, c0:c1] = ~torch.ones(bw, bw, dtype=torch.bool, device=card).tril()
+    assert torch.equal(L[keep], L0[keep]) and torch.equal(X, X0)
+    assert int(panels.arrivals.item()) == 0
+
+
+@pytest.mark.parametrize("d,c0,r,dtype", [(4096, 0, 64, torch.float32),
+                                          (4096, 0, 64, torch.float64),
+                                          (300, 32, 128, torch.float32),
+                                          (300, 32, 128, torch.float64),
+                                          (164, 32, 64, torch.float32),
+                                          (2000, 0, 1024, torch.float32),
+                                          (90, 32, 8, torch.float64)])
+def test_panel_gemm_matches_plain(card, d, c0, r, dtype):
+    """K2's panel entry, in place (n = 32 + r up to the cap) and out of
+    place (above it: float64 at r 128, r 1024), ragged strips (m = 100),
+    against ``ref.panel_gemm_ref``; every other element stays."""
+    c1 = c0 + 32
+    L = _randn((d, d), dtype, seed=1).to(card)
+    X = _randn((r, d), dtype, seed=2).to(card)
+    T = torch.linalg.qr(_randn((32 + r, 32 + r), torch.float64, seed=3))[0]
+    T = T.to(dtype).contiguous().to(card)
+    Lp, Xp = L.clone(), X.clone()
+    before = gram.gemm_nt_cuda.launches
+    gram.panel_gemm_cuda(L, X, c0, c1, T)
+    ref.panel_gemm_ref(Lp, Xp, c0, c1, T)
+    torch.cuda.synchronize()
+    assert gram.gemm_nt_cuda.launches == before + 1
+    assert gram.panel_in_place(32 + r, dtype) == (32 + r <= (160 if dtype == torch.float32 else 96))
+    tol = 1e-13 if dtype == torch.float64 else 1e-5
+    assert _rel(L[c1:, c0:c1], Lp[c1:, c0:c1]) <= tol and _rel(X[:, c1:], Xp[:, c1:]) <= tol
+    assert torch.equal(L[:c1], Lp[:c1]) and torch.equal(L[:, :c0], Lp[:, :c0])
+    assert torch.equal(L[:, c1:], Lp[:, c1:]) and torch.equal(X[:, :c1], Xp[:, :c1])
+
+
+@pytest.mark.parametrize("dtype,widest", [(torch.float32, 160), (torch.float64, 96)])
+def test_panel_in_place_width(card, dtype, widest):
+    """The library's in-place rule: every width up to the cap, none above."""
+    assert [n for n in range(1, 400) if gram.panel_in_place(n, dtype)] == \
+        list(range(1, widest + 1))
+
+
+@pytest.mark.parametrize("d,r", [(100, 8), (517, 64), (100, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_blocked_update_matches_cpu_path(card, d, r, sign, dtype):
+    """``chol_update_blocked`` on the card (P then K2 a panel, in place, or
+    out of place at r 256; ragged last panels at d 100 and 517) against its
+    CPU path, from a column-major factor as ``torch.linalg.cholesky``
+    returns it."""
+    L = _factor(d, dtype)
+    U = 0.3 * _randn((r, d), dtype, seed=4)
+    if sign < 0:
+        L = cholesky.chol_update_blocked(L, U)
+    want = cholesky.chol_update_blocked(L, U, sign=sign)
+    Lc = L.to(card).T.contiguous().T
+    assert not Lc.is_contiguous()
+    got = cholesky.chol_update_blocked(Lc, U.to(card), sign=sign)
+    tol = 1e-10 if dtype == torch.float64 else 2e-4
+    assert _rel(got, want) <= tol
+
+
+def test_blocked_update_two_launches_a_panel(card):
+    """A rank-64 update at d 4100 (129 panels, the last 4 wide): P on every
+    panel, K2 on every panel but the last, and under the profiler nothing
+    else runs from the first P to the last."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    d, r = 4100, 64
+    L = _factor(d, torch.float32).to(card)
+    U = (0.3 * _randn((r, d), seed=5)).to(card)
+    cholesky.chol_update_blocked(L, U)          # builds and loads the kernels
+    torch.cuda.synchronize()
+    gram.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cholesky.chol_update_blocked(L, U)
+        torch.cuda.synchronize()
+    panels = -(-d // 32)
+    counts = gram.launch_counts()
+    assert counts["panel_transform"] == panels and counts["gemm_nt"] == panels - 1
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    tags = ["P" if "panel_transform_kernel" in e.name else
+            "K2" if "gemm_nt_panel_kernel" in e.name else e.name for e in events]
+    first, last = tags.index("P"), len(tags) - 1 - tags[::-1].index("P")
+    assert tags[first:last + 1] == ["P", "K2"] * (panels - 1) + ["P"]
+    assert len(tags) - (last + 1 - first) <= 3      # the copies of L and U, the count's zero
 
 
 def test_wrappers_reject_bad_arguments(card):
