@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
 sm_90a), holds each against its plain PyTorch version on the card, then
-drives two paths through the port's public entry points, each with the
+drives its paths through the port's public entry points, each with the
 kernels' launch counts set to 0 just before it and read just after:
 
 - the dense main path at d = 4096, K = 8 clients of 16384 rows each,
@@ -20,6 +20,17 @@ kernels' launch counts set to 0 just before it and read just after:
   each through Phase 1 on kernels K3 / K4, the packed upload, the engine in
   the m-dimensional solve space, streamed featurized rows and inference;
   plus ``run_one_shot_projected``;
+- the serving pool (``server.pool.EnginePool``) at the same width: first
+  ``launch.serve.serve_fusion`` with 6 tenants of 8 x 16384 rows (4 dense,
+  one sketched and one rff of feature dim 1024), 256 queries against a cold
+  solve per query and 256 streamed rows drained by the background flusher,
+  each tenant held to a float64 solve of its rows; then a pool of the main
+  path's 8 clients (4 dense tenants of 5 clients, the feature phase's
+  sketch and rff tenants) whose ``solve_many`` lanes and ``SolveBatcher``
+  answers (8 threads) must equal the lone solves bitwise, with LRU eviction
+  at ``max_warm=2``, the flusher draining a producer thread's rows, and the
+  stacked sweep timed against lone solves and one batched
+  ``torch.cholesky_solve``;
 - gemma3-27b serving at full width (d_model 5376, 32 heads over 16 KV heads,
   d_ff 21504, vocab 262144, bf16), depth cut to 2 stages + the 2-layer SWA
   tail (14 layers: 12 sliding-window, 2 full), random weights from a seed:
@@ -40,6 +51,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -61,6 +73,20 @@ SKETCH_M = 1024
 RFF_DIM, RFF_M = 128, 4096
 FEATURE_SEED = 11
 FEATURE_STREAM_ROWS = 64
+
+# The serving pool. (a) serve_fusion: 6 tenants of the main path's size (4
+# dense, then 1 sketched and 1 rff of feature dim 1024, lengthscale sqrt(d)),
+# 4 sigmas each, 256 queries of 8 rows, 256 streamed single rows at
+# coalesce rank 32 with a 2 s staleness bound (the coalescer's rank, not the
+# timer, drives the flushes). (b) a pool of the main path's 8 clients: 4
+# dense tenants of 5 clients each, the feature phase's sketch and rff
+# tenants; a SolveBatcher burst; LRU eviction; the background flusher.
+POOL_TENANTS, POOL_FEATURE_DIM = 6, 1024
+POOL_QUERIES, POOL_STREAM, POOL_COALESCE, POOL_STALENESS = 256, 256, 32, 2.0
+POOL_SUBSETS = ((0, 1, 2, 3, 4), (1, 3, 5, 6, 7), (0, 2, 4, 6, 7), (3, 4, 5, 6, 7))
+BATCHER_THREADS, BATCHER_REQUESTS, BATCHER_WINDOW = 8, 16, 0.002
+FLUSH_ROWS, FLUSH_CHUNK, FLUSH_RANK, FLUSH_STALENESS = 256, 16, 64, 0.05
+STACKED_T = (4, 16)
 
 # gemma3-27b serving: the registry's config with 2 stages instead of 10
 # (14 layers instead of 62; 17.2 GB of bf16 weights), batch 4 x 4096-token
@@ -1048,6 +1074,308 @@ def feature_phase(ds, w_dense) -> dict:
             "seconds": time.perf_counter() - t_all}
 
 
+# -- phase 5: the serving pool at full width through the same entry points ----
+
+def stacked_timing(entries) -> dict:
+    """One stacked sweep of T lanes (``solve_stacked``) against T lone
+    solves and against one batched ``torch.cholesky_solve`` over [T, d, d]
+    (alone, and refined with a float64 residual as the lanes are); whether
+    the batched answers keep each lane's bits. Median CUDA-event ms."""
+    from repro_torch.server import solve_snapshot, solve_stacked
+
+    out = {}
+    for T in STACKED_T:
+        e = entries[:T]
+        Ls = torch.stack([x[0] for x in e])
+        Gs = torch.stack([x[1] for x in e]).double()
+        Hs = torch.stack([x[2] for x in e])[..., None]
+        sig = torch.tensor([x[3] for x in e], dtype=torch.float64, device="cuda")
+
+        def refined():
+            w = torch.cholesky_solve(Hs, Ls)
+            w64 = w.double()
+            r = Hs.double() - torch.bmm(Gs, w64) - sig[:, None, None] * w64
+            return w + torch.cholesky_solve(r.to(Ls.dtype), Ls)
+
+        lanes = solve_stacked(e)
+        one_pass = [torch.cholesky_solve(x[2][:, None], x[0]) for x in e]
+        batched, batched_refined = torch.cholesky_solve(Hs, Ls), refined()
+        out[f"T{T}"] = {
+            "stacked_ms": cuda_ms(lambda: solve_stacked(e)),
+            "lone_ms": cuda_ms(lambda: [solve_snapshot(*x) for x in e]),
+            "batched_cholesky_solve_ms": cuda_ms(lambda: torch.cholesky_solve(Hs, Ls)),
+            "batched_refined_ms": cuda_ms(refined),
+            "stack_ms": cuda_ms(lambda: torch.stack([x[0] for x in e])),
+            "batched_lanes_bitwise_one_pass": sum(
+                bool(torch.equal(b, o)) for b, o in zip(batched, one_pass)),
+            "batched_refined_lanes_bitwise": sum(
+                bool(torch.equal(b[:, 0], w)) for b, w in zip(batched_refined, lanes)),
+            "batched_refined_max_rel_diff": max(
+                rel_err(b[:, 0], w) for b, w in zip(batched_refined, lanes)),
+            "lanes": T}
+    return out
+
+
+def pool_serving_phase(ds) -> dict:
+    from repro_torch import core, data, fed
+    from repro_torch.core import compute_stats
+    from repro_torch.kernels import gram as K
+    from repro_torch.launch.serve import serve_fusion
+    from repro_torch.server import CoalescerPolicy, EnginePool, SolveBatcher
+
+    def sync():
+        torch.cuda.synchronize()
+
+    steps, errs, report = {}, {}, {}
+    t_all = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) serve_fusion, the pool's own entry point, at the main path's size.
+    #     Its exactness check is the main path's: relative 1e-4 against a
+    #     float64 solve of each tenant's rows.
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = serve_fusion(num_clients=CLIENTS, samples_per_client=ROWS, dim=DIM,
+                       tenants=POOL_TENANTS, sigmas_per_tenant=len(SIGMAS),
+                       queries=POOL_QUERIES, query_rows=8, sketched_tenants=1,
+                       rff_tenants=1, feature_dim=POOL_FEATURE_DIM,
+                       lengthscale=DIM ** 0.5, stream_deltas=POOL_STREAM,
+                       coalesce_rank=POOL_COALESCE,
+                       flush_staleness_s=POOL_STALENESS, device="cuda")
+    sync()
+    steps["serve_fusion_s"] = time.perf_counter() - t0
+    launches = K.launch_counts()
+    for name in ("gram_moment", "sketch_gram", "rff_gram", "panel_transform", "gemm_nt"):
+        check(launches[name] > 0, f"kernel {name} was not launched by serve_fusion")
+    stream = res["streaming"]
+    errs["serve_fusion_rel"] = res["exact_max_rel_err"]
+    errs["serve_fusion_stream_rel"] = stream["exact_max_rel_err"]
+    errs["serve_fusion_abs"] = res["exact_max_abs_err"]
+    errs["serve_fusion_stream_abs"] = stream["exact_max_abs_err"]
+    for key in ("serve_fusion_rel", "serve_fusion_stream_rel"):
+        check(errs[key] <= 1e-4, f"{key} = {errs[key]} > 1e-4")
+    check(stream["pending_after"] == 0, f"{stream['pending_after']} deltas left pending")
+    ranks = {int(r): n for r, n in stream["flush_ranks"].items()}
+    report["serve_fusion"] = {
+        "naive_qps": res["naive_qps"], "pool_qps": res["pool_qps"],
+        "speedup": res["speedup"], "stream_s": stream["stream_s"],
+        "background_flushes": stream["background_flushes"],
+        "max_flush_age_s": stream["max_flush_age_s"],
+        "mutations_per_delta": stream["mutations_per_delta"],
+        "flush_ranks": ranks,
+        "flushes_below_rank_8": sum(n for r, n in ranks.items() if r < 8),
+        "ledger_by_kind": res["ledger"]["by_kind"],
+        "ledger_total_bytes": res["ledger"]["total_bytes"],
+        "placements": res["placements"],
+        "feature_reports": {n: {k: v for k, v in r.items()
+                                if k in ("kind", "solve_dim", "error_bound")}
+                            for n, r in res["feature_reports"].items()}}
+    del res
+    torch.cuda.empty_cache()
+
+    # (b) a pool of the main path's 8 clients: 4 dense tenants of 5 clients
+    #     each (one admitted from packed payloads), the feature phase's rff
+    #     tenant (D 4096, the dense tenants' bucket) and sketch tenant (m 1024)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = [compute_stats(A, b) for A, b in ds.clients]
+    pool = EnginePool(default_coalesce=CoalescerPolicy(
+        max_rank=FLUSH_RANK, max_staleness_s=FLUSH_STALENESS))
+    dense = [f"dense{i}" for i in range(len(POOL_SUBSETS))]
+    pool.create_tenant(dense[0], payloads={k: fed.PackedStats.pack(stats[k])
+                                           for k in POOL_SUBSETS[0]})
+    for name, subset in zip(dense[1:], POOL_SUBSETS[1:]):
+        pool.create_tenant(name, clients={k: stats[k] for k in subset})
+    fm_s = core.FeatureMap("sketch", FEATURE_SEED, DIM, SKETCH_M)
+    pool.create_tenant("sketch", features=fm_s, payloads=[
+        fed.PackedStats.pack(fm_s.stats(A, b)) for A, b in ds.clients])
+    ds_rff = data.synthetic.generate(1, num_clients=CLIENTS,
+                                     samples_per_client=ROWS, dim=RFF_DIM)
+    fm_r = core.FeatureMap("rff", FEATURE_SEED, RFF_DIM, RFF_M,
+                           lengthscale=RFF_DIM ** 0.5)
+    pool.create_tenant("rff", features=fm_r, payloads=[
+        fed.PackedStats.pack(fm_r.stats(A, b)) for A, b in ds_rff.clients])
+    del ds_rff
+    sync()
+    steps["admit_6_tenants_s"] = time.perf_counter() - t0
+    names = pool.tenant_names
+    check(pool.tenant(dense[0]).comm.upload_wire_bytes_per_client is not None,
+          "the payload tenant's ledger carries no measured bytes")
+
+    # solve_many over 24 requests: every lane equals the lone solve, bitwise,
+    # and each (d, dtype) bucket is one sweep
+    reqs = [(n, s) for n in names for s in SIGMAS]
+    t0 = time.perf_counter()
+    lone = {r: pool.solve(*r) for r in reqs}
+    sync()
+    steps["lone_solves_24_s"] = time.perf_counter() - t0
+    for n, s in reqs:
+        errs[f"{n}_{s}_vs_f64"] = rel_err(lone[(n, s)], f64_solve(pool.stats(n), s))
+        check(errs[f"{n}_{s}_vs_f64"] <= 1e-4, f"pool solve {n} at {s}: {errs}")
+    sweeps0 = pool.batched_sweeps
+    t0 = time.perf_counter()
+    many = pool.solve_many(reqs)
+    sync()
+    steps["solve_many_24_s"] = time.perf_counter() - t0
+    buckets = len({(pool.get(n).dim, pool.get(n).dtype) for n in names})
+    check(pool.batched_sweeps - sweeps0 == buckets == 2,
+          f"{pool.batched_sweeps - sweeps0} sweeps for {buckets} buckets")
+    check(all(torch.equal(w, lone[r]) for r, w in zip(reqs, many)),
+          "a solve_many lane differs from the lone solve")
+    report["solve_many"] = {"requests": len(reqs), "sweeps": buckets,
+                            "lanes_bitwise": len(reqs)}
+
+    # a SolveBatcher burst, twice on one batcher: 8 threads x 16 requests,
+    # answers to the host; the first burst's first sweep is the batcher
+    # thread's first solve
+    lone_host = {r: w.cpu() for r, w in lone.items()}
+    lone_lat = []
+    for i in range(BATCHER_THREADS * BATCHER_REQUESTS):
+        r = reqs[i % len(reqs)]
+        t0 = time.perf_counter()
+        pool.solve(*r).cpu()
+        lone_lat.append(time.perf_counter() - t0)
+
+    def burst(batcher) -> dict:
+        answers, lat, failures = [], [], []
+
+        def ask(i):
+            try:
+                for j in range(BATCHER_REQUESTS):
+                    r = reqs[(i * BATCHER_REQUESTS + j) % len(reqs)]
+                    t0 = time.perf_counter()
+                    w = batcher.solve(*r).cpu()
+                    lat.append(time.perf_counter() - t0)
+                    answers.append((r, w))
+            except Exception as e:
+                failures.append(repr(e))
+
+        sweeps0 = batcher.sweeps
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=ask, args=(i,))
+                   for i in range(BATCHER_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        check(not any(t.is_alive() for t in threads), "a batcher client hung")
+        seconds = time.perf_counter() - t0
+        check(not failures, f"batcher requests failed: {failures[:3]}")
+        check(len(answers) == BATCHER_THREADS * BATCHER_REQUESTS,
+              "batcher answers missing")
+        check(all(torch.equal(w, lone_host[r]) for r, w in answers),
+              "a SolveBatcher answer differs from the lone solve")
+        return {"seconds": seconds, "sweeps": batcher.sweeps - sweeps0,
+                "p50_ms": 1e3 * float(np.percentile(lat, 50)),
+                "p99_ms": 1e3 * float(np.percentile(lat, 99)),
+                "max_ms": 1e3 * max(lat), "answers_bitwise": len(answers)}
+
+    with SolveBatcher(pool, window_s=BATCHER_WINDOW, lifted=False) as batcher:
+        first, second = burst(batcher), burst(batcher)
+        batcher_summary = batcher.summary()
+    steps["batcher_bursts_s"] = first["seconds"] + second["seconds"]
+    report["solve_batcher"] = {
+        **batcher_summary, "first_burst": first, "second_burst": second,
+        "lone_p50_ms": 1e3 * float(np.percentile(lone_lat, 50)),
+        "lone_p99_ms": 1e3 * float(np.percentile(lone_lat, 99))}
+
+    # max_warm=2: round robin over the 4 dense tenants evicts factor caches;
+    # a solve after an eviction refactors and passes the same check
+    pool.max_warm = 2
+    ev0 = pool.summary()["factor_evictions"]
+    t0 = time.perf_counter()
+    for rnd in range(2):
+        for n in dense:
+            errs[f"evicted_{n}_{rnd}_vs_f64"] = rel_err(
+                pool.solve(n, SIGMA), f64_solve(pool.stats(n), SIGMA))
+    sync()
+    steps["evicting_round_robin_s"] = time.perf_counter() - t0
+    evictions = pool.summary()["factor_evictions"] - ev0
+    check(evictions > 0, "max_warm=2 evicted no factor cache")
+    for key in [k for k in errs if k.startswith("evicted_")]:
+        check(errs[key] <= 1e-4, f"solve after eviction {key}: {errs[key]}")
+    report["eviction"] = {"max_warm": 2, "factor_evictions": evictions,
+                          "warm_tenants": len(pool.warm_tenants())}
+    pool.max_warm = None
+
+    # the background flusher: a producer thread streams 256 rows in chunks of
+    # 16 into one warm dense tenant, no reads; the flusher (staleness 0.05 s)
+    # and the coalescer (rank 64) fold them in. P and K2 run on both threads,
+    # so their launch counts are reported, not checked.
+    name = dense[0]
+    for s in SIGMAS:
+        pool.solve(name, s)
+    eng = pool.get(name)
+    ranks0, p0 = dict(eng.flush_ranks), K.launch_counts()
+    rows_A, rows_b = ds.test_A[:FLUSH_ROWS], ds.test_b[:FLUSH_ROWS]
+    produced = {}
+
+    def produce():
+        for i in range(0, FLUSH_ROWS, FLUSH_CHUNK):
+            pool.ingest_rows_async(name, rows_A[i:i + FLUSH_CHUNK],
+                                   rows_b[i:i + FLUSH_CHUNK])
+            time.sleep(FLUSH_STALENESS / 2)
+        produced["at"] = time.monotonic()
+
+    pool.start_flusher()
+    try:
+        producer = threading.Thread(target=produce)
+        producer.start()
+        producer.join(timeout=120)
+        check(not producer.is_alive(), "the producer hung")
+        deadline = produced["at"] + 100 * FLUSH_STALENESS
+        while pool.pending_deltas and time.monotonic() < deadline:
+            time.sleep(FLUSH_STALENESS / 10)
+        drained = time.monotonic()
+        sync()
+        pending = pool.pending_deltas
+    finally:
+        pool.stop_flusher()
+    t_rec = pool.tenant(name)
+    check(pending == 0, f"{pending} deltas pending after 100 x staleness")
+    check(t_rec.background_flushes > 0, "the flusher never flushed")
+    errs["flushed_vs_f64"] = rel_err(pool.solve(name, SIGMA),
+                                     f64_solve(pool.stats(name), SIGMA))
+    check(errs["flushed_vs_f64"] <= 1e-4, f"solve after the flusher: {errs['flushed_vs_f64']}")
+    p1 = K.launch_counts()
+    report["flusher"] = {
+        "rows": FLUSH_ROWS, "chunk": FLUSH_CHUNK, "max_rank": FLUSH_RANK,
+        "max_staleness_s": FLUSH_STALENESS,
+        "drain_after_last_chunk_s": drained - produced["at"],
+        "background_flushes": t_rec.background_flushes,
+        "max_flush_age_s": t_rec.max_flush_age_s,
+        "flush_ranks": {r: n - ranks0.get(r, 0) for r, n in eng.flush_ranks.items()
+                        if n - ranks0.get(r, 0)},
+        "launches_threaded": {k: p1[k] - p0[k] for k in ("panel_transform", "gemm_nt",
+                                                         "gram_moment")}}
+
+    # the stacked sweep against lone solves and one batched cholesky_solve
+    entries = [pool.get(n).backend.solve_operands(pool.get(n).factor(s), s)
+               for n in dense for s in SIGMAS]
+    report["stacked_timing"] = {"card": smi(), **stacked_timing(entries)}
+    del entries
+    launches_b = K.launch_counts()
+    for kname in ("gram_moment", "sketch_gram", "rff_gram"):
+        check(launches_b[kname] > 0, f"kernel {kname} was not launched by the pool")
+    summary = pool.summary()
+    ledger = pool.ledger()
+    pool.close()
+    del pool, stats, lone, many, lone_host
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    return {"phase": "pool_serving", "dim": DIM, "clients": CLIENTS,
+            "rows_per_client": ROWS, "tenants_a": POOL_TENANTS,
+            "tenants_b": list(names), "errors": errs, "report": report,
+            "steps_s": steps, "launches": launches, "launches_b": launches_b,
+            "pool": {k: summary[k] for k in ("tenants", "placements",
+                                             "background_flushes",
+                                             "factor_evictions", "batched_sweeps",
+                                             "batched_solves", "resident_stat_bytes")},
+            "ledger_by_kind": ledger["by_kind"],
+            "peak_mem_gb": peak, "seconds": time.perf_counter() - t_all}
+
+
 def kernel_sequence(fn) -> list[str]:
     """Names of the device kernels that ``fn`` launches, in the order the
     card ran them (``torch.profiler``'s device events)."""
@@ -1087,7 +1415,7 @@ def profile_top(fn, top: int = 8) -> dict:
             "top": [[name[:80], ms, n] for name, ms, n in rows[:top]]}
 
 
-# -- phase 5: gemma3-27b serving at full width through the model entry points --
+# -- phase 6: gemma3-27b serving at full width through the model entry points --
 
 def model_serving_phase() -> dict:
     from repro_torch import configs
@@ -1239,7 +1567,9 @@ def main() -> int:
     emit(path)
     features = feature_phase(ds, w_dense)
     emit(features)
-    del ds, w_dense
+    del w_dense
+    emit(pool_serving_phase(ds))
+    del ds
     serving = model_serving_phase()
     emit(serving)
     for kname, row in rows.items():

@@ -1,5 +1,5 @@
-"""Carry statistics, datasets, engine ledgers, feature maps and model
-parameters across from numpy arrays.
+"""Carry statistics, datasets, engine ledgers, serving pools, feature maps
+and model parameters across from numpy arrays.
 
 Everything here goes through ``np.asarray``, so any object whose arrays
 convert to numpy (the reference package's arrays included) can be handed
@@ -8,6 +8,7 @@ arrays (numpy's ``ml_dtypes`` extension type) are carried bit for bit.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Hashable, Mapping, Sequence
 
 import numpy as np
@@ -18,7 +19,8 @@ from repro_torch.core.sufficient_stats import SuffStats
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import BackboneLM
-from repro_torch.server.engine import FusionEngine
+from repro_torch.server.engine import CoalescerPolicy, FusionEngine
+from repro_torch.server.pool import EnginePool
 
 
 def tensor_from_numpy(x, *, dtype=None, device="cuda") -> torch.Tensor:
@@ -88,6 +90,62 @@ def engine_from_ledger(clients: Mapping[Hashable, object],
         eng.ingest(s)
     eng.import_ledger(active, gone)
     return eng
+
+
+def _policy_from(policy) -> CoalescerPolicy | None:
+    return None if policy is None else CoalescerPolicy(
+        max_rank=policy.max_rank, max_staleness_s=policy.max_staleness_s)
+
+
+def pool_from(jpool, arrays: Mapping[str, Sequence] | None = None, *,
+              device="cuda") -> EnginePool:
+    """A port ``EnginePool`` holding the same tenants as a reference pool.
+
+    Each tenant keeps its placement, coalescer policy, update-rank bound,
+    feature map, admission record and streamed-byte count, and the pool
+    its limits. A tenant's fused statistics are carried over as they are
+    (after draining its queued deltas), so they equal the reference's
+    bitwise whatever streamed into it without a client id or was dropped;
+    its exported ``(clients, dropped)`` ledger is installed beside them, as
+    the reference's own snapshot restore does. A feature tenant's map is
+    pinned to ``arrays[name]`` where given, else to the reference map's
+    own materialized arrays (the port's draws differ in the last bits;
+    ``feature_map_from``).
+    """
+    from repro_torch.fed import comm as fed_comm
+
+    pool = EnginePool(
+        threshold=jpool._threshold, table=jpool._table,
+        max_warm=jpool.max_warm, max_tenants=jpool.max_tenants,
+        stat_budget_bytes=jpool.stat_budget_bytes,
+        max_clients_per_tenant=jpool.max_clients_per_tenant,
+        default_coalesce=_policy_from(jpool._default_coalesce),
+        tier=jpool.tier, device=device)
+    for name in jpool.tenant_names:
+        jt = jpool.tenant(name)
+        with jt.lock:
+            jeng = jt.engine
+            fused = jeng.stats
+            clients, dropped = jeng.export_ledger()
+            fm = jt.feature_map
+            if fm is not None:
+                fm = feature_map_from(
+                    fm, (arrays or {}).get(name, fm.materialize()),
+                    device=device)
+            engine = pool.create_tenant(
+                name, stats=suffstats_from(fused, device=device),
+                placement=jt.placement, features=fm,
+                coalesce=_policy_from(jeng.coalesce),
+                max_update_rank=jeng.max_update_rank)
+            engine.import_ledger(
+                {c: suffstats_from(s, device=device) for c, s in clients.items()},
+                {c: suffstats_from(s, device=device) for c, s in dropped.items()})
+            t = pool.tenant(name)
+            if jt.comm is not None:
+                t.comm = getattr(fed_comm, type(jt.comm).__name__)(
+                    **dataclasses.asdict(jt.comm))
+            t.streamed_floats = jt.streamed_floats
+    return pool
 
 
 def key_from(jax_key) -> np.ndarray:

@@ -1,24 +1,45 @@
-"""Batched model serving: prefill a batch of prompts, then decode new tokens.
+"""Serving loops.
 
-The counterpart of the reference's ``launch/serve.py --mode model``. Every
-attention layer's prefill runs kernel K5 on the card; decode is plain
-PyTorch against the KV cache. Run as
+Modes:
+  * ``model``  — prefill a batch of prompts, then decode new tokens (the
+    reference's ``launch/serve.py --mode model``). Every attention layer's
+    prefill runs kernel K5 on the card; decode is plain PyTorch against the
+    KV cache.
+  * ``fusion`` — ridge serving on one ``server.EnginePool``, in process
+    (the reference's ``serve_fusion``): every tenant is an independent
+    fusion problem admitted from Thm-4 packed payloads (K1, or K3 / K4 for
+    §IV-F sketched / rff tenants), queries run off cached factors against a
+    naive cold solve per query, and ``--stream-deltas`` queues row deltas
+    with no reads while the pool's background flusher drains them (P and
+    K2 on every flush of rank 8 and up). Every tenant's served weights are
+    checked against a float64 ``core.fusion`` solve over its own rows.
+
+Run as
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode model \\
         --arch gemma3-27b [--no-reduced] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode fusion \\
+        [--dim 128 --tenants 8 --stream-deltas 64] [--device cpu]
 
-``--mode model`` is the only mode until the fusion server and the wire
-(ROADMAP items 10 and 13) are ported.
+Not ported yet, and rejected by the argument parser: the sharded and auto
+placements (``--sharded-tenants``, ``--auto-tenants``; ROADMAP queue 1,
+item 15), the wire server and its client (``--listen``,
+``--expect-uploads``, ``--solve-window``; items 9 and 10), durability
+(``--journal-dir``; item 12), the relay tier (``--mode relay``; item 13)
+and the chaos proxy (``--chaos-*``; item 9).
 """
 from __future__ import annotations
 
 import argparse
 import time
+from typing import Sequence
 
 import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.core.features import FeatureMap
+from repro_torch.core.sufficient_stats import SuffStats, compute_stats, fuse_stats
 from repro_torch.kernels import ops
 from repro_torch.models import model as model_lib
 
@@ -89,18 +110,322 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     }
 
 
+def _f64_stats(rows: Sequence[tuple[torch.Tensor, torch.Tensor]],
+               fm: FeatureMap | None, chunk: int = 16384) -> SuffStats:
+    """Float64 statistics of a tenant's rows, featurized (in float32, as its
+    clients do) through its map when it has one; taken in row chunks."""
+    A = torch.cat([a for a, _ in rows])
+    b = torch.cat([y for _, y in rows])
+    parts = []
+    for i in range(0, A.shape[0], chunk):
+        Ai = A[i:i + chunk] if fm is None else fm(A[i:i + chunk])
+        parts.append(compute_stats(Ai.double(), b[i:i + chunk].double()))
+    return fuse_stats(parts)
+
+
+def serve_fusion(*, num_clients: int = 4, samples_per_client: int = 128,
+                 dim: int = 128, tenants: int = 8, sigmas_per_tenant: int = 4,
+                 queries: int = 256, query_rows: int = 8,
+                 sketched_tenants: int = 0, rff_tenants: int = 0,
+                 feature_dim: int = 16, lengthscale: float = 1.0,
+                 stream_deltas: int = 0, coalesce_rank: int = 32,
+                 flush_staleness_s: float = 0.05, max_warm: int | None = None,
+                 seed: int = 0, device="cuda") -> dict:
+    """Serve many independent tenants' ridge queries off ONE EnginePool.
+
+    Each tenant is its own fusion problem: its own synthetic clients
+    (``data.synthetic.generate`` from ``seed + 7919 t`` on ``device``),
+    uploaded as Thm-4 :class:`fed.PackedStats` payloads (the ledger records
+    their measured bytes), its own sigma grid. The last ``rff_tenants`` and
+    the ``sketched_tenants`` before them are §IV-F feature tenants: their
+    uploads are m-space statistics from ``FeatureMap.stats`` (K3 / K4 on
+    the card), and their queries and deltas are featurized before they
+    reach the pool. A query is (tenant, sigma, X) -> X @ w_sigma: one
+    ``solve_batch`` per tenant warms its factors, then every query runs off
+    them; the naive baseline cold-factorizes per query.
+
+    Every tenant's served weights are checked against ``core.fusion`` over
+    exactly its own rows, featurized for a feature tenant and taken in
+    float64 (the reference's cold solve runs in float32):
+    ``exact_max_abs_err`` is max |w - w_ref| over tenants, and
+    ``exact_max_rel_err`` (the port's addition) is max |w - w_ref| /
+    max |w_ref|.
+
+    With ``stream_deltas > 0`` the loop then queues that many single-row
+    deltas round-robin across tenants through ``ingest_rows_async`` and
+    makes NO reads: the pool's background flusher (started for the
+    duration, ``max_staleness_s = flush_staleness_s``) is the only
+    staleness clock, beside the coalescer's own flush at
+    ``coalesce_rank``. It waits for the queues to drain, records the
+    flusher's flushes, the worst delta age, the rank of every flush
+    (``flush_ranks``, rank -> flushes: from rank 8 the blocked update, below
+    it the eager rank-1 scan) and checks every tenant again.
+    """
+    from repro_torch.core import fusion
+    from repro_torch.data import synthetic
+    from repro_torch.fed.protocol import PackedStats
+    from repro_torch.server import CoalescerPolicy, EnginePool
+
+    device = torch.device(device)
+    rff_tenants = min(rff_tenants, tenants)
+    sketched_tenants = min(sketched_tenants, tenants - rff_tenants)
+    policy = CoalescerPolicy(max_rank=coalesce_rank,
+                             max_staleness_s=flush_staleness_s)
+    pool = EnginePool(max_warm=max_warm, default_coalesce=policy,
+                      device=device)
+
+    tenant_rows: dict[str, list[tuple[torch.Tensor, torch.Tensor]]] = {}
+    feature_maps: dict[str, FeatureMap] = {}
+    for t in range(tenants):
+        name = f"tenant{t}"
+        ds_t = synthetic.generate(seed + 7919 * t, num_clients=num_clients,
+                                  samples_per_client=samples_per_client,
+                                  dim=dim, device=device)
+        fm = None
+        if t >= tenants - rff_tenants:
+            fm = FeatureMap("rff", seed=seed + t, d_orig=dim, m=feature_dim,
+                            lengthscale=lengthscale)
+        elif t >= tenants - rff_tenants - sketched_tenants:
+            fm = FeatureMap("sketch", seed=seed + t, d_orig=dim,
+                            m=min(feature_dim, dim))
+        if fm is None:
+            payloads = {k: PackedStats.pack(compute_stats(A_k, b_k))
+                        for k, (A_k, b_k) in enumerate(ds_t.clients)}
+        else:
+            payloads = {k: PackedStats.pack(fm.stats(A_k, b_k))
+                        for k, (A_k, b_k) in enumerate(ds_t.clients)}
+            feature_maps[name] = fm
+        pool.create_tenant(name, payloads=payloads, placement="dense",
+                           features=fm)
+        tenant_rows[name] = list(ds_t.clients)
+
+    # Tenant t's grid: sigmas_per_tenant points on a per-tenant log range.
+    rng = np.random.default_rng(seed)
+    grids = {f"tenant{t}": sorted(10.0 ** rng.uniform(-3, 1, sigmas_per_tenant))
+             for t in range(tenants)}
+    stream = []
+    for _ in range(queries):
+        name = f"tenant{int(rng.integers(tenants))}"
+        sigma = grids[name][int(rng.integers(sigmas_per_tenant))]
+        X = torch.as_tensor(rng.standard_normal((query_rows, dim)),
+                            dtype=torch.float32, device=device)
+        if name in feature_maps:
+            # featurized once, up front: naive and pooled time the same work
+            X = feature_maps[name](X)
+        stream.append((name, sigma, X))
+
+    def max_err() -> tuple[float, float]:
+        worst_abs = worst_rel = 0.0
+        for name, grid in grids.items():
+            w = pool.solve(name, grid[0]).double()
+            ref = fusion.solve_ridge(
+                _f64_stats(tenant_rows[name], feature_maps.get(name)), grid[0])
+            err = float((w - ref).abs().max())
+            worst_abs = max(worst_abs, err)
+            worst_rel = max(worst_rel, err / max(float(ref.abs().max()), 1e-300))
+        return worst_abs, worst_rel
+
+    # Naive: cold factorization per query, per tenant.
+    fused = {name: pool.stats(name) for name in pool.tenant_names}
+    ops.synchronize(stream[0][2])
+    t0 = time.perf_counter()
+    for name, sigma, X in stream:
+        X @ fusion.solve_ridge(fused[name], sigma)
+    ops.synchronize(stream[0][2])
+    t_naive = time.perf_counter() - t0
+
+    # Pooled: one warm sweep per tenant, then queries off cached factors.
+    t0 = time.perf_counter()
+    for name, grid in grids.items():
+        pool.solve_batch(name, grid, method="chol")
+    for name, sigma, X in stream:
+        pool.predict(name, X, sigma)
+    ops.synchronize(stream[0][2])
+    t_pool = time.perf_counter() - t0
+
+    exact_abs, exact_rel = max_err()
+
+    # §IV-F metadata per feature tenant: the Prop-3 bound and upload floats.
+    feature_reports = {
+        name: {k: v for k, v in
+               pool.solve_report(name, grids[name][0]).items()
+               if k != "weights"}
+        for name in feature_maps}
+
+    streaming = None
+    if stream_deltas:
+        names = list(pool.tenant_names)
+        deltas = [
+            (names[i % len(names)],
+             torch.as_tensor(rng.standard_normal((1, dim)), dtype=torch.float32,
+                             device=device),
+             torch.as_tensor(rng.standard_normal((1,)), dtype=torch.float32,
+                             device=device))
+            for i in range(stream_deltas)]
+        engines = [pool.get(n) for n in names]
+        m0 = sum(e.incremental_updates + e.cold_factorizations for e in engines)
+        ranks0 = [dict(e.flush_ranks) for e in engines]
+        pool.start_flusher()
+        try:
+            t0 = time.perf_counter()
+            for name, dA, db in deltas:
+                # a feature tenant's queue lives in m-space: featurize first
+                dA_in = (feature_maps[name](dA) if name in feature_maps
+                         else dA)
+                pool.ingest_rows_async(name, dA_in, db)
+                tenant_rows[name].append((dA, db))
+            # NO reads from here on: only the background flusher drains.
+            deadline = time.monotonic() + max(10.0, 100 * flush_staleness_s)
+            while pool.pending_deltas and time.monotonic() < deadline:
+                time.sleep(flush_staleness_s / 5)
+            ops.synchronize(deltas[0][1])
+            t_stream = time.perf_counter() - t0
+            pending_after = pool.pending_deltas
+        finally:
+            pool.stop_flusher()
+        summary = pool.summary()
+        mutations = sum(e.incremental_updates + e.cold_factorizations
+                        for e in engines) - m0
+        flush_ranks: dict[int, int] = {}
+        for e, before in zip(engines, ranks0):
+            for r, n in e.flush_ranks.items():
+                if n - before.get(r, 0):
+                    flush_ranks[r] = flush_ranks.get(r, 0) + n - before.get(r, 0)
+        stream_abs, stream_rel = max_err()
+        streaming = {
+            "deltas": stream_deltas,
+            "coalesce_rank": coalesce_rank,
+            "flush_staleness_s": flush_staleness_s,
+            "pending_after": pending_after,
+            "background_flushes": summary["background_flushes"],
+            "max_flush_age_s": summary["max_flush_age_s"],
+            "mutations_per_delta": mutations / stream_deltas,
+            "flush_ranks": dict(sorted(flush_ranks.items())),
+            "stream_s": t_stream,
+            "exact_max_abs_err": stream_abs,
+            "exact_max_rel_err": stream_rel,
+        }
+    pool.close()
+
+    return {
+        "tenants": tenants,
+        "placements": pool.summary()["placements"],
+        "sharded_tenants": 0,
+        "auto_tenants": 0,
+        "sketched_tenants": sketched_tenants,
+        "rff_tenants": rff_tenants,
+        "feature_reports": feature_reports,
+        "queries": queries,
+        "distinct_sigmas": len({sigma for _, sigma, _ in stream}),
+        "naive_qps": queries / t_naive,
+        "pool_qps": queries / t_pool,
+        "speedup": t_naive / t_pool,
+        "exact_max_abs_err": exact_abs,
+        "exact_max_rel_err": exact_rel,
+        "streaming": streaming,
+        "ledger": pool.ledger(),
+        "pool": pool.summary(),
+    }
+
+
+def _print_fusion(res: dict) -> None:
+    print(f"[serve_fusion] {res['queries']} queries, {res['tenants']} "
+          f"tenants on one pool, placements {res['placements']}, "
+          f"{res['distinct_sigmas']} distinct sigmas")
+    print(f"[serve_fusion] naive {res['naive_qps']:.0f} qps -> pooled "
+          f"{res['pool_qps']:.0f} qps ({res['speedup']:.1f}x)")
+    print(f"[serve_fusion] exact: max|dw|={res['exact_max_abs_err']:.2e} "
+          f"(relative {res['exact_max_rel_err']:.2e}) vs float64 per-tenant "
+          f"references")
+    for name, rep in res["feature_reports"].items():
+        bound = rep.get("error_bound")
+        print(f"[serve_fusion] {name}: kind={rep['kind']} "
+              f"solve_dim={rep['solve_dim']} "
+              f"upload_floats={rep['upload_floats']}"
+              + (f" prop3_bound={bound:.3f}" if bound is not None else ""))
+    if res["streaming"] is not None:
+        s = res["streaming"]
+        print(f"[serve_fusion] streaming {s['deltas']} deltas, no reads: "
+              f"{s['background_flushes']} background flushes, "
+              f"{s['pending_after']} left pending, worst delta age "
+              f"{s['max_flush_age_s']:.3f}s "
+              f"(budget {s['flush_staleness_s']:.3f}s), "
+              f"{s['mutations_per_delta']:.2f} mutations/delta, "
+              f"flush ranks {s['flush_ranks']}, "
+              f"max|dw|={s['exact_max_abs_err']:.2e}")
+    led = res["ledger"]
+    print(f"[serve_fusion] ledger: {led['upload_download_bytes']} upload "
+          f"bytes + {led['streamed_bytes']} streamed + "
+          f"{led['cross_shard_bytes']} cross-shard over "
+          f"{led['tenants']} tenants")
+    if len(led.get("by_kind", {})) > 1:
+        split = ", ".join(
+            f"{kind}: {v['upload_bytes']}B/{v['tenants']} tenants"
+            for kind, v in sorted(led["by_kind"].items()))
+        print(f"[serve_fusion] upload bytes by kind: {split}")
+    print(f"[serve_fusion] pool: meshes_built="
+          f"{res['pool']['meshes_built']} "
+          f"warm_tenants={res['pool']['warm_tenants']} "
+          f"factor_evictions={res['pool']['factor_evictions']}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["model"], default="model")
-    ap.add_argument("--arch", choices=list(configs.ARCH_IDS), required=True)
+    ap.add_argument("--mode", choices=["model", "fusion"], default="model")
+    ap.add_argument("--arch", choices=list(configs.ARCH_IDS))
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True, help="the reduced same-family config "
                     "(default) or, with --no-reduced, the full one")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-tokens", type=int, default=32)
+    ap.add_argument("--dim", type=int, default=128)
+    ap.add_argument("--tenants", type=int, default=8)
+    ap.add_argument("--clients", type=int, default=4,
+                    help="clients per tenant (each tenant is its own "
+                         "fusion problem)")
+    ap.add_argument("--samples", type=int, default=128,
+                    help="samples per client per tenant")
+    ap.add_argument("--queries", type=int, default=256)
+    ap.add_argument("--sketched-tenants", type=int, default=0,
+                    help="make the N tenants before the rff ones §IV-F "
+                         "sketched: m-space uploads (K3), m-space solves, "
+                         "the Prop-3 bound in the report")
+    ap.add_argument("--rff-tenants", type=int, default=0,
+                    help="make the last M tenants random-Fourier-feature "
+                         "tenants (D-space uploads on K4 and solves; D may "
+                         "exceed --dim)")
+    ap.add_argument("--feature-dim", type=int, default=16, metavar="M",
+                    help="feature count of sketched / rff tenants (sketch m "
+                         "is clamped to --dim)")
+    ap.add_argument("--lengthscale", type=float, default=1.0,
+                    help="RBF lengthscale of --rff-tenants")
+    ap.add_argument("--stream-deltas", type=int, default=0,
+                    help="queue N single-row deltas through the coalescers "
+                         "with NO reads; the pool's background flusher is "
+                         "the only staleness clock")
+    ap.add_argument("--coalesce-rank", type=int, default=32,
+                    help="coalescer flush threshold (update rank per flush)")
+    ap.add_argument("--flush-staleness", type=float, default=0.05,
+                    help="per-tenant max_staleness_s the background "
+                         "flusher enforces")
+    ap.add_argument("--max-warm", type=int, default=None,
+                    help="LRU bound on tenants with resident factor caches")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
+    if args.mode == "fusion":
+        _print_fusion(serve_fusion(
+            dim=args.dim, tenants=args.tenants, num_clients=args.clients,
+            samples_per_client=args.samples, queries=args.queries,
+            sketched_tenants=args.sketched_tenants,
+            rff_tenants=args.rff_tenants, feature_dim=args.feature_dim,
+            lengthscale=args.lengthscale, stream_deltas=args.stream_deltas,
+            coalesce_rank=args.coalesce_rank,
+            flush_staleness_s=args.flush_staleness, max_warm=args.max_warm,
+            device=args.device))
+        return
+    if args.arch is None:
+        ap.error("--arch is required for --mode model")
     res = serve(args.arch, reduced=args.reduced, batch=args.batch,
                 prompt_len=args.prompt_len, gen_tokens=args.gen_tokens,
                 device=args.device)

@@ -5,16 +5,27 @@
 multi-sigma solving, Thm 8 dropout, §VI-C streaming, and Prop 5 LOCO CV.
 The engine is the policy layer; the linear algebra lives behind a
 ``LinalgBackend`` (``DenseBackend`` in this slice of the port).
+
+``EnginePool`` serves many tenants' engines from one process: admission
+quotas, per-tenant locks, a background staleness flusher, LRU eviction of
+factor caches, a pool-level byte ledger, and ``solve_many``, which answers
+requests across tenants in one ``solve_stacked`` sweep per (d, dtype);
+``SolveBatcher`` puts a micro-batching window in front of it.
 ``core.fusion`` keeps the pure-function references.
 """
 from repro_torch.server.backends import DenseBackend, LinalgBackend, solve_snapshot
+from repro_torch.server.batch import SolveBatcher, solve_stacked
 from repro_torch.server.cholesky import (chol_rank1, chol_update,
                                          chol_update_blocked, panel_transform,
                                          psd_update_vectors)
 from repro_torch.server.engine import CoalescerPolicy, FusionEngine
 from repro_torch.server.inference import inference_report, reference_inference
+from repro_torch.server.pool import AdmissionError, EnginePool, Tenant
+from repro_torch.server.select import auto_backend, backend_threshold, prefer_sharded
 
-__all__ = ["FusionEngine", "CoalescerPolicy", "solve_snapshot",
+__all__ = ["FusionEngine", "CoalescerPolicy", "EnginePool", "Tenant",
+           "AdmissionError", "SolveBatcher", "solve_stacked", "solve_snapshot",
            "LinalgBackend", "DenseBackend", "chol_rank1", "chol_update",
            "chol_update_blocked", "panel_transform", "psd_update_vectors",
-           "inference_report", "reference_inference"]
+           "inference_report", "reference_inference", "auto_backend",
+           "backend_threshold", "prefer_sharded"]

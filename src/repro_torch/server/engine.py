@@ -125,6 +125,9 @@ class FusionEngine:
         self.incremental_updates = 0
         self.flushes = 0
         self.coalesced_deltas = 0
+        #: flushes by the rank of the delta they applied (the blocked P/K2
+        #: update from rank 8, the eager rank-1 scan below it)
+        self.flush_ranks: dict[int, int] = {}
 
     # -- construction -------------------------------------------------------
 
@@ -288,6 +291,9 @@ class FusionEngine:
         self._touch_factors(combined, vectors, sign=1.0)
         self.flushes += 1
         self.coalesced_deltas += len(pending)
+        rank = (int(vectors.shape[0]) if vectors is not None
+                else sum(p.rank_bound for p in pending))
+        self.flush_ranks[rank] = self.flush_ranks.get(rank, 0) + 1
         return len(pending)
 
     def _autoflush(self) -> None:

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch import core, server
+from repro_torch.fed import PackedStats
 from repro_torch.kernels import gram, ops, ref
 from repro_torch.server import cholesky
 
@@ -502,3 +503,153 @@ def test_reduced_gemma_on_card_matches_cpu_path(card):
     tg, _ = generate(gpu, toks.to(card), 6)
     tc, _ = generate(cpu, toks, 6)
     assert torch.equal(tg.cpu(), tc)
+
+
+# -- the serving pool on the card (server/batch.py, server/pool.py) ------------
+
+def _spd_lanes(d, T, dtype, seed=0):
+    """T solve operands (L, G, h, sigma) on the card: one Gram, T sigmas."""
+    A = _randn((d + 8, d), torch.float64, seed).to("cuda")
+    G = (A.T @ A / (d + 8) + 0.5 * torch.eye(d, device="cuda", dtype=torch.float64)
+         ).to(dtype)
+    lanes = []
+    for i in range(T):
+        sigma = 0.01 * (i + 1)
+        h = _randn((d,), dtype, seed + 1 + i).to("cuda")
+        L = torch.linalg.cholesky(G + sigma * torch.eye(d, device="cuda", dtype=dtype))
+        lanes.append((L, G, h, sigma))
+    return lanes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("T", [1, 3, 8, 16])
+@pytest.mark.parametrize("d", [256, 1024, 4096])
+def test_stacked_lane_equals_lone_solve(card, d, T, dtype):
+    lanes = _spd_lanes(d, T, dtype)
+    ws = server.solve_stacked(lanes)
+    for ops, w in zip(lanes, ws):
+        assert torch.equal(w, server.solve_snapshot(*ops))
+    assert _rel(ws[-1], torch.linalg.solve(
+        lanes[-1][1].double() + lanes[-1][3] * torch.eye(d, device=card, dtype=torch.float64),
+        lanes[-1][2].double())) <= (1e-4 if dtype == torch.float32 else 1e-10)
+
+
+def _card_pool(d=128, tenants=3, seed=0, **kw):
+    """A pool on the card (its default device) of ``tenants`` dense tenants,
+    two clients of 300 rows each."""
+    rng = np.random.default_rng(seed)
+    pool = server.EnginePool(**kw)
+    for t in range(tenants):
+        stats = [core.compute_stats(
+            torch.from_numpy(rng.standard_normal((300, d)).astype(np.float32)).cuda(),
+            torch.from_numpy(rng.standard_normal(300).astype(np.float32)).cuda())
+            for _ in range(2)]
+        pool.create_tenant(f"t{t}", clients=stats, placement="dense")
+    return pool
+
+
+@pytest.mark.parametrize("kind,d_orig", [("sketch", 200), ("rff", 24)])
+def test_feature_tenant_rides_the_dense_bucket(card, kind, d_orig):
+    m = 96
+    pool = _card_pool(d=m, tenants=2)
+    fm = core.FeatureMap(kind, 5, d_orig, m, 4.0)
+    rng = np.random.default_rng(3)
+    uploads = [PackedStats.pack(fm.stats(
+        torch.from_numpy(rng.standard_normal((400, d_orig)).astype(np.float32)).to(card),
+        torch.from_numpy(rng.standard_normal(400).astype(np.float32)).to(card)))
+        for _ in range(3)]
+    pool.create_tenant("f", payloads=uploads, features=fm)
+    reqs = [(n, s) for n in ("t0", "f", "t1") for s in (0.01, 0.5)]
+    lone = [pool.solve_lifted(n, s) for n, s in reqs]
+    sweeps = pool.batched_sweeps
+    many = pool.solve_many(reqs, lifted=True)
+    assert pool.batched_sweeps == sweeps + 1
+    for (n, s), a, b in zip(reqs, lone, many):
+        assert torch.equal(a, b), (n, s)
+    assert many[2].shape == ((d_orig,) if kind == "sketch" else (m,))
+
+
+def test_solve_batcher_bitwise_under_threads(card):
+    import threading
+
+    pool = _card_pool(d=512, tenants=4)
+    reqs = [(f"t{t}", s) for t in range(4) for s in (0.01, 0.1, 1.0, 10.0)]
+    lone = {r: pool.solve(*r).cpu() for r in reqs}
+    out, errors = {}, []
+    with server.SolveBatcher(pool, window_s=0.002, lifted=False) as batcher:
+        def ask(i):
+            try:
+                for j in range(16):
+                    r = reqs[(i * 5 + j) % len(reqs)]
+                    out[(i, j)] = (r, batcher.solve(*r).cpu())
+            except Exception as e:    # pragma: no cover - surfaced below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        summary = batcher.summary()
+    assert not errors, errors
+    assert len(out) == 128 and summary["requests"] == 128
+    for r, w in out.values():
+        assert torch.equal(w, lone[r]), r
+    pool.close()
+
+
+def _streaming_pool(staleness):
+    pool = _card_pool(d=320, tenants=1, default_coalesce=server.CoalescerPolicy(
+        max_rank=64, max_staleness_s=staleness))
+    for s in (0.01, 1.0):
+        pool.solve("t0", s)
+    return pool
+
+
+def test_flusher_thread_update_equals_caller_thread(card):
+    """The same rank-16 flush (P, then K2's panel entry, a panel) run by the
+    pool's flusher thread and by the caller leaves the same factor bits."""
+    import time
+
+    rows = _randn((16, 320), seed=7).to(card), _randn((16,), seed=8).to(card)
+    caller, flusher = _streaming_pool(float("inf")), _streaming_pool(0.02)
+    caller.ingest_rows_async("t0", *rows)
+    caller.flush("t0")
+    before = gram.launch_counts()
+    flusher.start_flusher()
+    try:
+        flusher.ingest_rows_async("t0", *rows)
+        deadline = time.monotonic() + 10
+        while flusher.pending_deltas and time.monotonic() < deadline:
+            time.sleep(0.005)
+    finally:
+        flusher.close()
+    torch.cuda.synchronize()
+    assert flusher.pending_deltas == 0
+    assert flusher.tenant("t0").background_flushes == 1
+    after = gram.launch_counts()
+    assert after["panel_transform"] > before["panel_transform"]
+    assert after["gemm_nt"] > before["gemm_nt"]
+    for s in (0.01, 1.0):
+        a = caller.get("t0")._factors[s].factor
+        b = flusher.get("t0")._factors[s].factor
+        assert torch.equal(a, b)
+        assert torch.equal(caller.solve("t0", s), flusher.solve("t0", s))
+    assert caller.get("t0").incremental_updates == flusher.get("t0").incremental_updates == 2
+
+
+def test_snapshot_survives_a_flush_on_card(card):
+    pool = _streaming_pool(float("inf"))
+    eng = pool.get("t0")
+    factor = eng.factor(0.01)
+    ops = eng.backend.solve_operands(factor, 0.01)
+    copies = [o.clone() for o in ops[:3]]
+    w0 = server.solve_snapshot(*ops)
+    pool.ingest_rows_async("t0", _randn((16, 320), seed=9).to(card),
+                           _randn((16,), seed=10).to(card))
+    pool.flush("t0")
+    assert eng.flush_ranks == {16: 1}
+    assert not torch.equal(eng.factor(0.01), factor)
+    assert all(torch.equal(o, c) for o, c in zip(ops, copies))
+    assert torch.equal(server.solve_snapshot(*ops), w0)

@@ -1,0 +1,107 @@
+"""The port's in-process fusion serving CLI (``launch/serve.py --mode fusion``).
+
+The CLI runs at a tiny size on the CPU (argv patched, no subprocess): it
+must complete AND report every tenant's served weights within 1e-4 of a
+float64 ``core.fusion`` solve over that tenant's own rows, with the
+streamed deltas drained by the background flusher alone. Its result dict
+carries the reference's keys (sharded and auto tenants at 0), and for the
+same sizes the same byte ledger. The flags of paths not ported yet are
+rejected by the argument parser.
+"""
+import re
+import sys
+
+import pytest
+
+from repro.launch import serve as jserve
+from repro_torch.launch import serve
+
+ARGV = ["serve.py", "--mode", "fusion", "--dim", "32", "--tenants", "4",
+        "--sketched-tenants", "1", "--rff-tenants", "1",
+        "--stream-deltas", "16", "--device", "cpu"]
+SMALL = dict(num_clients=2, samples_per_client=16, dim=8, tenants=3,
+             queries=4, sketched_tenants=1, rff_tenants=1, feature_dim=4,
+             stream_deltas=3, coalesce_rank=2, flush_staleness_s=0.02)
+
+
+def test_fusion_cli_is_exact_and_drains(monkeypatch, capsys):
+    monkeypatch.setattr(sys, "argv", ARGV)
+    serve.main()
+    out = capsys.readouterr().out
+    errs = [float(v) for v in re.findall(r"max\|dw\|=([0-9.eE+-]+)", out)]
+    assert len(errs) == 2, out                 # after admission, after stream
+    assert all(e < 1e-4 for e in errs), out
+    assert "0 left pending" in out, out
+    assert "placements {'dense': 4}" in out, out
+    assert "kind=sketched" in out and "kind=rff" in out, out
+    # 4 tenants x 4 clients, each upload at its encoded Thm-4 frame length
+    # for its solve space (d 32; m 16 for the feature tenants) plus a
+    # download of that many float32s; 16 single rows streamed round-robin,
+    # 8 of 33 floats into the dense tenants and 8 of 17 into the others.
+    m = re.search(r"ledger: (\d+) upload bytes \+ (\d+) streamed", out)
+    def frame(k):
+        return 16 + 14 + 4 * (k * (k + 1) // 2 + k) + 4 * k
+    assert int(m.group(1)) == 4 * (2 * frame(32) + 2 * frame(16)), out
+    assert int(m.group(2)) == 4 * (8 * 33 + 8 * 17), out
+
+
+@pytest.fixture(scope="module")
+def results():
+    ref = jserve.serve_fusion(sharded_tenants=0, auto_tenants=0, **SMALL)
+    port = serve.serve_fusion(device="cpu", **SMALL)
+    return ref, port
+
+
+def test_result_keys_and_ledger_match_reference(results):
+    ref, port = results
+    assert set(port) - set(ref) == {"exact_max_rel_err"}
+    assert set(ref) <= set(port)
+    assert set(port["streaming"]) - set(ref["streaming"]) == \
+        {"flush_ranks", "exact_max_rel_err"}
+    assert set(ref["streaming"]) <= set(port["streaming"])
+    assert port["feature_reports"].keys() == ref["feature_reports"].keys()
+    for name, rep in port["feature_reports"].items():
+        assert rep.keys() == ref["feature_reports"][name].keys()
+        for key in ("kind", "solve_dim", "d_orig", "m", "upload_floats"):
+            assert rep[key] == ref["feature_reports"][name][key]
+    assert port["pool"].keys() == ref["pool"].keys()
+    assert port["ledger"] == ref["ledger"]
+    for key in ("tenants", "placements", "sharded_tenants", "auto_tenants",
+                "sketched_tenants", "rff_tenants", "queries"):
+        assert port[key] == ref[key], key
+
+
+def test_small_run_is_exact(results):
+    _, port = results
+    s = port["streaming"]
+    assert port["exact_max_abs_err"] < 1e-4 and port["exact_max_rel_err"] < 1e-4
+    assert s["exact_max_abs_err"] < 1e-4 and s["exact_max_rel_err"] < 1e-4
+    assert s["pending_after"] == 0
+    assert sum(s["flush_ranks"].values()) >= 1
+    assert sum(r * n for r, n in s["flush_ranks"].items()) == SMALL["stream_deltas"]
+    assert port["pool"]["flusher_alive"] is False
+
+
+@pytest.mark.parametrize("flags", [
+    ["--listen", "0"], ["--expect-uploads", "2"], ["--solve-window", "0.01"],
+    ["--journal-dir", "j"], ["--sharded-tenants", "1"], ["--auto-tenants", "1"],
+    ["--chaos-rate", "0.1"], ["--upstream", "localhost:1"]])
+def test_unported_flags_are_rejected(monkeypatch, capsys, flags):
+    monkeypatch.setattr(sys, "argv", ARGV + flags)
+    with pytest.raises(SystemExit) as e:
+        serve.main()
+    assert e.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err
+
+
+def test_relay_mode_is_rejected(monkeypatch, capsys):
+    monkeypatch.setattr(sys, "argv", ["serve.py", "--mode", "relay"])
+    with pytest.raises(SystemExit):
+        serve.main()
+    assert "invalid choice" in capsys.readouterr().err
+
+
+def test_model_mode_still_requires_arch(monkeypatch):
+    monkeypatch.setattr(sys, "argv", ["serve.py", "--mode", "model"])
+    with pytest.raises(SystemExit):
+        serve.main()
