@@ -31,6 +31,15 @@ kernels' launch counts set to 0 just before it and read just after:
   at ``max_warm=2``, the flusher draining a producer thread's rows, and the
   stacked sweep timed against lone solves and one batched
   ``torch.cholesky_solve``;
+- federated uploads over TCP (``fed.wire``, ``fed.transport``,
+  ``fed.chaos``) into a pool on the card at the same width: the main path's
+  8 clients' STATS frames through a ``FrameServer`` on 127.0.0.1 (one
+  negotiated to bf16, one with moments, one in 4 MiB chunks), fused bitwise
+  as in-process admission fuses them; 256 single-row DELTA frames and a
+  CONTROL drop and restore (P and K2); the feature tenants' 8 PROJ (K3) and
+  8 RFF (K4) frames; the same uploads through a ``ChaosProxy`` at rate 0.1,
+  fused to a clean pool's bits; 64 SolveFrame round trips without and with
+  the ``SolveBatcher`` window;
 - gemma3-27b serving at full width (d_model 5376, 32 heads over 16 KV heads,
   d_ff 21504, vocab 262144, bf16), depth cut to 2 stages + the 2-layer SWA
   tail (14 layers: 12 sliding-window, 2 full), random weights from a seed:
@@ -47,6 +56,7 @@ without the port.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -87,6 +97,17 @@ POOL_SUBSETS = ((0, 1, 2, 3, 4), (1, 3, 5, 6, 7), (0, 2, 4, 6, 7), (3, 4, 5, 6, 
 BATCHER_THREADS, BATCHER_REQUESTS, BATCHER_WINDOW = 8, 16, 0.002
 FLUSH_ROWS, FLUSH_CHUNK, FLUSH_RANK, FLUSH_STALENESS = 256, 16, 64, 0.05
 STACKED_T = (4, 16)
+
+# The wire: the main path's 8 clients upload STATS frames over TCP to a
+# FrameServer on 127.0.0.1 (client 6 negotiated to bf16, client 3 with
+# moments, client 7 in 4 MiB chunks), 256 single-row DELTA frames, one
+# CONTROL drop and restore, the feature tenants' PROJ and RFF frames, the
+# same uploads through a ChaosProxy at rate 0.1, and 64 SolveFrame round
+# trips from 8 connections without and with the SolveBatcher window.
+WIRE_BF16_CLIENT, WIRE_MOMENTS_CLIENT, WIRE_CHUNK_CLIENT = 6, 3, 7
+WIRE_CHUNK, WIRE_STREAM = 4 << 20, 256
+WIRE_CHAOS_RATE, WIRE_CHAOS_SEED = 0.1, 7
+WIRE_SOLVES, WIRE_SOLVE_THREADS = 64, 8
 
 # gemma3-27b serving: the registry's config with 2 stages instead of 10
 # (14 layers instead of 62; 17.2 GB of bf16 weights), batch 4 x 4096-token
@@ -1376,6 +1397,335 @@ def pool_serving_phase(ds) -> dict:
             "peak_mem_gb": peak, "seconds": time.perf_counter() - t_all}
 
 
+# -- phase 6: federated uploads over TCP into a pool on the card --------------
+
+def timed(fn, store: list):
+    """``fn`` that appends each call's seconds (synchronised) to ``store``."""
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        store.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def round_trips(host: str, port: int, tenant: str, want: dict,
+                threads: int = WIRE_SOLVE_THREADS) -> dict:
+    """``threads`` connections, each asking WIRE_SOLVES / threads
+    SolveFrames in turn over ``SIGMAS``: latency per round trip, and every
+    answer equal to ``want[sigma]`` bitwise."""
+    from repro_torch.fed import transport
+
+    lat, failures = [], []
+
+    def ask(i):
+        try:
+            with transport.TCPChannel(host, port) as ch:
+                c = transport.FrameClient(ch)
+                c.hello(tenant)
+                for j in range(WIRE_SOLVES // threads):
+                    s = SIGMAS[(i + j) % len(SIGMAS)]
+                    t0 = time.perf_counter()
+                    w = c.solve(s)
+                    lat.append(time.perf_counter() - t0)
+                    if not np.array_equal(w, want[s]):
+                        failures.append(f"sigma {s}: answer differs")
+        except Exception as e:
+            failures.append(repr(e))
+
+    workers = [threading.Thread(target=ask, args=(i,)) for i in range(threads)]
+    for t in workers:
+        t.start()
+    for t in workers:
+        t.join(timeout=300)
+    check(not any(t.is_alive() for t in workers), "a solving client hung")
+    check(not failures and len(lat) == WIRE_SOLVES, f"round trips: {failures[:3]}")
+    return {"requests": len(lat), "threads": threads,
+            "p50_ms": 1e3 * float(np.percentile(lat, 50)),
+            "p99_ms": 1e3 * float(np.percentile(lat, 99)),
+            "max_ms": 1e3 * max(lat), "answers_bitwise": len(lat)}
+
+
+def wire_serving_phase(ds) -> dict:
+    from repro_torch import core, data
+    from repro_torch.core import compute_stats
+    from repro_torch.fed import PackedStats, chaos, transport, wire
+    from repro_torch.kernels import gram as K
+    from repro_torch.server import EnginePool
+
+    def sync():
+        torch.cuda.synchronize()
+
+    steps, errs, report = {}, {}, {"card": smi()}
+    t_all = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    pool = EnginePool()
+    admit_s: list = []
+    pool.admit_frame = timed(pool.admit_frame, admit_s)
+    server = transport.FrameServer(pool).start()
+    frames = {"stats": 0, "delta": 0, "control": 0, "solve": 0, "proj": 0,
+              "rff": 0}
+
+    def client(tenant, offers=("f32",), chunk=None, port=None, seed=0):
+        return transport.ResilientClient(
+            lambda: transport.TCPChannel(server.host, port or server.port),
+            tenant=tenant, offers=offers, max_chunk_payload=chunk, seed=seed)
+
+    def served(tenant, sigma):
+        with client(tenant) as c:
+            frames["solve"] += 1
+            return torch.from_numpy(c.solve(sigma)).cuda()
+
+    try:
+        # 1. the dense tenant: each client's Phase 1 (K1) and its STATS
+        #    frame over TCP; client 6 offers only bf16, client 3 carries
+        #    moments, client 7's 33.6 MB frame travels as 4 MiB chunks
+        t0 = time.perf_counter()
+        stats = [compute_stats(A, b) for A, b in ds.clients]
+        sync()
+        steps["clients_phase1_s"] = time.perf_counter() - t0
+        enc, dec, up, nbytes = [], [], [], []
+        for k, s in enumerate(stats):
+            dtype = "bf16" if k == WIRE_BF16_CLIENT else "f32"
+            t0 = time.perf_counter()
+            raw = wire.encode_frame(wire.StatsFrame.from_stats(
+                s, client_id=f"client{k}", moments=k == WIRE_MOMENTS_CLIENT),
+                dtype=dtype)
+            enc.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            wire.decode_frame(raw)
+            dec.append(time.perf_counter() - t0)
+            nbytes.append(len(raw))
+            with client("dense", (dtype,), WIRE_CHUNK if k == WIRE_CHUNK_CLIENT
+                        else None) as c:
+                t0 = time.perf_counter()
+                ack = c.upload_stats(s, client_id=f"client{k}",
+                                     moments=k == WIRE_MOMENTS_CLIENT)
+                up.append(time.perf_counter() - t0)
+                check(ack.ok and not ack.duplicate and c.dtype == dtype,
+                      f"client {k}: {ack}, dtype {c.dtype}")
+            frames["stats"] += 1
+            if k == WIRE_CHUNK_CLIENT:
+                parts = [wire.chunk_parts(p)[3]
+                         for p in wire.split_frame(raw, max_chunk_payload=WIRE_CHUNK)]
+                check(wire.join_chunks(wire.FT_STATS, wire.DTYPE_TAGS[dtype], parts)
+                      == raw, "the chunks do not reassemble to the frame's bytes")
+                chunks = len(parts)
+        steps["stats_uploads_s"] = float(sum(up))
+        summ = server.dispatcher.summary()
+        check(summ["frames_reassembled"] == 1 and summ["chunks_received"] == chunks,
+              f"chunking: {summ}")
+        # the chunked frame again, whole: the reassembled bytes had the same
+        # dedup key, so it is a duplicate and fuses nothing
+        with client("dense") as c:
+            ack = c.upload_stats(stats[WIRE_CHUNK_CLIENT],
+                                 client_id=f"client{WIRE_CHUNK_CLIENT}")
+        check(ack.ok and ack.duplicate, f"the unchunked re-send: {ack}")
+        frames["stats"] += 1
+        # in-process admission of the same statistics (bf16-rounded for
+        # client 6) in the same order: the fused (G, h) bitwise
+        ref = EnginePool()
+        ref.create_tenant("dense", dim=DIM)
+        for k, s in enumerate(stats):
+            p = PackedStats.pack(s)
+            if k == WIRE_BF16_CLIENT:
+                p = PackedStats(p.tri.to(torch.bfloat16).float(),
+                                p.moment.to(torch.bfloat16).float(), p.count, p.dim)
+            ref.ingest("dense", p.unpack(), client_id=f"client{k}")
+        got, want = pool.stats("dense"), ref.stats("dense")
+        check(torch.equal(got.gram, want.gram) and torch.equal(got.moment, want.moment),
+              "wire-fused (G, h) differs from in-process admission")
+        check(int(got.count) == CLIENTS * ROWS, "fused count")
+        ref.close()
+        del ref, got, want
+        report["stats_frames"] = {
+            "bytes": nbytes, "chunks": chunks, "encode_s": enc, "decode_s": dec,
+            "upload_s": up, "admit_s": admit_s[:CLIENTS],
+            "encode_median_s": float(np.median(enc)),
+            "decode_median_s": float(np.median(dec)),
+            "upload_median_s": float(np.median(up)),
+            "admit_median_s": float(np.median(admit_s[:CLIENTS]))}
+        del pool.admit_frame          # the timing hook syncs the card: off
+
+        # 2. 256 single-row DELTA frames (K1 on each row), admitted as the
+        #    JAX package admits them: synchronously, fused one by one; then
+        #    the served solve against float64
+        launches0 = K.launch_counts()
+        t0 = time.perf_counter()
+        with client("dense") as c:
+            for i in range(WIRE_STREAM):
+                check(c.stream_rows(ds.test_A[i:i + 1], ds.test_b[i:i + 1],
+                                    client_id="stream").ok, "delta frame refused")
+        sync()
+        steps["delta_256_frames_s"] = time.perf_counter() - t0
+        frames["delta"] += WIRE_STREAM
+        check(K.launch_counts()["gram_moment"] - launches0["gram_moment"] == WIRE_STREAM,
+              "a DELTA frame did not run K1 once")
+        eng = pool.get("dense")
+        errs["served_vs_f64"] = rel_err(served("dense", SIGMA),
+                                        f64_solve(pool.stats("dense"), SIGMA))
+        check(errs["served_vs_f64"] <= 1e-4, f"served solve: {errs}")
+
+        # 3. CONTROL drop and restore of the streaming client: a rank-256
+        #    down- and update of the cached factor, P and K2 on every panel
+        updates0, launches0 = eng.incremental_updates, K.launch_counts()
+        t0 = time.perf_counter()
+        for op, key in (("drop", "drop_vs_f64"), ("restore", "restore_vs_f64")):
+            with client("dense") as c:
+                check(c.control(op, "stream").ok, f"{op} refused")
+            frames["control"] += 1
+            errs[key] = rel_err(served("dense", SIGMA),
+                                f64_solve(pool.stats("dense"), SIGMA))
+            check(errs[key] <= 1e-4, f"solve after {op}: {errs}")
+        sync()
+        steps["drop_solve_restore_solve_s"] = time.perf_counter() - t0
+        panels = -(-DIM // PANEL)
+        updates = eng.incremental_updates - updates0
+        control = {k: K.launch_counts()[k] - launches0[k]
+                   for k in ("panel_transform", "gemm_nt")}
+        # the PSD root's numerical rank (float32 eigh noise lifts it past
+        # 256) decides whether the restore still fits the factor's update
+        # budget, so one or two blocked updates
+        check(updates >= 1 and control["panel_transform"] == updates * panels
+              and control["gemm_nt"] == updates * (panels - 1),
+              f"drop/restore: {control} launches for {updates} updates")
+        report["control_launches"] = {**control, "updates": updates, "panels": panels}
+
+        # 4. the feature tenants: 8 PROJ frames (K3, m 1024 of the dense
+        #    data) and 8 RFF frames (K4, D 4096 of d 128 data), each tenant
+        #    held to float64
+        t0 = time.perf_counter()
+        fm_s = core.FeatureMap("sketch", FEATURE_SEED, DIM, SKETCH_M)
+        with client("sketch") as c:
+            for k, (A, b) in enumerate(ds.clients):
+                ps = fm_s.stats(A, b)
+                check(c.upload_projected(PackedStats.pack(ps), d_orig=DIM,
+                                         seed=FEATURE_SEED, rhash=fm_s.fhash,
+                                         client_id=f"client{k}",
+                                         yty=float(ps.yty)).ok, "PROJ refused")
+        frames["proj"] += CLIENTS
+        ds_rff = data.synthetic.generate(1, num_clients=CLIENTS,
+                                         samples_per_client=ROWS, dim=RFF_DIM)
+        fm_r = core.FeatureMap("rff", FEATURE_SEED, RFF_DIM, RFF_M,
+                               lengthscale=RFF_DIM ** 0.5)
+        with client("rff") as c:
+            for k, (A, b) in enumerate(ds_rff.clients):
+                rs = fm_r.stats(A, b)
+                check(c.upload_rff(PackedStats.pack(rs), d_orig=RFF_DIM,
+                                   seed=FEATURE_SEED, fhash=fm_r.fhash,
+                                   lengthscale=fm_r.lengthscale,
+                                   client_id=f"client{k}").ok, "RFF refused")
+        frames["rff"] += CLIENTS
+        del ds_rff
+        (R,) = fm_s.materialize("cuda")
+        errs["sketch_vs_f64"] = rel_err(
+            served("sketch", SIGMA),
+            R.double() @ f64_solve(pool.stats("sketch"), SIGMA))
+        errs["rff_vs_f64"] = rel_err(served("rff", SIGMA),
+                                     f64_solve(pool.stats("rff"), SIGMA))
+        check(errs["sketch_vs_f64"] <= 1e-4 and errs["rff_vs_f64"] <= 1e-4,
+              f"feature tenants over the wire: {errs}")
+        sync()
+        steps["feature_tenants_s"] = time.perf_counter() - t0
+
+        # 5. chaos: every fault at rate 0.1, seed 7, in a proxy in front of a
+        #    second server; its pool's fused stats are a clean pool's bits
+        t0 = time.perf_counter()
+        sched = chaos.ChaosSchedule(chaos.ChaosConfig.uniform(WIRE_CHAOS_RATE),
+                                    seed=WIRE_CHAOS_SEED)
+        cpool, clean = EnginePool(), EnginePool()
+        clean.create_tenant("chaos", dim=DIM)
+        summaries = []
+        with transport.FrameServer(cpool) as csrv, \
+                chaos.ChaosProxy(csrv.host, csrv.port, sched) as proxy:
+            for k, s in enumerate(stats):
+                with client("chaos", port=proxy.port, seed=k) as c:
+                    c.retries = 40
+                    check(c.upload_stats(s, client_id=f"client{k}").ok,
+                          f"chaos upload {k}")
+                    summaries.append(c.summary())
+                clean.ingest("chaos", PackedStats.pack(s).unpack(),
+                             client_id=f"client{k}")
+            dispatch = csrv.dispatcher.summary()
+        got, want = cpool.stats("chaos"), clean.stats("chaos")
+        check(torch.equal(got.gram, want.gram) and torch.equal(got.moment, want.moment),
+              "fused stats under chaos differ from the clean pool's")
+        check(int(got.count) == CLIENTS * ROWS
+              and len(cpool.get("chaos").client_ids) == CLIENTS,
+              "an upload fused twice or not at all under chaos")
+        check(dispatch["internal_errors"] == 0, f"chaos server: {dispatch}")
+        fired = sched.summary()
+        check(sum(fired["fired"].values()) > 0, "no fault fired")
+        report["chaos"] = {
+            "rate": WIRE_CHAOS_RATE, "seed": WIRE_CHAOS_SEED,
+            "requests": fired["requests"], "fired": fired["fired"],
+            "retries": sum(x["retries"] for x in summaries),
+            "reconnects": sum(x["reconnects"] for x in summaries),
+            "duplicate_acks": sum(x["duplicate_acks"] for x in summaries),
+            "duplicates_fused_once": cpool.tenant("chaos").duplicates,
+            "frames_rejected": dispatch["frames_rejected"],
+            "uploads_admitted": dispatch["uploads_admitted"]}
+        cpool.close()
+        clean.close()
+        del cpool, clean, got, want
+        sync()
+        steps["chaos_s"] = time.perf_counter() - t0
+
+        # 6. 64 SolveFrame round trips from one connection, then from 8
+        #    without and with the SolveBatcher window; every answer is the
+        #    pool's own bits
+        want = {s: pool.solve_lifted("dense", s).cpu().numpy() for s in SIGMAS}
+        report["round_trips_one_connection"] = round_trips(
+            server.host, server.port, "dense", want, threads=1)
+        report["round_trips"] = round_trips(server.host, server.port, "dense", want)
+        with transport.FrameServer(pool, solve_window_s=BATCHER_WINDOW) as bsrv:
+            report["round_trips_window"] = round_trips(bsrv.host, bsrv.port,
+                                                       "dense", want)
+            report["round_trips_window"]["batcher"] = \
+                bsrv.dispatcher.summary()["solve_batcher"]
+        frames["solve"] += 3 * WIRE_SOLVES
+
+        summ = server.dispatcher.summary()
+        check(summ["internal_errors"] == 0 and summ["connection_errors"] == 0,
+              f"dispatcher: {summ}")
+        launches = K.launch_counts()
+        for name in ("gram_moment", "sketch_gram", "rff_gram", "panel_transform",
+                     "gemm_nt"):
+            check(launches[name] > 0, f"kernel {name} was not launched on the wire path")
+        check(launches["sketch_gram"] == CLIENTS and launches["rff_gram"] == CLIENTS,
+              f"feature kernels: {launches}")
+        check(launches["gram_moment"] == CLIENTS + WIRE_STREAM, f"K1: {launches}")
+        ledger = pool.ledger()
+        report["ledger"] = {k: ledger[k] for k in (
+            "wire_upload_bytes", "wire_download_bytes", "streamed_bytes",
+            "total_bytes", "by_tier")}
+        report["ledger_by_kind"] = ledger["by_kind"]
+        report["frames_by_kind"] = frames
+        report["dispatcher"] = summ
+        report["pool"] = {k: pool.summary()[k] for k in ("tenants", "duplicates")}
+    finally:
+        server.stop()
+        pool.close()
+    # a connection thread holds its session, and so the pool, until its
+    # client has hung up: wait for them before the model phase's memory
+    deadline = time.monotonic() + 30
+    while server.active_connections and time.monotonic() < deadline:
+        time.sleep(0.01)
+    check(server.active_connections == 0, "a wire connection thread outlived its client")
+    del pool, server, stats, eng, R
+    gc.collect()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    return {"phase": "wire_serving", "dim": DIM, "clients": CLIENTS,
+            "rows_per_client": ROWS, "errors": errs, "report": report,
+            "steps_s": steps, "launches": launches, "peak_mem_gb": peak,
+            "left_allocated_gb": torch.cuda.memory_allocated() / 2**30,
+            "seconds": time.perf_counter() - t_all}
+
+
 def kernel_sequence(fn) -> list[str]:
     """Names of the device kernels that ``fn`` launches, in the order the
     card ran them (``torch.profiler``'s device events)."""
@@ -1415,7 +1765,7 @@ def profile_top(fn, top: int = 8) -> dict:
             "top": [[name[:80], ms, n] for name, ms, n in rows[:top]]}
 
 
-# -- phase 6: gemma3-27b serving at full width through the model entry points --
+# -- phase 7: gemma3-27b serving at full width through the model entry points --
 
 def model_serving_phase() -> dict:
     from repro_torch import configs
@@ -1569,6 +1919,8 @@ def main() -> int:
     emit(features)
     del w_dense
     emit(pool_serving_phase(ds))
+    wire_line = wire_serving_phase(ds)
+    emit(wire_line)
     del ds
     serving = model_serving_phase()
     emit(serving)
@@ -1576,7 +1928,9 @@ def main() -> int:
         run = (features if kname in ("sketch_gram", "rff_gram")
                else serving if kname == "swa_flash" else path)
         row["launches"] = run["launches"][kname]
-    order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+        row["wire_launches"] = wire_line["launches"][kname]
+    order = ("name", "route", "source", "replaces", "launches", "wire_launches",
+             "max_abs_err",
              "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in order if k in row} for row in rows.values()]})
     print(smi(), flush=True)

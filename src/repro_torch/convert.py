@@ -4,7 +4,7 @@ and model parameters across from numpy arrays.
 Everything here goes through ``np.asarray``, so any object whose arrays
 convert to numpy (the reference package's arrays included) can be handed
 over without this package importing the framework that made it. bfloat16
-arrays (numpy's ``ml_dtypes`` extension type) are carried bit for bit.
+arrays (numpy's bfloat16 extension type) are carried bit for bit.
 """
 from __future__ import annotations
 
@@ -102,15 +102,15 @@ def pool_from(jpool, arrays: Mapping[str, Sequence] | None = None, *,
     """A port ``EnginePool`` holding the same tenants as a reference pool.
 
     Each tenant keeps its placement, coalescer policy, update-rank bound,
-    feature map, admission record and streamed-byte count, and the pool
-    its limits. A tenant's fused statistics are carried over as they are
+    feature map, admission record, streamed-byte count, wire counters and
+    dedup index (so a re-send of a frame the reference fused is a
+    duplicate here too), and the pool its limits. A tenant's fused statistics are carried over as they are
     (after draining its queued deltas), so they equal the reference's
     bitwise whatever streamed into it without a client id or was dropped;
     its exported ``(clients, dropped)`` ledger is installed beside them, as
     the reference's own snapshot restore does. A feature tenant's map is
     pinned to ``arrays[name]`` where given, else to the reference map's
-    own materialized arrays (the port's draws differ in the last bits;
-    ``feature_map_from``).
+    own materialized arrays (``feature_map_from``).
     """
     from repro_torch.fed import comm as fed_comm
 
@@ -145,6 +145,10 @@ def pool_from(jpool, arrays: Mapping[str, Sequence] | None = None, *,
                 t.comm = getattr(fed_comm, type(jt.comm).__name__)(
                     **dataclasses.asdict(jt.comm))
             t.streamed_floats = jt.streamed_floats
+            for field in ("wire_frames", "relay_frames", "wire_upload_bytes",
+                          "wire_download_bytes", "duplicates"):
+                setattr(t, field, getattr(jt, field))
+            t.dedup = set(jt.dedup)
     return pool
 
 

@@ -9,10 +9,10 @@ participant to hold the SAME map, so the map needs an *identity*:
 deterministically, and :func:`feature_hash` fingerprints the actual bytes.
 
 The arrays are drawn on the host by ``core.threefry``, which reproduces the
-JAX package's ``jax.random`` draws: the RFF phases c bitwise, the Gaussian
-entries of R and W within a few ulp (the last bit of XLA's ``log1p``). So a
-map's fingerprint here need not equal the reference's; parity tests carry
-the reference's exact arrays over with ``convert.feature_map_from``.
+JAX package's ``jax.random`` draws bitwise, so a map's fingerprint equals
+the reference's for the same identity, and a PROJ or RFF frame from either
+package admits into the other's tenant. ``convert.feature_map_from`` can
+still pin a map to given arrays (``seed_arrays``).
 
 ``FeatureMap`` is hashable/frozen. Its arrays are cached per (map, device):
 drawn once on the host and moved once.

@@ -10,7 +10,7 @@ accounting there (``upload_floats``, ``error_bound``) prices this path's
 D(D+1)/2 + D wire cost identically with m = D.
 
 (W, c) are drawn on the host by ``core.threefry`` from the same key as the
-JAX package's ``jax.random`` draws: c is bitwise equal, W within a few ulp.
+JAX package's ``jax.random`` draws, bitwise.
 """
 from __future__ import annotations
 

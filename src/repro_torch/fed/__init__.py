@@ -1,3 +1,4 @@
+from repro_torch.fed import chaos, transport, wire
 from repro_torch.fed.comm import (
     CommRecord,
     ShardedCommRecord,
@@ -22,4 +23,5 @@ __all__ = [
     "measured_one_shot", "one_shot_comm", "sharded_oneshot_record",
     "PackedStats", "RunResult", "client_phase", "run_centralized",
     "run_loco_cv", "run_one_shot", "run_one_shot_projected",
+    "wire", "transport", "chaos",
 ]

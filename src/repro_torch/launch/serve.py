@@ -23,10 +23,12 @@ Run as
 
 Not ported yet, and rejected by the argument parser: the sharded and auto
 placements (``--sharded-tenants``, ``--auto-tenants``; ROADMAP queue 1,
-item 15), the wire server and its client (``--listen``,
-``--expect-uploads``, ``--solve-window``; items 9 and 10), durability
-(``--journal-dir``; item 12), the relay tier (``--mode relay``; item 13)
-and the chaos proxy (``--chaos-*``; item 9).
+item 15), the wire server's flags and its client CLI (``--listen``,
+``--expect-uploads``, ``--serve-timeout``, ``--solve-window``,
+``--max-chunk-payload``) and the chaos proxy's flags (``--chaos-*``; both
+item 10: ``fed.wire``, ``fed.transport`` and ``fed.chaos`` exist, only the
+CLI is missing), durability (``--journal-dir``; item 12) and the relay
+tier (``--mode relay``; item 13).
 """
 from __future__ import annotations
 

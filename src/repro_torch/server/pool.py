@@ -25,14 +25,21 @@ registry and scheduling layer:
   * **Batched solves** — ``solve_many`` snapshots each request's operands
     under its tenant's lock and solves every (d, dtype) bucket in one
     :func:`~repro_torch.server.batch.solve_stacked` sweep with no lock held.
-  * **Ledger** — ``ledger()`` rolls per-tenant ``fed.comm`` records and
-    streamed §VI-C bytes into one account, per tenant kind.
+  * **Wire admission** — ``admit_frame`` is the server half of
+    ``fed.wire``: upload frames fuse into a tenant created lazily from the
+    first frame, CONTROL frames drop and restore clients, SOLVE frames
+    answer with weights. Uploads that arrive with their bytes are
+    deduplicated, so a client's retry after a lost ACK fuses once.
+  * **Ledger** — ``ledger()`` rolls per-tenant ``fed.comm`` records,
+    streamed §VI-C bytes and the encoded bytes of wire frames into one
+    account, per tenant kind and per tier.
 
 Every tenant of a pool lives on the pool's one device (``device=``, the
-card unless the caller asks for the CPU). The wire (``admit_frame``),
-durability (``journal_dir``, ``snapshot``) and the Remark-4 PSD guard are
-not ported yet and raise ``NotImplementedError`` naming their ROADMAP
-item; their counters in ``ledger()`` and ``summary()`` stay at 0 / False.
+card unless the caller asks for the CPU). Durability (``journal_dir``,
+``snapshot``) and the Remark-4 PSD guard are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item; their counters in
+``summary()`` stay at 0 / False. Relay-forwarded frames are counted as the
+JAX package counts them; the relay itself is not ported yet.
 
 Thread-safety contract: the pool's wrappers are safe for concurrent use.
 ``get()`` hands back the raw engine for single-threaded convenience.
@@ -44,6 +51,7 @@ import threading
 import time
 from typing import Any, Callable, Hashable, Mapping, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.features import FeatureMap
@@ -55,8 +63,6 @@ from repro_torch.server.select import SHARDED_NOT_YET, prefer_sharded
 
 PLACEMENTS = ("dense", "sharded", "auto")
 
-_WIRE = ("is not ported yet: the wire codec and transport wait for ROADMAP "
-         "queue 1, item 9")
 _DURABLE = ("is not ported yet: the journal and snapshots wait for ROADMAP "
             "queue 1, item 12 (durability)")
 _PRIVACY = ("is not ported yet: psd_repair waits for ROADMAP queue 1, "
@@ -66,8 +72,9 @@ _PRIVACY = ("is not ported yet: psd_repair waits for ROADMAP queue 1, "
 class AdmissionError(ValueError):
     """A tenant or client was refused for capacity, not correctness.
 
-    A ``ValueError``, as in the reference, whose wire path answers any
-    ``ValueError`` with a typed refusal.
+    A ``ValueError``: the wire path (:meth:`EnginePool.admit_frame`) answers
+    any ``ValueError`` with a typed ``AckFrame(ok=False)``, so quota
+    refusals reach remote clients as protocol-level refusals.
     """
 
 
@@ -82,7 +89,18 @@ class Tenant:
     last_used: float = dataclasses.field(default_factory=time.monotonic)
     comm: Any = None               # fed.comm.CommRecord from admission
     streamed_floats: int = 0       # §VI-C floats ingested after admission
+    wire_frames: int = 0           # decoded wire frames admitted (fed.wire)
+    relay_frames: int = 0          # of those, frames forwarded by a relay
+    #                                tier (wire.is_relay_client ids)
+    wire_upload_bytes: int = 0     # encoded bytes of admitted upload frames
+    wire_download_bytes: int = 0   # encoded bytes of replies (weights/acks)
     feature_map: FeatureMap | None = None  # §IV-F map identity (sketch / rff)
+    # Idempotent-replay index: (client_id, frame type byte, encoded length,
+    # CRC32) of every upload frame fused with its bytes. A byte-identical
+    # re-send (a retry after a lost ACK) hits it and is answered
+    # duplicate=True instead of fusing twice.
+    dedup: set = dataclasses.field(default_factory=set)
+    duplicates: int = 0            # re-sent frames answered duplicate=True
     background_flushes: int = 0    # flushes driven by the pool's thread
     max_flush_age_s: float = 0.0   # oldest delta age ever seen at a drain
     factor_evictions: int = 0      # LRU evictions of this tenant's factors
@@ -109,18 +127,18 @@ class Tenant:
                 "rhash": fm.fhash}
 
     def summary(self) -> dict:
-        """The reference's keys; the wire, relay and guard counters are 0."""
+        """The reference's keys; the PSD guard's counter is 0."""
         with self.lock:
             return {
                 "placement": self.placement,
                 "backend": self.backend_name,
                 "kind": self.kind,
                 "streamed_floats": self.streamed_floats,
-                "wire_frames": 0,
-                "relay_frames": 0,
-                "wire_upload_bytes": 0,
-                "wire_download_bytes": 0,
-                "duplicates": 0,
+                "wire_frames": self.wire_frames,
+                "relay_frames": self.relay_frames,
+                "wire_upload_bytes": self.wire_upload_bytes,
+                "wire_download_bytes": self.wire_download_bytes,
+                "duplicates": self.duplicates,
                 "background_flushes": self.background_flushes,
                 "max_flush_age_s": self.max_flush_age_s,
                 "factor_evictions": self.factor_evictions,
@@ -145,7 +163,7 @@ class EnginePool:
                  max_clients_per_tenant: int | None = None,
                  default_coalesce: CoalescerPolicy | None = None,
                  journal_dir: str | None = None,
-                 tier: str = "root", device="cuda"):
+                 tier: str = "root", device="cuda", dtype=torch.float32):
         """Args:
           mesh: a mesh for sharded tenants; raises (item 15).
           threshold / table: forwarded to ``server.select`` for ``"auto"``
@@ -163,6 +181,10 @@ class EnginePool:
           journal_dir: crash-safe state; raises (item 12).
           tier: accounting label ("root" / "relay"), reported by ``ledger``.
           device: where every tenant's state lives.
+          dtype: the container of tenants created empty (from ``dim`` or a
+            wire frame): wider wire arrays are truncated to it, and the wire
+            dispatcher prefers it in negotiation (the JAX package's
+            ``jax_enable_x64``).
         """
         if mesh is not None:
             raise NotImplementedError(f"EnginePool(mesh=...) {SHARDED_NOT_YET}")
@@ -178,6 +200,7 @@ class EnginePool:
         self.max_clients_per_tenant = max_clients_per_tenant
         self.tier = tier
         self.device = torch.device(device)
+        self.dtype = dtype
         self._default_coalesce = default_coalesce
         self.batched_sweeps = 0     # cross-tenant stacked solve sweeps run
         self.batched_solves = 0     # individual solves served by those sweeps
@@ -292,8 +315,8 @@ class EnginePool:
             raise ValueError(f"tenant {name!r}: statistics on "
                              f"{first.gram.device}, pool on {self.device}")
 
-        eff_dtype = dtype if dtype is not None or first is None \
-            else first.gram.dtype
+        eff_dtype = (dtype if dtype is not None
+                     else first.gram.dtype if first is not None else self.dtype)
         self._check_admission(name, dim, eff_dtype)
         self._place(dim, placement)
         kwargs: dict = {"coalesce": coalesce if coalesce is not None
@@ -307,6 +330,7 @@ class EnginePool:
         elif stats is not None:
             engine = FusionEngine.from_stats(stats, **kwargs)
         else:
+            kwargs["dtype"] = eff_dtype
             engine = FusionEngine(dim, device=self.device, **kwargs)
 
         t = Tenant(name, engine, placement)
@@ -339,8 +363,7 @@ class EnginePool:
                 f"tenant {name!r} refused: pool at max_tenants="
                 f"{self.max_tenants}")
         if self.stat_budget_bytes is not None:
-            itemsize = torch.finfo(dtype if dtype is not None
-                                   else torch.float32).bits // 8
+            itemsize = torch.finfo(dtype).bits // 8
             incoming = (dim * dim + dim) * itemsize
             resident = self.resident_stat_bytes()
             if resident + incoming > self.stat_budget_bytes:
@@ -395,19 +418,250 @@ class EnginePool:
             return fed_comm.measured_one_shot(payloads, download_floats=dim)
         return fed_comm.one_shot_comm(dim, max(len(engine.client_ids), 1))
 
-    # -- not ported yet ------------------------------------------------------
-
-    def admit_frame(self, name: str, frame, **kwargs):
-        """Feed one decoded wire frame into a tenant (item 9)."""
-        raise NotImplementedError(f"admit_frame {_WIRE}")
-
-    def record_wire_reply(self, name: str, nbytes: int) -> None:
-        """Account a reply frame's encoded bytes (item 9)."""
-        raise NotImplementedError(f"record_wire_reply {_WIRE}")
-
     def snapshot(self) -> int | None:
         """Commit a durable snapshot (item 12)."""
         raise NotImplementedError(f"snapshot {_DURABLE}")
+
+    # -- wire-frame admission (fed.wire / fed.transport) ----------------------
+
+    def admit_frame(self, name: str, frame, *, encoded_len: int = 0,
+                    placement: str = "dense", raw: bytes | None = None):
+        """Feed one decoded ``fed.wire`` frame into tenant ``name``.
+
+        The server half of the wire protocol: upload frames (STATS / PROJ /
+        RFF / DELTA) are ingested into the tenant's engine — created lazily
+        from the first frame's dimension with ``placement`` — CONTROL
+        frames drive Thm-8 drop/rejoin, and SOLVE queries return a
+        ``WeightsFrame`` (lifted through the tenant's §IV-F map when it has
+        one). ``encoded_len`` is the frame's on-wire byte length; the ledger
+        sums it for upload frames.
+
+        ``raw`` is the frame's encoded bytes when the caller has them
+        (transports always do). Then uploads are deduplicated on
+        ``(client_id, frame type byte, encoded length, CRC32)``: a
+        byte-identical re-send after a lost ACK answers
+        ``AckFrame(duplicate=True)`` and fuses nothing twice.
+
+        Returns the reply frame (``AckFrame`` or ``WeightsFrame``).
+        Protocol-level problems (dim mismatch, unknown tenant or client,
+        conflicting feature map, quota) come back as ``AckFrame(ok=False)``;
+        only programming and device errors raise.
+        """
+        from repro_torch.fed import wire
+
+        if isinstance(frame, wire.Hello):
+            raise TypeError("HELLO is a session frame; the transport "
+                            "negotiates it before admission")
+        try:
+            if isinstance(frame, (wire.StatsFrame, wire.ProjectedFrame,
+                                  wire.RFFFrame)):
+                t = self._ensure_wire_tenant(name, frame.dim, placement)
+                # One lock acquisition spans guard AND ingest (RLock — the
+                # nested _locked re-acquire is free): a concurrent upload
+                # cannot flip the tenant's space between check and fuse.
+                with t.lock:
+                    if isinstance(frame, (wire.ProjectedFrame,
+                                          wire.RFFFrame)):
+                        err = self._check_feature_frame(t, frame)
+                    else:
+                        err = self._check_unsketched(t)
+                    if err is not None:
+                        return wire.AckFrame(False, err)
+                    cid = frame.client_id or None
+                    key = self._dedup_key(frame, raw)
+                    if key is not None and self._dedup_hit(t, key):
+                        t.duplicates += 1
+                        return wire.AckFrame(
+                            True, f"duplicate upload d={frame.dim} already "
+                                  f"fused", duplicate=True)
+                    packed = frame.to_packed(self.device,
+                                             self._container(frame.tri))
+                    self._locked(name,
+                                 lambda e: e.ingest(packed.unpack(),
+                                                    client_id=cid),
+                                 wire_bytes=encoded_len, quota_client=cid)
+                    if key is not None:
+                        t.dedup.add(key)
+                    if wire.is_relay_client(cid):
+                        t.relay_frames += 1
+                return wire.AckFrame(True, f"ingested d={frame.dim} "
+                                           f"count={int(frame.count)}")
+            if isinstance(frame, wire.DeltaRowsFrame):
+                t = self._ensure_wire_tenant(name, frame.A.shape[1], placement)
+                with t.lock:
+                    err = self._check_unsketched(t)
+                    if err is not None:
+                        return wire.AckFrame(False, err)
+                    cid = frame.client_id or None
+                    key = self._dedup_key(frame, raw)
+                    if key is not None and self._dedup_hit(t, key):
+                        t.duplicates += 1
+                        return wire.AckFrame(
+                            True, "duplicate rows already fused",
+                            duplicate=True)
+                    dt = self._container(frame.A)
+                    A = torch.as_tensor(frame.A).to(self.device, dt)
+                    b = torch.as_tensor(frame.b).to(self.device, dt)
+                    self._locked(name,
+                                 lambda e: e.ingest_rows(A, b, client_id=cid),
+                                 wire_bytes=encoded_len, quota_client=cid)
+                    if key is not None:
+                        t.dedup.add(key)
+                    if wire.is_relay_client(cid):
+                        t.relay_frames += 1
+                return wire.AckFrame(True, f"ingested {A.shape[0]} rows")
+            if isinstance(frame, wire.ControlFrame):
+                if name not in self:
+                    return wire.AckFrame(False, f"unknown tenant {name!r}")
+                t = self.tenant(name)
+                op = (FusionEngine.drop if frame.op == "drop"
+                      else FusionEngine.restore)
+                with t.lock:
+                    # Idempotency needs the engine's *settled* membership:
+                    # drain queued deltas first (with staleness accounting).
+                    self._locked(name, lambda e: e.flush())
+                    eng = t.engine
+                    cid = frame.client_id
+                    already = (cid in eng.dropped_ids
+                               and cid not in eng.client_ids
+                               if frame.op == "drop"
+                               else cid in eng.client_ids
+                               and cid not in eng.dropped_ids)
+                    if already:
+                        t.duplicates += 1
+                        return wire.AckFrame(
+                            True, f"{frame.op} {cid!r} already applied",
+                            duplicate=True)
+                    if (cid not in eng.client_ids
+                            and cid not in eng.dropped_ids):
+                        raise KeyError(cid)
+                    self._locked(name, lambda e: op(e, cid))
+                return wire.AckFrame(True, f"{frame.op} {frame.client_id!r}")
+            if isinstance(frame, wire.SolveFrame):
+                if name not in self:
+                    return wire.AckFrame(False, f"unknown tenant {name!r}")
+                w = self.solve_lifted(name, frame.sigma).cpu().numpy()
+                return wire.WeightsFrame(
+                    w=w, sigma=frame.sigma,
+                    wire_dtype=wire.dtype_name(w.dtype))
+        except KeyError as e:
+            return wire.AckFrame(False, f"unknown client {e.args[0]!r}")
+        except ValueError as e:
+            return wire.AckFrame(False, str(e))
+        raise TypeError(f"cannot admit frame type {type(frame).__name__}")
+
+    def _container(self, arr) -> torch.dtype:
+        """The dtype a decoded wire array lands in: its own, truncated to
+        the pool's ``dtype`` when wider (as the JAX package's ``asarray``
+        lands it in its default float width)."""
+        own = torch.float64 if arr.dtype == np.float64 else torch.float32
+        return own if own.itemsize <= self.dtype.itemsize else self.dtype
+
+    @staticmethod
+    def _dedup_key(frame, raw: bytes | None):
+        """The idempotency key for an upload, or None for a frame that came
+        without its bytes (an in-process caller, which never retries blind).
+
+        The key is ``(client_id, frame_type_byte, encoded_len, crc32)``:
+        CRC32 alone is 32 bits of a *linear* code, so two different uploads
+        of one client can share it. Frame type and encoded length make the
+        cheap collisions structurally impossible and leave only same-type,
+        same-length CRC collisions, which the tests pin as fused, not
+        deduplicated.
+        """
+        if raw is None:
+            return None
+        from repro_torch.fed import wire
+
+        return (frame.client_id, raw[5], len(raw), wire.frame_crc(raw))
+
+    @staticmethod
+    def _dedup_hit(t: Tenant, key) -> bool:
+        """Membership under both key generations: the 4-tuples and the
+        JAX package's legacy ``(client_id, crc)`` 2-tuples."""
+        return key in t.dedup or (key[0], key[3]) in t.dedup
+
+    def record_wire_reply(self, name: str, nbytes: int) -> None:
+        """Account a reply frame's encoded bytes (the download direction)."""
+        with self._reg_lock:
+            t = self._tenants.get(name)
+        if t is not None:
+            with t.lock:
+                t.wire_download_bytes += nbytes
+
+    def _ensure_wire_tenant(self, name: str, dim: int,
+                            placement: str) -> Tenant:
+        with self._reg_lock:
+            t = self._tenants.get(name)
+        if t is None:
+            try:
+                self.create_tenant(name, dim=dim, placement=placement)
+            except ValueError as e:
+                if "already exists" not in str(e):   # lost a create/create race
+                    raise
+            t = self.tenant(name)
+        if t.engine.dim != dim:
+            raise ValueError(f"frame dim {dim} != tenant {name!r} dim "
+                             f"{t.engine.dim}")
+        return t
+
+    @staticmethod
+    def _check_unsketched(t: Tenant) -> str | None:
+        """A plain (Thm-4 / §VI-C) upload may not land on a feature tenant:
+        statistics from different spaces fuse without a shape error and
+        serve silent garbage. Returns an error string (reject) or None."""
+        with t.lock:
+            if t.feature_map is not None:
+                return (f"tenant holds §IV-F {t.kind} statistics "
+                        f"(seed={t.feature_map.seed}); plain uploads "
+                        f"would silently mix spaces")
+        return None
+
+    @staticmethod
+    def _frame_map(frame) -> tuple[FeatureMap, int]:
+        """A wire feature frame's declared map identity + claimed hash."""
+        from repro_torch.fed import wire
+
+        if isinstance(frame, wire.RFFFrame):
+            return (FeatureMap("rff", seed=frame.seed, d_orig=frame.d_orig,
+                               m=frame.dim, lengthscale=frame.lengthscale),
+                    frame.fhash)
+        return (FeatureMap("sketch", seed=frame.seed, d_orig=frame.d_orig,
+                           m=frame.dim), frame.rhash)
+
+    def _check_feature_frame(self, t: Tenant, frame) -> str | None:
+        """§IV-F feature-map consistency for PROJ and RFF uploads.
+
+        Every feature upload for a tenant must declare the SAME map identity
+        (kind, seed, d_orig, m, lengthscale), and the claimed hash must match
+        the arrays the server derives from that identity, or the two sides
+        only *believe* they share a map. A tenant already holding unsketched
+        statistics rejects feature uploads outright. The map identity is
+        write-once under the tenant lock. Returns an error string or None.
+        """
+        try:
+            cand, claimed = self._frame_map(frame)
+        except ValueError as e:    # un-constructible identity (bad params)
+            return str(e)
+        with t.lock:
+            if t.feature_map is None:
+                if t.engine.client_ids or int(t.engine.backend.count) != 0:
+                    return ("tenant already holds unsketched statistics; "
+                            "a §IV-F upload would silently mix spaces")
+                if cand.fhash != claimed:
+                    return (f"feature-map hash mismatch: frame says "
+                            f"{claimed:#010x}, server derived "
+                            f"{cand.fhash:#010x} from seed {frame.seed}")
+                t.feature_map = cand
+                return None
+            p = t.feature_map
+            if p != cand or claimed != p.fhash:
+                what = "sketch" if p.kind == "sketch" else "rff map"
+                return (f"conflicting {what}: tenant fused kind={p.kind} "
+                        f"seed={p.seed} d_orig={p.d_orig} m={p.m}, frame "
+                        f"has kind={cand.kind} seed={cand.seed} "
+                        f"d_orig={cand.d_orig} m={cand.m}")
+            return None
 
     # -- serving -------------------------------------------------------------
 
@@ -471,8 +725,9 @@ class EnginePool:
     # -- locked per-tenant operations ----------------------------------------
 
     def _locked(self, name: str, fn: Callable[[FusionEngine], Any], *,
-                drains: bool = True, floats: int = 0, warms: bool = False,
-                quota_client: Hashable | None = None) -> Any:
+                drains: bool = True, floats: int = 0, wire_bytes: int = 0,
+                warms: bool = False, quota_client: Hashable | None = None
+                ) -> Any:
         t = self.tenant(name)
         with t.lock:
             if quota_client is not None:
@@ -485,6 +740,9 @@ class EnginePool:
                     t.max_flush_age_s = max(t.max_flush_age_s, age)
             t.last_used = time.monotonic()
             t.streamed_floats += floats
+            if wire_bytes:
+                t.wire_frames += 1
+                t.wire_upload_bytes += wire_bytes
             out = fn(t.engine)
         if warms:
             self._maybe_evict()
@@ -751,23 +1009,37 @@ class EnginePool:
     # -- observability --------------------------------------------------------
 
     def ledger(self) -> dict:
-        """Pool-level ``fed.comm`` rollup — admission uploads (measured
-        where payloads were given) and streamed §VI-C bytes — per tenant,
-        per tenant kind (dense / sketched / rff) and in total, with the
-        reference's keys; the wire and relay counters are 0."""
+        """Pool-level ``fed.comm`` rollup: admission uploads (measured where
+        payloads were given), streamed §VI-C bytes, and — for tenants fed
+        through ``admit_frame`` — the encoded byte lengths of the wire
+        frames that moved (upload direction) and of the replies (download),
+        per tenant, per tenant kind (dense / sketched / rff), per tier and in
+        total, with the reference's keys."""
         from repro_torch.fed import comm as fed_comm
 
         snapshot = self._snapshot()
         out = fed_comm.aggregate_records(
             {t.name: t.comm for t in snapshot if t.comm is not None},
             kinds={t.name: t.kind for t in snapshot})
-        streamed = 0
+        streamed = wire_up = wire_down = relay_frames = wire_frames = 0
         by_kind = out["by_kind"]
         for t in snapshot:
             entry = out["per_tenant"].setdefault(t.name, {})
             entry["kind"] = t.kind
             entry["streamed_bytes"] = t.streamed_floats * fed_comm.FLOAT_BYTES
             streamed += entry["streamed_bytes"]
+            if t.wire_frames:
+                entry["wire_frames"] = t.wire_frames
+                entry["wire_upload_bytes"] = t.wire_upload_bytes
+                entry["wire_download_bytes"] = t.wire_download_bytes
+                if t.relay_frames:
+                    entry["relay_frames"] = t.relay_frames
+            wire_frames += t.wire_frames
+            relay_frames += t.relay_frames
+            wire_up += t.wire_upload_bytes
+            wire_down += t.wire_download_bytes
+            # Tenants admitted over the wire carry no CommRecord, so the
+            # kind split folds their measured bytes in here.
             k = by_kind.setdefault(t.kind, {"tenants": 0,
                                             "upload_download_bytes": 0,
                                             "analytic_bytes": 0})
@@ -775,15 +1047,23 @@ class EnginePool:
                 k["tenants"] += 1
             k["streamed_bytes"] = (k.get("streamed_bytes", 0)
                                    + entry["streamed_bytes"])
-            k["wire_upload_bytes"] = 0
-            k["wire_download_bytes"] = 0
-            k["upload_bytes"] = k["upload_download_bytes"] + k["streamed_bytes"]
+            k["wire_upload_bytes"] = (k.get("wire_upload_bytes", 0)
+                                      + t.wire_upload_bytes)
+            k["wire_download_bytes"] = (k.get("wire_download_bytes", 0)
+                                        + t.wire_download_bytes)
+            k["upload_bytes"] = (k["upload_download_bytes"]
+                                 + k["streamed_bytes"]
+                                 + k["wire_upload_bytes"])
         out["streamed_bytes"] = streamed
-        out["wire_upload_bytes"] = 0
-        out["wire_download_bytes"] = 0
-        out["total_bytes"] = out["upload_download_bytes"] + streamed
+        out["wire_upload_bytes"] = wire_up
+        out["wire_download_bytes"] = wire_down
+        out["total_bytes"] = (out["upload_download_bytes"] + streamed
+                              + wire_up + wire_down)
+        # Upload-frame ingress split by origin tier: frames forwarded by a
+        # relay (wire.is_relay_client ids) vs direct client uploads.
         out["tier"] = self.tier
-        out["by_tier"] = {"relay_frames": 0, "client_frames": 0}
+        out["by_tier"] = {"relay_frames": relay_frames,
+                          "client_frames": wire_frames - relay_frames}
         return out
 
     def summary(self) -> dict:
@@ -810,6 +1090,6 @@ class EnginePool:
             "snapshots_taken": 0,
             "replayed_frames": 0,
             "restored_tenants": 0,
-            "duplicates": 0,
+            "duplicates": sum(t.duplicates for t in snapshot),
             "per_tenant": {t.name: t.summary() for t in snapshot},
         }

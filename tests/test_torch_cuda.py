@@ -653,3 +653,153 @@ def test_snapshot_survives_a_flush_on_card(card):
     assert not torch.equal(eng.factor(0.01), factor)
     assert all(torch.equal(o, c) for o, c in zip(ops, copies))
     assert torch.equal(server.solve_snapshot(*ops), w0)
+
+
+# -- the wire (fed.wire, fed.transport, fed.chaos) into a pool on the card ----
+
+def _wire_stats(d, seed, device):
+    rng = np.random.default_rng(seed)
+    A = torch.from_numpy(rng.standard_normal((200, d)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(200).astype(np.float32))
+    return core.compute_stats(A.to(device), b.to(device))
+
+
+def _rounded(stats, offer):
+    if offer != "bf16":
+        return stats
+    p = PackedStats.pack(stats)
+    return PackedStats(p.tri.to(torch.bfloat16).float(),
+                       p.moment.to(torch.bfloat16).float(), p.count,
+                       p.dim).unpack()
+
+
+@pytest.mark.parametrize("d", [64, 300])
+@pytest.mark.parametrize("offer", ["f32", "bf16"])
+@pytest.mark.parametrize("chunk", [None, 4096])
+def test_wire_stats_over_tcp_fuse_to_in_process_bits(card, d, offer, chunk):
+    """STATS frames (K1 on the client) over sockets into a pool on the card
+    fuse to the bits of in-process admission of the same statistics in the
+    same order, with and without chunking; the served solve is that pool's."""
+    from repro_torch.fed import transport
+
+    stats = [_wire_stats(d, i, card) for i in range(4)]
+    with server.EnginePool() as pool, transport.FrameServer(pool) as srv:
+        client = transport.ResilientClient(
+            lambda: transport.TCPChannel(srv.host, srv.port), tenant="t",
+            offers=(offer,), max_chunk_payload=chunk)
+        for i, s in enumerate(stats):
+            assert client.upload_stats(s, client_id=f"c{i}", moments=i == 1).ok
+        w = client.solve(0.01)
+        client.close()
+        assert srv.dispatcher.summary()["internal_errors"] == 0
+        with server.EnginePool() as ref:
+            ref.create_tenant("t", dim=d)
+            for i, s in enumerate(stats):
+                ref.ingest("t", _rounded(s, offer), client_id=f"c{i}")
+            for a, b in ((pool.stats("t").gram, ref.stats("t").gram),
+                         (pool.stats("t").moment, ref.stats("t").moment)):
+                assert a.is_cuda and torch.equal(a, b)
+            assert np.array_equal(w, ref.solve_lifted("t", 0.01).cpu().numpy())
+
+
+def test_wire_rows_and_control_on_card_match_cpu_path(card):
+    """STATS, single-row DELTA frames (K1 each; a rank-1 update of the
+    cached factor) and a CONTROL drop / restore (a blocked rank-160 down-
+    and update: P and K2) on the card match the same frames on the CPU:
+    integer rows keep the statistics bitwise, solves within 1e-5."""
+    from repro_torch.fed import transport, wire
+
+    rng = np.random.default_rng(4)
+    d = 160
+    frames = [wire.encode_frame(wire.StatsFrame.from_stats(
+        _wire_stats(d, 10 + i, "cpu"), client_id=f"c{i}")) for i in range(3)]
+    for k in range(16):
+        A = rng.integers(-3, 4, (1, d)).astype(np.float32)
+        b = rng.integers(-3, 4, 1).astype(np.float32)
+        frames.append(wire.encode_frame(wire.DeltaRowsFrame(A=A, b=b,
+                                                            client_id="s")))
+    frames += [wire.encode_frame(wire.ControlFrame("drop", "c1")),
+               wire.encode_frame(wire.ControlFrame("restore", "c1"))]
+    pools = {dev: server.EnginePool(device=dev) for dev in ("cuda", "cpu")}
+    for dev, pool in pools.items():
+        session = transport.WireDispatcher(pool).session()
+        session.handle(wire.encode_frame(wire.Hello("t")))
+        pool.create_tenant("t", dim=d, max_update_rank=2 * d)
+        for raw in frames[:3]:
+            assert wire.decode_frame(session.handle(raw)).ok
+        pool.solve("t", 0.01)
+        if dev == "cuda":
+            before = gram.launch_counts()
+        for raw in frames[3:]:
+            assert wire.decode_frame(session.handle(raw)).ok
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            after = gram.launch_counts()
+    assert after["gram_moment"] == before["gram_moment"] + 16
+    assert after["panel_transform"] > before["panel_transform"]
+    assert after["gemm_nt"] > before["gemm_nt"]
+    gpu, cpu = pools["cuda"], pools["cpu"]
+    assert torch.equal(gpu.stats("t").gram.cpu(), cpu.stats("t").gram)
+    assert gpu.get("t").incremental_updates == cpu.get("t").incremental_updates
+    assert _rel(gpu.solve("t", 0.01), cpu.solve("t", 0.01)) <= 1e-5
+    assert gpu.ledger() == cpu.ledger()
+    for p in pools.values():
+        p.close()
+
+
+@pytest.mark.parametrize("kind", ["sketch", "rff"])
+def test_wire_feature_frames_on_card(card, kind):
+    """PROJ / RFF frames (K3 / K4 on the client) admit into a pool on the
+    card under the map's hash and serve the in-process feature tenant's
+    weights."""
+    from repro_torch.fed import transport
+
+    d_orig, m, seed = (300, 64, 3) if kind == "sketch" else (24, 128, 4)
+    fm = core.FeatureMap(kind, seed, d_orig, m, 2.0 if kind == "rff" else 1.0)
+    rng = np.random.default_rng(5)
+    packed = [PackedStats.pack(fm.stats(
+        torch.from_numpy(rng.standard_normal((500, d_orig)).astype(np.float32)).to(card),
+        torch.from_numpy(rng.standard_normal(500).astype(np.float32)).to(card)))
+        for _ in range(3)]
+    with server.EnginePool() as pool:
+        c = transport.FrameClient(transport.LoopbackChannel(
+            transport.WireDispatcher(pool)))
+        c.hello("f")
+        for i, p in enumerate(packed):
+            if kind == "sketch":
+                c.upload_projected(p, d_orig=d_orig, seed=seed, rhash=fm.fhash,
+                                   client_id=f"p{i}")
+            else:
+                c.upload_rff(p, d_orig=d_orig, seed=seed, fhash=fm.fhash,
+                             lengthscale=2.0, client_id=f"p{i}")
+        w = c.solve(0.1)
+        with server.EnginePool() as ref:
+            ref.create_tenant("f", payloads=packed, features=fm)
+            assert torch.equal(pool.stats("f").gram, ref.stats("f").gram)
+            assert np.array_equal(w, ref.solve_lifted("f", 0.1).cpu().numpy())
+
+
+def test_wire_chaos_proxy_fuses_each_upload_once_on_card(card):
+    """Every fault at 10% between resilient clients and a server whose pool
+    is on the card: the fused statistics are the bits of a clean pool."""
+    from repro_torch.fed import chaos, transport
+
+    stats = [_wire_stats(96, 20 + i, card) for i in range(6)]
+    sched = chaos.ChaosSchedule(chaos.ChaosConfig.uniform(0.1, delay_s=0.001),
+                                seed=7)
+    with server.EnginePool() as pool, transport.FrameServer(pool) as srv, \
+            chaos.ChaosProxy(srv.host, srv.port, sched, timeout_s=10.0) as px:
+        for i, s in enumerate(stats):
+            client = transport.ResilientClient(
+                lambda: transport.TCPChannel(px.host, px.port, timeout_s=10.0),
+                tenant="t", retries=80, backoff_s=0.001, seed=i)
+            assert client.upload_stats(s, client_id=f"c{i}").ok
+            client.close()
+        with server.EnginePool() as clean:
+            clean.create_tenant("t", dim=96)
+            for i, s in enumerate(stats):
+                clean.ingest("t", s, client_id=f"c{i}")
+            assert torch.equal(pool.stats("t").gram, clean.stats("t").gram)
+            assert torch.equal(pool.stats("t").moment, clean.stats("t").moment)
+        assert pool.get("t").count == 6 * 200
+        assert sched.requests > 6

@@ -401,7 +401,6 @@ class TestAdmission:
     @pytest.mark.parametrize("case,item", [
         ("mesh", "item 15"), ("journal_dir", "item 12"),
         ("sharded", "item 15"), ("psd_guard", "item 14"),
-        ("admit_frame", "item 9"), ("record_wire_reply", "item 9"),
         ("snapshot", "item 12")])
     def test_not_ported_yet_raises_naming_its_item(self, case, item):
         with pytest.raises(NotImplementedError, match=item):
@@ -412,10 +411,6 @@ class TestAdmission:
                 pool.create_tenant("x", dim=D, placement="sharded")
             elif case == "psd_guard":
                 pool.create_tenant("x", stats=self._stats(), psd_guard=True)
-            elif case == "admit_frame":
-                pool.admit_frame("x", object())
-            elif case == "record_wire_reply":
-                pool.record_wire_reply("x", 16)
             else:
                 pool.snapshot()
 

@@ -1,22 +1,13 @@
 """The port's host threefry (``repro_torch.core.threefry``) against ``jax.random``.
 
-Keys, splits, raw bits and uniforms must be bitwise equal to what this
-JAX release draws (``jax_threefry_partitionable=True``); so must the RFF
-phases c. Gaussian draws go through erfinv, whose ``w = -log1p(-x^2)`` the
-port computes with numpy's float32 ``log1p``: XLA's CPU ``log1p`` differs in
-its last bit for about 16% of arguments, which moves about 1.3% of the
-normals, by at most 2.4e-7 where |z| < 1 and 4.8e-7 where |z| >= 1
-(measured over seeds 0, 7, 2^31-1 up to (4096, 1024)).
-
-In ulp that is at most 2, except for about 0.07% of entries at 3 ulp. These
-all have |u| in [0.617, 0.683] and |z| in [0.873, 1): just below 1, where
-float32 spacing halves, so the same absolute step of up to 1.8e-7 counts as
-3 ulp (1.5 ulp of 1.0). A correctly rounded ``log1p`` (float64, rounded to
-float32) gives the same 3-ulp entries, so only XLA's own ``log1p`` bits
-would remove them. So normals are held within 2 ulp wherever |z| is outside
-[0.75, 1) and within 3 ulp inside it, and at most 2% of entries may differ
-at all. R and W are the port's normals divided as the reference divides
-them (checked bitwise) and so within 3 ulp of the reference's.
+Keys, splits, raw bits, uniforms and normals must be bitwise equal to what
+this JAX release draws (``jax_threefry_partitionable=True``), and so must
+the sketch R, the RFF (W, c) and the feature maps' ``fhash``. Normals go
+through erfinv, whose ``w = -log1p(-x^2)`` the port computes as XLA's CPU
+backend does (Cephes' rational ``log1p`` below sqrt(2) - 1, Cephes' ``logf``
+of 1 + x above, every fused step rounded once). A normal is a function of
+one float32 uniform, so ``TestExhaustive`` checks ``log1p``, erfinv and the
+normal on all 2^23 uniforms the draw can produce.
 """
 import jax
 import jax.numpy as jnp
@@ -24,43 +15,23 @@ import numpy as np
 import pytest
 
 from repro import core as jcore
-from repro_torch.core import projection, rff, threefry
+from repro.core import features as jfeatures
+from repro_torch.core import features, projection, rff, threefry
 
 SEEDS = [0, 7, 2**31 - 1]
 SHAPES = [(1,), (7,), (3, 5), (33, 17), (4096, 1024)]
-MAX_ULP = 2
-MAX_ULP_BELOW_ONE = 3        # where 0.75 <= |z| < 1, see the module docstring
-MAX_DIFF_FRACTION = 0.02
+SKETCHES = [(0, 64, 16), (7, 100, 12), (2**31 - 1, 33, 33), (3, 4096, 1024)]
+RFFS = [(0, 24, 64, 1.5), (7, 3, 200, 1.0), (2**31 - 1, 128, 4096, 128 ** 0.5)]
 
 
 def _jkey(seed):
     return jax.random.PRNGKey(seed)
 
 
-def _assert_ulp_close(port, ref):
-    port, ref = np.asarray(port, np.float32), np.asarray(ref, np.float32)
-    assert port.shape == ref.shape and port.dtype == ref.dtype
-    diff = np.abs(port.astype(np.float64) - ref.astype(np.float64))
-    ulps = diff / np.spacing(np.abs(ref)).astype(np.float64)
-    below_one = (np.abs(ref) >= 0.75) & (np.abs(ref) < 1.0)
-    assert ulps[~below_one].max(initial=0.0) <= MAX_ULP, ulps[~below_one].max()
-    assert ulps[below_one].max(initial=0.0) <= MAX_ULP_BELOW_ONE, ulps.max()
-    assert (diff > 0).mean() <= MAX_DIFF_FRACTION, (diff > 0).mean()
-
-
-def _assert_map_close(port, ref, key, divisor):
-    """A map is a normal divided by a float32 constant, as the reference
-    divides it: bitwise so from the port's own normal; against the
-    reference's map the division's rounding moves the binade edges, so its
-    3-ulp entries are not confined as the normals' are."""
-    port, ref = np.asarray(port, np.float32), np.asarray(ref, np.float32)
-    z = threefry.normal(key, port.shape)
-    np.testing.assert_array_equal(port.view(np.uint32),
-                                  (z / np.float32(divisor)).view(np.uint32))
-    diff = np.abs(port.astype(np.float64) - ref.astype(np.float64))
-    ulps = diff / np.spacing(np.abs(ref)).astype(np.float64)
-    assert ulps.max() <= MAX_ULP_BELOW_ONE, ulps.max()
-    assert (diff > 0).mean() <= MAX_DIFF_FRACTION, (diff > 0).mean()
+def _assert_bitwise(port, ref):
+    port, ref = np.asarray(port), np.asarray(ref)
+    assert port.shape == ref.shape and port.dtype == ref.dtype == np.float32
+    np.testing.assert_array_equal(port.view(np.uint32), ref.view(np.uint32))
 
 
 class TestKeysAndBits:
@@ -111,8 +82,9 @@ class TestFloats:
     @pytest.mark.parametrize("seed", SEEDS)
     @pytest.mark.parametrize("shape", SHAPES)
     def test_normal_within_ulp(self, seed, shape):
-        _assert_ulp_close(threefry.normal(threefry.key(seed), shape),
-                          jax.random.normal(_jkey(seed), shape))
+        """Within 0 ulp: bitwise."""
+        _assert_bitwise(threefry.normal(threefry.key(seed), shape),
+                        jax.random.normal(_jkey(seed), shape))
 
     def test_erfinv_edges(self):
         x = np.array([-1.0, 1.0, 0.0], np.float32)
@@ -120,26 +92,80 @@ class TestFloats:
         np.testing.assert_array_equal(out, np.asarray(jax.lax.erf_inv(jnp.asarray(x))))
 
 
-class TestMaps:
-    @pytest.mark.parametrize("seed,d,m", [(0, 64, 16), (7, 100, 12),
-                                          (2**31 - 1, 33, 33), (3, 4096, 1024)])
-    def test_make_projection_within_ulp(self, seed, d, m):
-        R = projection.make_projection(threefry.key(seed), d, m, device="cpu")
-        _assert_map_close(R.numpy(), jcore.make_projection(_jkey(seed), d, m),
-                          threefry.key(seed), np.sqrt(np.float32(m)))
+class TestExhaustive:
+    """Every float32 uniform ``normal`` can draw: the 2^23 mantissas of
+    ``uniform(k, shape, nextafter(-1, 0), 1)``, in four slices."""
 
-    @pytest.mark.parametrize("seed,d,D,ls", [(0, 24, 64, 1.5), (7, 3, 200, 1.0),
-                                             (2**31 - 1, 128, 4096, 128 ** 0.5)])
+    @staticmethod
+    def _uniforms(part, parts=4):
+        n = (1 << 23) // parts
+        mant = np.arange(part * n, (part + 1) * n, dtype=np.uint32)
+        floats = (mant | np.float32(1.0).view(np.uint32)).view(np.float32) - \
+            np.float32(1.0)
+        lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+        u = np.maximum(lo, threefry._fma32(floats, np.float32(1.0) - lo, lo))
+        return u.astype(np.float32)
+
+    @pytest.mark.parametrize("part", range(4))
+    def test_log1p_erfinv_normal_bitwise(self, part):
+        u = self._uniforms(part)
+        x = threefry._mul32(u, -u)
+        _assert_bitwise(threefry._log1p32(x), jax.jit(jnp.log1p)(x))
+        z = threefry.erfinv(u)
+        _assert_bitwise(z, jax.jit(jax.lax.erf_inv)(u))
+        _assert_bitwise((np.float32(np.sqrt(2.0)) * z).astype(np.float32),
+                        jax.jit(lambda v: np.float32(np.sqrt(2.0))
+                                * jax.lax.erf_inv(v))(u))
+
+    def test_uniforms_are_the_draws(self):
+        """The slices hold what ``uniform`` draws: a draw's values are among
+        them, the lower end of the range is, and nothing reaches 1."""
+        u = np.concatenate([self._uniforms(p) for p in range(4)])
+        drawn = threefry.uniform(threefry.key(5), (4096,),
+                                 np.nextafter(np.float32(-1.0), np.float32(0.0)))
+        assert np.isin(drawn, u).all()
+        assert u.min() == np.nextafter(np.float32(-1.0), np.float32(0.0))
+        assert u.max() < np.float32(1.0)
+
+    def test_log_edges(self):
+        v = np.array([0.0, -0.0, -1.0, np.inf, np.nan, 1.0, 2.0**-126, 1e-40,
+                      3.0e38], np.float32)
+        np.testing.assert_array_equal(threefry._log32(v),
+                                      np.asarray(jax.jit(jnp.log)(v)))
+
+
+class TestMaps:
+    @pytest.mark.parametrize("seed,d,m", SKETCHES)
+    def test_make_projection_within_ulp(self, seed, d, m):
+        """Within 0 ulp: bitwise."""
+        R = projection.make_projection(threefry.key(seed), d, m, device="cpu")
+        _assert_bitwise(R.numpy(), jcore.make_projection(_jkey(seed), d, m))
+
+    @pytest.mark.parametrize("seed,d,D,ls", RFFS)
     def test_make_rff_c_bitwise_W_within_ulp(self, seed, d, D, ls):
+        """c and W both bitwise (W within 0 ulp)."""
         ft = rff.make_rff(threefry.key(seed), d, D, lengthscale=ls, device="cpu")
         fj = jcore.make_rff(_jkey(seed), d, D, lengthscale=ls)
-        np.testing.assert_array_equal(ft.c.numpy().view(np.uint32),
-                                      np.asarray(fj.c).view(np.uint32))
-        _assert_map_close(ft.W.numpy(), fj.W, threefry.split(threefry.key(seed))[0],
-                          ls)
+        _assert_bitwise(ft.c.numpy(), fj.c)
+        _assert_bitwise(ft.W.numpy(), fj.W)
 
     def test_jax_key_is_accepted_as_numpy(self):
         jk = jax.random.split(_jkey(11))[1]
         R = projection.make_projection(np.asarray(jk), 20, 5, device="cpu")
-        _assert_map_close(R.numpy(), jcore.make_projection(jk, 20, 5),
-                          np.asarray(jk), np.sqrt(np.float32(5)))
+        _assert_bitwise(R.numpy(), jcore.make_projection(jk, 20, 5))
+
+
+class TestFeatureHash:
+    """A map's ``fhash`` (what PROJ and RFF frames carry) is the reference's
+    for the same seed, so either package's frames admit into the other's
+    tenant."""
+
+    @pytest.mark.parametrize("seed,d,m", SKETCHES)
+    def test_sketch_fhash(self, seed, d, m):
+        assert (features.FeatureMap("sketch", seed, d, m).fhash
+                == jfeatures.FeatureMap("sketch", seed, d, m).fhash)
+
+    @pytest.mark.parametrize("seed,d,D,ls", RFFS)
+    def test_rff_fhash(self, seed, d, D, ls):
+        assert (features.FeatureMap("rff", seed, d, D, ls).fhash
+                == jfeatures.FeatureMap("rff", seed, d, D, ls).fhash)
