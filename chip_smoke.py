@@ -40,6 +40,16 @@ kernels' launch counts set to 0 just before it and read just after:
   8 RFF (K4) frames; the same uploads through a ``ChaosProxy`` at rate 0.1,
   fused to a clean pool's bits; 64 SolveFrame round trips without and with
   the ``SolveBatcher`` window;
+- the server and its clients as processes on the card, at the same width:
+  ``python -m repro_torch.launch.serve --listen --journal-dir`` and 9
+  ``python -m repro_torch.launch.client`` processes (8 at once, one of them
+  bf16 on a tenant of its own, one with moments, one in 4 MiB chunks; then
+  a delta-row client that solves), held to a float64 solve of the clients'
+  rows; then a journaled server SIGKILLed with half a frame in flight and
+  restarted on its journal, whose weights must equal bitwise those of an
+  in-process pool that admitted the same frames and never crashed, with no
+  upload admitted after the restart; and a SIGTERMed server whose journal
+  replays no frame;
 - gemma3-27b serving at full width (d_model 5376, 32 heads over 16 KV heads,
   d_ff 21504, vocab 262144, bf16), depth cut to 2 stages + the 2-layer SWA
   tail (14 layers: 12 sliding-window, 2 full), random weights from a seed:
@@ -59,6 +69,8 @@ import dataclasses
 import gc
 import json
 import os
+import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -108,6 +120,18 @@ WIRE_BF16_CLIENT, WIRE_MOMENTS_CLIENT, WIRE_CHUNK_CLIENT = 6, 3, 7
 WIRE_CHUNK, WIRE_STREAM = 4 << 20, 256
 WIRE_CHAOS_RATE, WIRE_CHAOS_SEED = 0.1, 7
 WIRE_SOLVES, WIRE_SOLVE_THREADS = 64, 8
+
+# The server as a process: `python -m repro_torch.launch.serve --listen
+# --journal-dir` and `python -m repro_torch.launch.client` processes on the
+# card. 9 clients of the shared dataset (seed PROC_SEED): 8 at once on
+# tenant "ridge" (client 3 with moments, client 5 in 4 MiB chunks) and
+# client 6 bf16 on its own tenant "lowp", then client 8 streams its rows as
+# 4 DELTA frames and solves. Then a server is SIGKILLed with half a frame in
+# flight and restarted on its journal, and another one is SIGTERMed.
+PROC_CLIENTS, PROC_SEED = 9, 0
+PROC_MOMENTS_CLIENT, PROC_CHUNK_CLIENT, PROC_BF16_CLIENT = 3, 5, 6
+PROC_DELTA_BATCHES, PROC_CHUNK = 4, 4 << 20
+PROC_TIMEOUT = 300                  # every subprocess wait, seconds
 
 # gemma3-27b serving: the registry's config with 2 stages instead of 10
 # (14 layers instead of 62; 17.2 GB of bf16 weights), batch 4 x 4096-token
@@ -1726,6 +1750,338 @@ def wire_serving_phase(ds) -> dict:
             "seconds": time.perf_counter() - t_all}
 
 
+# -- phase 7: the server and its clients as processes on the card ------------
+
+class Proc:
+    """A child process whose stdout lines a thread collects, so that no
+    wait on it can block without a bound; stderr goes to a file."""
+
+    def __init__(self, args: list, log: str):
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        self.log = log
+        self._err = open(log, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-m", *map(str, args)],
+                                     stdout=subprocess.PIPE, stderr=self._err,
+                                     text=True, env=env, cwd=ROOT)
+        self.lines: list[str] = []
+        self._seen = threading.Condition()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            with self._seen:
+                self.lines.append(line)
+                self._seen.notify_all()
+        with self._seen:
+            self._seen.notify_all()
+
+    def wait_line(self, pattern: str, timeout: float = PROC_TIMEOUT):
+        """The first stdout line matching ``pattern``, and the seconds from
+        the spawn to it; fails at ``timeout`` or when the process ends."""
+        import re
+
+        deadline = time.monotonic() + timeout
+        with self._seen:
+            while True:
+                for line in self.lines:
+                    m = re.search(pattern, line)
+                    if m:
+                        return m, time.perf_counter() - self.t0
+                left = deadline - time.monotonic()
+                check(left > 0 and (self.proc.poll() is None
+                                    or self._reader.is_alive()),
+                      f"{pattern!r} not printed: {self.tail()}")
+                self._seen.wait(min(left, 1.0))
+
+    def finish(self, timeout: float = PROC_TIMEOUT) -> str:
+        """Wait for the exit, which must be 0; the whole stdout."""
+        try:
+            self.proc.wait(timeout=timeout)
+            self.wall = time.perf_counter() - self.t0
+        finally:
+            self.kill()
+        self._reader.join(timeout=30)
+        check(self.proc.returncode == 0,
+              f"exit {self.proc.returncode}: {self.tail()}")
+        return "".join(self.lines)
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self._err.close()
+
+    def tail(self) -> str:
+        with open(self.log) as f:
+            err = f.read()[-3000:]
+        return "".join(self.lines)[-2000:] + err
+
+
+def serve_proc(jdir: str, log: str, *extra) -> Proc:
+    return Proc(["repro_torch.launch.serve", "--mode", "fusion", "--listen", 0,
+                 "--journal-dir", jdir, "--sigma", SIGMA, *extra], log)
+
+
+def serve_report(server: Proc) -> dict:
+    import re
+
+    out = server.finish()
+    m = re.search(r"\[serve_wire\] report (.*)", out)
+    check(m is not None, f"no report line: {server.tail()}")
+    return json.loads(m.group(1))
+
+
+def fs_type(path: str) -> str:
+    """The type and mount point of the filesystem that holds ``path``."""
+    path, best, kind = os.path.realpath(path), "", "unknown"
+    with open("/proc/self/mounts") as f:
+        for line in f:
+            mnt, typ = line.split()[1:3]
+            if ((path == mnt or path.startswith(mnt.rstrip("/") + "/"))
+                    and len(mnt) >= len(best)):
+                best, kind = mnt, typ
+    return f"{kind} on {best}"
+
+
+def du(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def send_frames(port: int, frames) -> None:
+    """One connection a frame, each answered with an ACK that is ok."""
+    from repro_torch.fed import transport, wire
+
+    for tenant, dtype, raw in frames:
+        with transport.TCPChannel("127.0.0.1", port, timeout_s=PROC_TIMEOUT) as ch:
+            check(transport.FrameClient(ch).hello(tenant, (dtype,)) == dtype,
+                  "negotiation")
+            ack = wire.decode_frame(ch.request(raw))
+            check(isinstance(ack, wire.AckFrame) and ack.ok, f"upload: {ack}")
+
+
+def weights64(w: torch.Tensor) -> list:
+    """What the report holds: the served weights as float64 numbers."""
+    return w.cpu().numpy().astype(np.float64).tolist()
+
+
+def process_serving_phase() -> dict:
+    import shutil
+
+    from repro_torch import data
+    from repro_torch.core import compute_stats
+    from repro_torch.fed import PackedStats, wire
+    from repro_torch.server import EnginePool
+
+    t_all = time.perf_counter()
+    steps, errs, report = {}, {}, {"card": smi()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    work = os.path.join(ROOT, "build", "process_serving")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    j1, j2, j2ref, j3 = (os.path.join(work, n) for n in ("j1", "j2", "j2ref", "j3"))
+    report["journal_fs"] = fs_type(work)
+    procs: list[Proc] = []
+    try:
+        # the clients' rows, drawn here by the generator they use (the
+        # card's: the CPU's would give other numbers)
+        ds = data.synthetic.generate(PROC_SEED, num_clients=PROC_CLIENTS,
+                                     samples_per_client=ROWS, dim=DIM)
+        ridge = [k for k in range(PROC_CLIENTS) if k != PROC_BF16_CLIENT]
+
+        # 1. federation over processes: server A, 8 clients at once, then
+        #    the delta-row client that solves
+        a = serve_proc(j1, os.path.join(work, "a.err"), "--snapshot-every", 4,
+                       "--expect-uploads", 9, "--serve-timeout", PROC_TIMEOUT)
+        procs.append(a)
+        m, steps["server_cold_start_to_listening_s"] = a.wait_line(
+            r"listening on 127\.0\.0\.1:(\d+)")
+        port = int(m.group(1))
+
+        def client(k, *extra):
+            return Proc(["repro_torch.launch.client", "--connect",
+                         f"127.0.0.1:{port}", "--seed", PROC_SEED,
+                         "--num-clients", PROC_CLIENTS, "--client-index", k,
+                         "--samples", ROWS, "--dim", DIM, *extra],
+                        os.path.join(work, f"client{k}.err"))
+
+        def flags(k):
+            if k == PROC_BF16_CLIENT:
+                return ["--tenant", "lowp", "--offer", "bf16"]
+            out = ["--tenant", "ridge"]
+            if k == PROC_MOMENTS_CLIENT:
+                out.append("--moments")
+            if k == PROC_CHUNK_CLIENT:
+                out += ["--max-chunk-payload", PROC_CHUNK]
+            return out
+
+        t0 = time.perf_counter()
+        wave = [client(k, *flags(k)) for k in range(PROC_CLIENTS - 1)]
+        procs += wave
+        reps = [json.loads(c.finish().strip().splitlines()[-1]) for c in wave]
+        steps["eight_clients_at_once_s"] = time.perf_counter() - t0
+        last = client(PROC_CLIENTS - 1, "--tenant", "ridge", "--delta-batches",
+                      PROC_DELTA_BATCHES, "--solve", SIGMA)
+        procs.append(last)
+        t0 = time.perf_counter()
+        reps.append(json.loads(last.finish().strip().splitlines()[-1]))
+        steps["delta_client_s"] = time.perf_counter() - t0
+        rep_a = serve_report(a)
+        report["clients"] = [{"index": k, "wall_s": c.wall, **r["seconds"],
+                              "negotiated_dtype": r["negotiated_dtype"],
+                              "bytes_uploaded": r["bytes_uploaded"],
+                              "k1_launches": r["launches"]["gram_moment"]}
+                             for k, (r, c) in enumerate(zip(reps, wave + [last]))]
+        for k, r in enumerate(reps):
+            check(r["ok"] and r["negotiated_dtype"]
+                  == ("bf16" if k == PROC_BF16_CLIENT else "f32"),
+                  f"client {k}: {r['negotiated_dtype']}")
+            check(r["launches"]["gram_moment"]
+                  == (0 if k == PROC_CLIENTS - 1 else 1),
+                  f"client {k} ran K1 {r['launches']['gram_moment']} times")
+        check(rep_a["transport"]["uploads_admitted"]
+              == PROC_CLIENTS - 1 + PROC_DELTA_BATCHES, f"A: {rep_a['transport']}")
+        check(rep_a["transport"]["frames_reassembled"] == 1, "chunked client")
+        check(rep_a["transport"]["internal_errors"] == 0, "A: internal errors")
+        check(rep_a["ledger"]["wire_upload_bytes"]
+              == sum(r["bytes_uploaded"] for r in reps), "A: ledger")
+        check(reps[-1]["solve"]["weights"] == rep_a["weights"]["ridge"],
+              "the delta client's weights are not the report's")
+        stats64 = [compute_stats(A.double(), b.double()) for A, b in ds.clients]
+        fused = stats64[ridge[0]]
+        for k in ridge[1:]:
+            fused = fused + stats64[k]
+        w_ridge = torch.tensor(rep_a["weights"]["ridge"], device="cuda")
+        errs["ridge_vs_f64"] = rel_err(w_ridge, f64_solve(fused, SIGMA))
+        s6 = compute_stats(*ds.clients[PROC_BF16_CLIENT])   # K1, as client 6
+        p6 = PackedStats.pack(s6)
+        s6 = PackedStats(p6.tri.to(torch.bfloat16).float(),
+                         p6.moment.to(torch.bfloat16).float(), p6.count,
+                         p6.dim).unpack()
+        errs["lowp_vs_f64_of_bf16_stats"] = rel_err(
+            torch.tensor(rep_a["weights"]["lowp"], device="cuda"),
+            f64_solve(s6, SIGMA))
+        check(errs["ridge_vs_f64"] <= 1e-4 and errs["lowp_vs_f64_of_bf16_stats"] <= 1e-4,
+              f"process federation: {errs}")
+        report["server_a"] = {k: rep_a["pool"][k] for k in (
+            "snapshots_taken", "journaled", "tenants")}
+        report["server_a"]["transport"] = rep_a["transport"]
+        report["server_a"]["wire_upload_bytes"] = rep_a["ledger"]["wire_upload_bytes"]
+        del stats64, fused, w_ridge, s6, p6
+
+        # 2. SIGKILL and restart: server B takes the 8 clients' STATS frames
+        #    one at a time (encoded here from the same statistics), half of
+        #    one more frame is in flight, B is killed; C restarts on B's
+        #    journal. The reference: an in-process pool on the card, fed the
+        #    same frames in the same order, never killed (journaled on a
+        #    directory of its own, which times the journal and snapshots)
+        frames = []
+        for k in range(CLIENTS):
+            s = compute_stats(*ds.clients[k])
+            bf16 = k == PROC_BF16_CLIENT
+            frames.append(("lowp" if bf16 else "ridge", "bf16" if bf16 else "f32",
+                           wire.encode_frame(wire.StatsFrame.from_stats(
+                               s, client_id=f"client{k}",
+                               moments=k == PROC_MOMENTS_CLIENT),
+                               dtype="bf16" if bf16 else "f32")))
+        del ds, s
+        b_srv = serve_proc(j2, os.path.join(work, "b.err"), "--snapshot-every", 3,
+                           "--expect-uploads", 999, "--serve-timeout", PROC_TIMEOUT)
+        procs.append(b_srv)
+        m, _ = b_srv.wait_line(r"listening on 127\.0\.0\.1:(\d+)")
+        port_b = int(m.group(1))
+        t0 = time.perf_counter()
+        send_frames(port_b, frames)
+        steps["server_b_eight_stats_frames_s"] = time.perf_counter() - t0
+        torn = socket.create_connection(("127.0.0.1", port_b), timeout=30)
+        torn.sendall(frames[0][2][:len(frames[0][2]) // 2])
+        b_srv.proc.kill()                                   # SIGKILL
+        b_srv.proc.wait(timeout=60)
+        torn.close()
+        report["server_b_journal_bytes"] = du(j2)
+        sent = sum(len(raw) for _, _, raw in frames)
+
+        ref = EnginePool(journal_dir=j2ref, snapshot_every=3)
+        admit_s, append_s, commit_s = [], [], []
+        ref._journal.append = timed(ref._journal.append, append_s)
+        ref._store.commit_snapshot = timed(ref._store.commit_snapshot, commit_s)
+        for tenant, _, raw in frames:
+            frame = wire.decode_frame(raw)
+            t0 = time.perf_counter()
+            check(ref.admit_frame(tenant, frame, encoded_len=len(raw),
+                                  raw=raw).ok, "ref admit")
+            torch.cuda.synchronize()
+            admit_s.append(time.perf_counter() - t0)
+        del frame
+        want = {t: weights64(ref.solve_lifted(t, SIGMA)) for t in ref.tenant_names}
+        report["journaled_stats_admission"] = {
+            "frame_bytes": len(frames[0][2]), "admit_s": admit_s,
+            "append_flush_fsync_s": append_s,
+            "admit_median_s": float(np.median(admit_s)),
+            "append_median_s": float(np.median(append_s)),
+            "snapshot_commit_s": commit_s,
+            "snapshots": ref.snapshots_taken,
+            "snapshot_dir_bytes": du(os.path.join(j2ref, "snapshots"))}
+        del ref._store.commit_snapshot, ref._journal.append   # the timing hooks
+        ref.close()
+        del ref
+
+        c_srv = serve_proc(j2, os.path.join(work, "c.err"), "--serve-timeout", 2)
+        procs.append(c_srv)
+        _, to_recovered = c_srv.wait_line(r"\[serve_wire\] recovered")
+        _, steps["restart_to_listening_s"] = c_srv.wait_line(r"listening on")
+        rep_c = serve_report(c_srv)
+        report["restart"] = {
+            "recovered_line_s": to_recovered,
+            "restored_tenants": rep_c["pool"]["restored_tenants"],
+            "replayed_frames": rep_c["pool"]["replayed_frames"],
+            "uploads_admitted": rep_c["transport"]["uploads_admitted"],
+            "connections_total": rep_c["connections_total"],
+            "wire_upload_bytes": rep_c["ledger"]["wire_upload_bytes"],
+            "bytes_sent": sent}
+        check(rep_c["transport"]["uploads_admitted"] == 0
+              and rep_c["connections_total"] == 0, f"restart: {report['restart']}")
+        check(rep_c["ledger"]["wire_upload_bytes"] == sent,
+              f"the restarted ledger lost bytes: {report['restart']}")
+        check(sorted(rep_c["weights"]) == sorted(want), "restored tenants")
+        for t, w in want.items():
+            check(rep_c["weights"][t] == w, f"tenant {t}: restored weights "
+                  "differ from the uncrashed pool's")
+        report["restart"]["weights_bitwise"] = sorted(want)
+
+        # 3. SIGTERM: server D takes one upload; its final snapshot leaves a
+        #    journal that replays nothing
+        d_srv = serve_proc(j3, os.path.join(work, "d.err"), "--expect-uploads",
+                           999, "--serve-timeout", PROC_TIMEOUT)
+        procs.append(d_srv)
+        m, _ = d_srv.wait_line(r"listening on 127\.0\.0\.1:(\d+)")
+        send_frames(int(m.group(1)), frames[:1])
+        d_srv.proc.send_signal(signal.SIGTERM)
+        rep_d = serve_report(d_srv)
+        check(rep_d["sigterm"] is True, "SIGTERM was not seen")
+        pool = EnginePool(journal_dir=j3)
+        report["sigterm"] = {"restored_tenants": pool.restored_tenants,
+                             "replayed_frames": pool.replayed_frames}
+        check(pool.restored_tenants == 1 and pool.replayed_frames == 0,
+              f"after SIGTERM: {report['sigterm']}")
+        pool.close()
+        del pool
+    finally:
+        for p in procs:
+            p.kill()
+    gc.collect()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return {"phase": "process_serving", "dim": DIM, "clients": PROC_CLIENTS,
+            "rows_per_client": ROWS, "errors": errs, "report": report,
+            "steps_s": steps, "peak_mem_gb_this_process": peak,
+            "seconds": time.perf_counter() - t_all}
+
+
 def kernel_sequence(fn) -> list[str]:
     """Names of the device kernels that ``fn`` launches, in the order the
     card ran them (``torch.profiler``'s device events)."""
@@ -1922,6 +2278,7 @@ def main() -> int:
     wire_line = wire_serving_phase(ds)
     emit(wire_line)
     del ds
+    emit(process_serving_phase())
     serving = model_serving_phase()
     emit(serving)
     for kname, row in rows.items():

@@ -22,4 +22,4 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["core", "kernels", "server", "fed", "data", "convert"]
+__all__ = ["core", "kernels", "server", "fed", "data", "checkpoint", "convert"]

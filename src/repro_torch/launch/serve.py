@@ -13,6 +13,16 @@ Modes:
     with no reads while the pool's background flusher drains them (P and
     K2 on every flush of rank 8 and up). Every tenant's served weights are
     checked against a float64 ``core.fusion`` solve over its own rows.
+  * ``fusion --listen PORT`` — the same pool behind the wire (the
+    reference's ``serve_wire``): a ``fed.transport.FrameServer`` accepts
+    client processes (``launch/client.py``) speaking ``fed.wire`` — STATS,
+    PROJ, RFF and DELTA uploads, CONTROL drop / restore, SOLVE queries —
+    and the final report carries the ledger of the encoded frame lengths
+    and every tenant's weights. ``--journal-dir`` makes the server
+    crash-safe: every admitted frame is journaled before it fuses, and a
+    restart on the same directory restores the state bitwise with no
+    client re-uploading; SIGTERM commits a final snapshot before exit.
+    ``--chaos-*`` puts a seeded fault-injecting proxy in front.
 
 Run as
 
@@ -20,19 +30,22 @@ Run as
         --arch gemma3-27b [--no-reduced] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --mode fusion \\
         [--dim 128 --tenants 8 --stream-deltas 64] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode fusion \\
+        --listen 0 --expect-uploads 3 [--journal-dir DIR] [--device cpu]
 
-Not ported yet, and rejected by the argument parser: the sharded and auto
-placements (``--sharded-tenants``, ``--auto-tenants``; ROADMAP queue 1,
-item 15), the wire server's flags and its client CLI (``--listen``,
-``--expect-uploads``, ``--serve-timeout``, ``--solve-window``,
-``--max-chunk-payload``) and the chaos proxy's flags (``--chaos-*``; both
-item 10: ``fed.wire``, ``fed.transport`` and ``fed.chaos`` exist, only the
-CLI is missing), durability (``--journal-dir``; item 12) and the relay
-tier (``--mode relay``; item 13).
+Not ported yet, and rejected by the argument parser naming their ROADMAP
+item: the sharded and auto placements (``--sharded-tenants``,
+``--auto-tenants``; queue 1, item 15) and the relay tier (``--mode relay``,
+``--upstream``, ``--relay-id``, ``--forward-*``, ``--relay-state-dir`` and
+the server's ``--max-chunk-payload``, which only the relay's forwarder
+reads; item 13). ``--compilation-cache`` is not defined: it names a JAX
+compilation cache.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import threading
 import time
 from typing import Sequence
 
@@ -371,9 +384,170 @@ def _print_fusion(res: dict) -> None:
           f"factor_evictions={res['pool']['factor_evictions']}")
 
 
-def main() -> None:
+def serve_wire(*, port: int = 0, expect_uploads: int = 0,
+               timeout_s: float = 30.0, sigma: float = 0.1,
+               inference: bool = False, ci_level: float = 0.95,
+               coalesce_rank: int = 32, flush_staleness_s: float = 0.05,
+               max_warm: int | None = None,
+               solve_window_s: float | None = None,
+               journal_dir: str | None = None,
+               snapshot_every: int | None = None,
+               journal_fsync: bool = True,
+               chaos=None, chaos_seed: int = 0, device="cuda") -> dict:
+    """Run the federation server: an ``EnginePool`` on ``device`` behind a
+    ``fed.transport.FrameServer`` speaking the ``fed.wire`` protocol.
+
+    Tenants are created lazily, dense, by the first upload frame that names
+    them (the HELLO's tenant binding); clients negotiate their wire dtype
+    per session, in the order the pool's float32 container prefers. The
+    loop exits once ``expect_uploads`` upload frames were admitted AND every
+    connection has closed (so a SOLVE after the last upload still gets its
+    WEIGHTS frame), at ``timeout_s``, or on SIGTERM.
+    The report carries the pool ledger of the encoded frame lengths and a
+    final solve per tenant at ``sigma``.
+
+    ``solve_window_s`` puts a ``server.batch.SolveBatcher`` window on the
+    SOLVE path. ``journal_dir`` makes the pool crash-safe (``EnginePool``):
+    every admitted frame is journaled before it fuses, the pool snapshots
+    every ``snapshot_every`` appends, a restart on the same directory
+    restores the state bitwise with no client re-uploading, and SIGTERM
+    leads to a final snapshot before exit (so a clean shutdown replays
+    nothing). ``chaos`` (a ``fed.chaos.ChaosConfig``) puts a seeded
+    fault-injecting TCP proxy in front of the server; clients connect to the
+    printed proxy port.
+
+    The "listening" and "recovered" lines and the final ``[serve_wire]
+    report {json}`` line are flushed at once: a parent process reads them
+    from a pipe.
+    """
+    import signal
+
+    from repro_torch.fed import transport
+    from repro_torch.server import CoalescerPolicy, EnginePool
+
+    policy = CoalescerPolicy(max_rank=coalesce_rank,
+                             max_staleness_s=flush_staleness_s)
+    pool = EnginePool(max_warm=max_warm, default_coalesce=policy,
+                      journal_dir=journal_dir, snapshot_every=snapshot_every,
+                      journal_fsync=journal_fsync, device=device)
+    if pool.replayed_frames or pool.restored_tenants:
+        print(f"[serve_wire] recovered {pool.restored_tenants} tenants from "
+              f"snapshot + {pool.replayed_frames} replayed journal frames",
+              flush=True)
+    term = threading.Event()
+    installed = False
+    try:
+        # SIGTERM only sets a flag; the final snapshot runs on the main
+        # thread in pool.close() (the context manager's exit), which is
+        # idempotent and safe against the flusher.
+        signal.signal(signal.SIGTERM, lambda signum, frame: term.set())
+        installed = True
+    except ValueError:        # not the main thread (an in-process caller)
+        pass
+    proxy = None
+    try:
+        with pool, transport.FrameServer(pool, port=port,
+                                         solve_window_s=solve_window_s) as srv:
+            if chaos is not None:
+                from repro_torch.fed.chaos import ChaosProxy, ChaosSchedule
+
+                proxy = ChaosProxy(srv.host, srv.port,
+                                   ChaosSchedule(chaos, chaos_seed)).start()
+                print(f"[serve_wire] chaos proxy on "
+                      f"{proxy.host}:{proxy.port} (seed={chaos_seed})",
+                      flush=True)
+            print(f"[serve_wire] listening on {srv.host}:{srv.port}",
+                  flush=True)
+            deadline = time.monotonic() + timeout_s
+            while time.monotonic() < deadline and not term.is_set():
+                if (expect_uploads
+                        and srv.dispatcher.uploads_admitted >= expect_uploads
+                        and srv.active_connections == 0):
+                    break
+                time.sleep(0.02)
+            solves = {}
+            tenant_reports = {}
+            for name in pool.tenant_names:
+                # solve_report rides solve_lifted, which is what SOLVE frames
+                # serve: the report's weights and the clients' downloads
+                # cannot diverge
+                rep = pool.solve_report(name, sigma, level=ci_level)
+                w = rep.pop("weights")
+                solves[name] = w.cpu().numpy().astype(np.float64).tolist()
+                for key in ("stderr", "ci", "pi"):
+                    if rep.get(key) is not None:
+                        rep[key] = np.asarray(rep[key], np.float64).tolist()
+                tenant_reports[name] = rep
+            ledger = pool.ledger()
+            report = {
+                "port": srv.port,
+                "proxy_port": proxy.port if proxy is not None else None,
+                "sigterm": term.is_set(),
+                "transport": srv.dispatcher.summary(),
+                "connections_total": srv.connections_total,
+                "tenants": list(pool.tenant_names),
+                "sigma": sigma,
+                "weights": solves,
+                "tenant_reports": tenant_reports,
+                "ledger": ledger,
+                "pool": pool.summary(),
+            }
+            if proxy is not None:
+                report["chaos"] = proxy.schedule.summary()
+    finally:
+        if proxy is not None:
+            proxy.stop()
+        if installed:
+            signal.signal(signal.SIGTERM, signal.SIG_DFL)
+    tr = report["transport"]
+    print(f"[serve_wire] {tr['frames_handled']} frames "
+          f"({tr['uploads_admitted']} uploads admitted, "
+          f"{tr['frames_rejected']} rejected) over "
+          f"{report['connections_total']} connections")
+    print(f"[serve_wire] ledger: {ledger['wire_upload_bytes']} upload bytes "
+          f"+ {ledger['wire_download_bytes']} download bytes on the wire "
+          f"across {len(report['tenants'])} tenants")
+    for name, w in solves.items():
+        print(f"[serve_wire] tenant {name}: |w({sigma})| = "
+              f"{float(np.linalg.norm(w)):.6f}")
+    if inference:
+        for name, rep in report["tenant_reports"].items():
+            inf = rep.get("inference")
+            if inf is None:
+                print(f"[serve_wire] tenant {name}: inference unavailable "
+                      f"(moments-less uploads — point weights only)")
+            else:
+                print(f"[serve_wire] tenant {name}: n={inf['n']} "
+                      f"dof={inf['dof']:.2f} sigma2={inf['sigma2']:.6g} "
+                      f"max stderr={max(rep['stderr']):.6g} "
+                      f"({int(round(inf['level'] * 100))}% CI served)")
+    print(f"[serve_wire] report {json.dumps(report)}", flush=True)
+    return report
+
+
+class _NotPorted(argparse.Action):
+    """A reference flag whose path is not ported yet: using it is a parser
+    error that names the ROADMAP item it waits for."""
+
+    def __init__(self, option_strings, dest, *, item: str, **kw):
+        super().__init__(option_strings, dest, nargs="?",
+                         help=f"not ported yet ({item})")
+        self.item = item
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        parser.error(f"{option_string} is not ported yet: it waits for "
+                     f"ROADMAP queue 1, {self.item}")
+
+
+_RELAY = "item 13 (the relay tier)"
+_SHARDED = "item 15 (the sharded backend)"
+
+
+def make_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["model", "fusion"], default="model")
+    ap.add_argument("--mode", choices=["model", "fusion", "relay"],
+                    default="model",
+                    help=f"relay is not ported yet ({_RELAY})")
     ap.add_argument("--arch", choices=list(configs.ARCH_IDS))
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True, help="the reduced same-family config "
@@ -413,8 +587,96 @@ def main() -> None:
                          "flusher enforces")
     ap.add_argument("--max-warm", type=int, default=None,
                     help="LRU bound on tenants with resident factor caches")
+    ap.add_argument("--listen", type=int, default=None, metavar="PORT",
+                    help="serve the fed.wire protocol over TCP instead of "
+                         "the in-process loop (0 = ephemeral port, printed)")
+    ap.add_argument("--expect-uploads", type=int, default=0,
+                    help="with --listen: exit once this many upload frames "
+                         "were admitted and all connections closed")
+    ap.add_argument("--serve-timeout", type=float, default=30.0,
+                    help="with --listen: hard deadline in seconds")
+    ap.add_argument("--sigma", type=float, default=0.1,
+                    help="with --listen: sigma of the final per-tenant "
+                         "report solve")
+    ap.add_argument("--inference", action="store_true",
+                    help="with --listen: print each tenant's federated "
+                         "inference summary (noise estimate, dof, stderr); "
+                         "tenants whose uploads carried no MOMENTS section "
+                         "report 'unavailable'")
+    ap.add_argument("--ci-level", type=float, default=0.95,
+                    help="two-sided coverage of the served confidence and "
+                         "prediction intervals")
+    ap.add_argument("--solve-window", type=float, default=None,
+                    metavar="SECONDS",
+                    help="with --listen: micro-batching window on the SOLVE "
+                         "path (concurrent queries within it share one "
+                         "stacked sweep; a lone request never waits)")
+    ap.add_argument("--journal-dir", type=str, default=None, metavar="DIR",
+                    help="with --listen: write-ahead journal and snapshot "
+                         "directory; every admitted frame is journaled "
+                         "before it fuses, and a restart on the same DIR "
+                         "restores the state bitwise with zero re-uploads")
+    ap.add_argument("--snapshot-every", type=int, default=None, metavar="N",
+                    help="with --journal-dir: snapshot and compact after "
+                         "every N journaled frames (default: at shutdown)")
+    ap.add_argument("--no-journal-fsync", action="store_true",
+                    help="skip the fsync of each journal append (faster; the "
+                         "crash window widens to the OS's writeback)")
+    for fault in ("drop", "corrupt", "kill", "duplicate", "reorder",
+                  "delay", "drop-reply"):
+        ap.add_argument(f"--chaos-{fault}", type=float, default=0.0,
+                        metavar="RATE",
+                        help=f"with --listen: per-frame {fault} probability "
+                             f"injected by the chaos proxy")
+    ap.add_argument("--chaos-rate", type=float, default=0.0, metavar="RATE",
+                    help="with --listen: set EVERY chaos fault to RATE")
+    ap.add_argument("--chaos-delay-s", type=float, default=0.005,
+                    help="injected latency per delay fault")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed of the chaos proxy's fault schedule")
+    for flag in ("--sharded-tenants", "--auto-tenants"):
+        ap.add_argument(flag, action=_NotPorted, item=_SHARDED)
+    for flag in ("--upstream", "--relay-id", "--forward-every",
+                 "--forward-staleness", "--forward-interval",
+                 "--relay-state-dir", "--max-chunk-payload"):
+        ap.add_argument(flag, action=_NotPorted, item=_RELAY)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    return ap
+
+
+def _chaos_config(args):
+    """The chaos proxy's config from the ``--chaos-*`` flags, or None."""
+    from repro_torch.fed.chaos import ChaosConfig
+
+    if args.chaos_rate > 0:
+        return ChaosConfig.uniform(args.chaos_rate, delay_s=args.chaos_delay_s)
+    rates = {f: getattr(args, f"chaos_{f}")
+             for f in ("drop", "corrupt", "kill", "duplicate", "reorder",
+                       "delay", "drop_reply")}
+    if any(r > 0 for r in rates.values()):
+        return ChaosConfig(**rates, delay_s=args.chaos_delay_s)
+    return None
+
+
+def main(argv=None) -> None:
+    ap = make_parser()
+    args = ap.parse_args(argv)
+    if args.mode == "relay":
+        ap.error(f"--mode relay is not ported yet: it waits for ROADMAP "
+                 f"queue 1, {_RELAY}")
+    if args.mode == "fusion" and args.listen is not None:
+        serve_wire(port=args.listen, expect_uploads=args.expect_uploads,
+                   timeout_s=args.serve_timeout, sigma=args.sigma,
+                   inference=args.inference, ci_level=args.ci_level,
+                   coalesce_rank=args.coalesce_rank,
+                   flush_staleness_s=args.flush_staleness,
+                   max_warm=args.max_warm, solve_window_s=args.solve_window,
+                   journal_dir=args.journal_dir,
+                   snapshot_every=args.snapshot_every,
+                   journal_fsync=not args.no_journal_fsync,
+                   chaos=_chaos_config(args), chaos_seed=args.chaos_seed,
+                   device=args.device)
+        return
     if args.mode == "fusion":
         _print_fusion(serve_fusion(
             dim=args.dim, tenants=args.tenants, num_clients=args.clients,

@@ -11,7 +11,9 @@ quotas, per-tenant locks, a background staleness flusher, LRU eviction of
 factor caches, a pool-level byte ledger, and ``solve_many``, which answers
 requests across tenants in one ``solve_stacked`` sweep per (d, dtype);
 ``SolveBatcher`` puts a micro-batching window in front of it.
-``core.fusion`` keeps the pure-function references.
+``server.durability`` (``DurableStore``, ``Journal``, ``scan_segment``)
+keeps a pool's state on disk: a write-ahead journal of admitted wire frames
+and snapshots. ``core.fusion`` keeps the pure-function references.
 """
 from repro_torch.server.backends import DenseBackend, LinalgBackend, solve_snapshot
 from repro_torch.server.batch import SolveBatcher, solve_stacked
@@ -22,9 +24,13 @@ from repro_torch.server.engine import CoalescerPolicy, FusionEngine
 from repro_torch.server.inference import inference_report, reference_inference
 from repro_torch.server.pool import AdmissionError, EnginePool, Tenant
 from repro_torch.server.select import auto_backend, backend_threshold, prefer_sharded
+# durability pulls in repro_torch.fed for the wire codec, whose protocol
+# module imports this package back: it comes last
+from repro_torch.server.durability import DurableStore, Journal, scan_segment
 
 __all__ = ["FusionEngine", "CoalescerPolicy", "EnginePool", "Tenant",
-           "AdmissionError", "SolveBatcher", "solve_stacked", "solve_snapshot",
+           "AdmissionError", "DurableStore", "Journal", "scan_segment",
+           "SolveBatcher", "solve_stacked", "solve_snapshot",
            "LinalgBackend", "DenseBackend", "chol_rank1", "chol_update",
            "chol_update_blocked", "panel_transform", "psd_update_vectors",
            "inference_report", "reference_inference", "auto_backend",

@@ -30,16 +30,23 @@ registry and scheduling layer:
     first frame, CONTROL frames drop and restore clients, SOLVE frames
     answer with weights. Uploads that arrive with their bytes are
     deduplicated, so a client's retry after a lost ACK fuses once.
+  * **Durability** — with ``journal_dir`` every upload and control frame
+    admitted through ``admit_frame`` is write-ahead journaled under its
+    tenant's lock before it is applied (``server.durability``), the pool
+    snapshots every ``snapshot_every`` appends and at ``close()``, and
+    construction restores the latest committed snapshot plus a replay of
+    the journal tail: the restored pool's solves equal a never-crashed
+    pool's bitwise, with no client re-uploading anything.
   * **Ledger** — ``ledger()`` rolls per-tenant ``fed.comm`` records,
     streamed §VI-C bytes and the encoded bytes of wire frames into one
     account, per tenant kind and per tier.
 
 Every tenant of a pool lives on the pool's one device (``device=``, the
-card unless the caller asks for the CPU). Durability (``journal_dir``,
-``snapshot``) and the Remark-4 PSD guard are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item; their counters in
-``summary()`` stay at 0 / False. Relay-forwarded frames are counted as the
-JAX package counts them; the relay itself is not ported yet.
+card unless the caller asks for the CPU); a restored tenant's arrays land
+there too. The Remark-4 PSD guard is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP item; its counter in
+``summary()`` stays at 0. Relay-forwarded frames are counted as the JAX
+package counts them; the relay itself is not ported yet.
 
 Thread-safety contract: the pool's wrappers are safe for concurrent use.
 ``get()`` hands back the raw engine for single-threaded convenience.
@@ -63,8 +70,6 @@ from repro_torch.server.select import SHARDED_NOT_YET, prefer_sharded
 
 PLACEMENTS = ("dense", "sharded", "auto")
 
-_DURABLE = ("is not ported yet: the journal and snapshots wait for ROADMAP "
-            "queue 1, item 12 (durability)")
 _PRIVACY = ("is not ported yet: psd_repair waits for ROADMAP queue 1, "
             "item 14 (privacy)")
 
@@ -163,6 +168,8 @@ class EnginePool:
                  max_clients_per_tenant: int | None = None,
                  default_coalesce: CoalescerPolicy | None = None,
                  journal_dir: str | None = None,
+                 snapshot_every: int | None = None,
+                 journal_fsync: bool = True,
                  tier: str = "root", device="cuda", dtype=torch.float32):
         """Args:
           mesh: a mesh for sharded tenants; raises (item 15).
@@ -178,7 +185,22 @@ class EnginePool:
             dropped) per tenant; ingests under NEW client ids past it are
             refused (anonymous and repeat-id ingests always pass).
           default_coalesce: coalescer policy of tenants that pass none.
-          journal_dir: crash-safe state; raises (item 12).
+          journal_dir: directory of crash-safe state
+            (``server.durability``): every upload and control frame
+            admitted through :meth:`admit_frame` is journaled before it is
+            applied, and construction RESTORES the pool from the directory's
+            latest committed snapshot plus a replay of the journal tail (a
+            torn tail is CRC-detected and truncated, never half-applied).
+            ``None`` keeps the pool in memory. Python-API mutations
+            (``ingest`` etc.) are not journaled; they become durable at the
+            next snapshot.
+          snapshot_every: journal appends between automatic snapshot and
+            compaction cycles (``None``: only :meth:`snapshot` and
+            ``close()`` snapshot).
+          journal_fsync: fsync every journal append (an ACKed frame survives
+            power loss) or only flush it to the OS (a crash may lose the
+            last ACKed frames, which retrying clients re-send and the dedup
+            index absorbs).
           tier: accounting label ("root" / "relay"), reported by ``ledger``.
           device: where every tenant's state lives.
           dtype: the container of tenants created empty (from ``dim`` or a
@@ -188,8 +210,6 @@ class EnginePool:
         """
         if mesh is not None:
             raise NotImplementedError(f"EnginePool(mesh=...) {SHARDED_NOT_YET}")
-        if journal_dir is not None:
-            raise NotImplementedError(f"EnginePool(journal_dir=...) {_DURABLE}")
         self._tenants: dict[str, Tenant] = {}
         self._reg_lock = threading.RLock()
         self._threshold = threshold
@@ -207,6 +227,23 @@ class EnginePool:
         self.admission_rejections = 0
         self._flusher: threading.Thread | None = None
         self._stop = threading.Event()
+        # -- durability (server.durability) ---------------------------------
+        self.snapshot_every = snapshot_every
+        self._store = None
+        self._journal = None
+        self._snap_lock = threading.Lock()
+        self._close_lock = threading.Lock()
+        self._closed = False
+        self._replaying = False
+        self._appends_since_snap = 0
+        self.snapshots_taken = 0
+        self.replayed_frames = 0
+        self.restored_tenants = 0
+        if journal_dir is not None:
+            from repro_torch.server.durability import DurableStore
+
+            self._store = DurableStore(journal_dir, fsync=journal_fsync)
+            self._restore_durable()
 
     # -- registry ------------------------------------------------------------
 
@@ -418,9 +455,201 @@ class EnginePool:
             return fed_comm.measured_one_shot(payloads, download_floats=dim)
         return fed_comm.one_shot_comm(dim, max(len(engine.client_ids), 1))
 
+    # -- durability: WAL + snapshot/compaction (server.durability) ------------
+
+    @property
+    def journaled(self) -> bool:
+        return self._store is not None
+
+    def _restore_durable(self) -> None:
+        """Rebuild pool state from the journal directory (construction path).
+
+        The latest committed snapshot first (fused arrays bitwise, ledger,
+        feature maps, dedup index, wire counters), then every journaled
+        frame the snapshot has not absorbed: the snapshot recorded, per
+        tenant, its offset into the segment it switched to, so replay skips
+        exactly the frames captured inside it. Frames re-admit through
+        :meth:`admit_frame` with journaling off: the same guards, counters
+        and fuse order (the journal serialized them under the tenant lock),
+        and no client re-uploads.
+        """
+        journal, plan = self._store.open_journal()
+        snap = self._store.load_snapshot(self.device)
+        offsets: dict[str, int] = {}
+        placements: dict[str, str] = {}
+        snap_seq = None
+        if snap is not None:
+            snap_seq, meta, tree = snap
+            self._restore_snapshot(meta, tree)
+            offsets = {t["name"]: t["offset"] for t in meta["tenants"]}
+            placements = {t["name"]: t["placement"]
+                          for t in meta["tenants"]}
+        self._journal = journal
+        self._replaying = True
+        try:
+            for seg_seq, res in plan:
+                for rec in res.records:
+                    if (seg_seq == snap_seq
+                            and rec.offset < offsets.get(rec.tenant, 0)):
+                        continue   # already inside the snapshot
+                    self.admit_frame(
+                        rec.tenant, rec.frame, encoded_len=len(rec.raw),
+                        placement=placements.get(rec.tenant, "dense"),
+                        raw=rec.raw)
+                    self.replayed_frames += 1
+        finally:
+            self._replaying = False
+
+    def _restore_snapshot(self, meta: dict, tree: dict) -> None:
+        from repro_torch.server.durability import _untag_id
+
+        def unstats(entry) -> SuffStats:
+            return SuffStats(gram=entry["gram"], moment=entry["moment"],
+                             count=torch.tensor(int(entry["count"]),
+                                                dtype=torch.int32,
+                                                device=self.device),
+                             yty=entry.get("yty"))
+
+        for ti, tm in enumerate(meta["tenants"]):
+            entry = tree[f"t{ti}"]
+            fm = (FeatureMap(**tm["feature_map"])
+                  if tm.get("feature_map") else None)
+            engine = self.create_tenant(
+                tm["name"], stats=unstats(entry["fused"]),
+                placement=tm["placement"], dtype=getattr(torch, tm["dtype"]),
+                features=fm)
+            clients = {_untag_id(tag): unstats(entry["clients"][f"c{i}"])
+                       for i, tag in enumerate(tm["clients"])}
+            dropped = {_untag_id(tag): unstats(entry["dropped"][f"d{i}"])
+                       for i, tag in enumerate(tm["dropped"])}
+            engine.import_ledger(clients, dropped)
+            t = self.tenant(tm["name"])
+            # Entries restore as written: 4-tuples, or the JAX package's
+            # legacy (client_id, crc) 2-tuples, which _dedup_hit matches too,
+            # so no journaled frame fuses twice.
+            t.dedup = {tuple(e) for e in tm["dedup"]}
+            c = tm["counters"]
+            t.wire_frames = c["wire_frames"]
+            t.relay_frames = c.get("relay_frames", 0)
+            t.wire_upload_bytes = c["wire_upload_bytes"]
+            # Download bytes are snapshot-only: replay produces no replies,
+            # so replies sent after the capture are not counted again.
+            t.wire_download_bytes = c["wire_download_bytes"]
+            t.streamed_floats = c["streamed_floats"]
+            t.duplicates = c.get("duplicates", 0)
+            self.restored_tenants += 1
+
     def snapshot(self) -> int | None:
-        """Commit a durable snapshot (item 12)."""
-        raise NotImplementedError(f"snapshot {_DURABLE}")
+        """Commit one snapshot + compaction cycle; returns its sequence
+        number (``None`` on a pool without a journal).
+
+        The journal first switches to a fresh segment, then every tenant is
+        captured one lock at a time, with the new segment's offset at its
+        capture, so the snapshot plus the segment's tail is always a
+        consistent cut (``server.durability``). Older segments and snapshots
+        are pruned after the commit record lands.
+        """
+        if self._store is None:
+            return None
+        with self._snap_lock:
+            return self._snapshot_durable()
+
+    def _snapshot_durable(self) -> int:
+        from repro_torch.server.durability import _tag_id, dtype_name, stats_entry
+
+        def entry(s: SuffStats) -> dict:
+            return stats_entry(s.gram, s.moment, s.count, yty=s.yty)
+
+        seq = self._store.next_seq()
+        if self._journal is not None and not self._journal.closed:
+            self._journal.switch(self._store.segment_path(seq))
+        self._appends_since_snap = 0
+        tree: dict = {}
+        tenants_meta: list[dict] = []
+        for ti, t in enumerate(self._snapshot()):
+            with t.lock:
+                eng = t.engine
+                clients, dropped = eng.export_ledger()
+                fused = eng.backend.stats()
+                cids, dids = list(clients), list(dropped)
+                tree[f"t{ti}"] = {
+                    "fused": entry(fused),
+                    "clients": {f"c{i}": entry(clients[c])
+                                for i, c in enumerate(cids)},
+                    "dropped": {f"d{i}": entry(dropped[c])
+                                for i, c in enumerate(dids)},
+                }
+                tenants_meta.append({
+                    "name": t.name,
+                    "placement": t.placement,
+                    "dim": eng.dim,
+                    "dtype": dtype_name(eng.dtype),
+                    "offset": (self._journal.size
+                               if self._journal is not None
+                               and not self._journal.closed else 0),
+                    "clients": [_tag_id(c) for c in cids],
+                    "dropped": [_tag_id(c) for c in dids],
+                    "feature_map": (dataclasses.asdict(t.feature_map)
+                                    if t.feature_map is not None else None),
+                    # which entries carry a residual second moment: keeps
+                    # the snapshot's load template in sync
+                    "moments": {
+                        "fused": fused.yty is not None,
+                        "clients": [clients[c].yty is not None
+                                    for c in cids],
+                        "dropped": [dropped[c].yty is not None
+                                    for c in dids],
+                    },
+                    "dedup": sorted([list(k) for k in t.dedup]),
+                    "counters": {
+                        "wire_frames": t.wire_frames,
+                        "relay_frames": t.relay_frames,
+                        "wire_upload_bytes": t.wire_upload_bytes,
+                        "wire_download_bytes": t.wire_download_bytes,
+                        "streamed_floats": t.streamed_floats,
+                        "duplicates": t.duplicates,
+                    },
+                })
+        self._store.commit_snapshot(seq, tree, {"seq": seq,
+                                                "tenants": tenants_meta})
+        self._store.prune(seq)
+        self.snapshots_taken += 1
+        return seq
+
+    def _maybe_snapshot(self) -> None:
+        """Deferred compaction trigger, called with NO tenant lock held (as
+        ``_maybe_evict`` is); skips when a snapshot is already running."""
+        if (self._store is None or self.snapshot_every is None
+                or self._appends_since_snap < self.snapshot_every):
+            return
+        if not self._snap_lock.acquire(blocking=False):
+            return
+        try:
+            if self._appends_since_snap >= self.snapshot_every:
+                self._snapshot_durable()
+        finally:
+            self._snap_lock.release()
+
+    @staticmethod
+    def _frame_raw(frame, raw: bytes | None) -> bytes:
+        """The frame's canonical encoded bytes: what the transport received,
+        or a re-encode at the frame's own wire dtype (byte-identical by the
+        decode / re-encode contract the golden fixtures pin)."""
+        if raw is not None:
+            return raw
+        from repro_torch.fed import wire
+
+        return wire.encode_frame(
+            frame, dtype=getattr(frame, "wire_dtype", None))
+
+    def _journal_append(self, name: str, frame, raw: bytes | None) -> None:
+        """WAL order: journal BEFORE applying. Raises on an I/O failure; the
+        transport then answers with a retryable internal-error ACK and
+        nothing was applied, so a retry is safe."""
+        if self._journal is None or self._replaying:
+            return
+        self._journal.append(name, self._frame_raw(frame, raw))
+        self._appends_since_snap += 1
 
     # -- wire-frame admission (fed.wire / fed.transport) ----------------------
 
@@ -437,16 +666,29 @@ class EnginePool:
         sums it for upload frames.
 
         ``raw`` is the frame's encoded bytes when the caller has them
-        (transports always do). Then uploads are deduplicated on
-        ``(client_id, frame type byte, encoded length, CRC32)``: a
-        byte-identical re-send after a lost ACK answers
-        ``AckFrame(duplicate=True)`` and fuses nothing twice.
+        (transports always do). When present, or when the pool is
+        journaled, uploads are deduplicated on ``(client_id, frame type
+        byte, encoded length, CRC32)``: a byte-identical re-send after a lost
+        ACK answers ``AckFrame(duplicate=True)`` and fuses nothing twice. A
+        journaled pool writes the frame to the WAL *before* applying it, so
+        a crash between the two replays the frame on restart.
 
         Returns the reply frame (``AckFrame`` or ``WeightsFrame``).
         Protocol-level problems (dim mismatch, unknown tenant or client,
         conflicting feature map, quota) come back as ``AckFrame(ok=False)``;
-        only programming and device errors raise.
+        only programming, device and journal I/O errors raise.
         """
+        reply = self._admit_frame_inner(name, frame, encoded_len=encoded_len,
+                                        placement=placement, raw=raw)
+        if self._store is not None and not self._replaying:
+            # Deferred compaction, with no tenant lock held: the snapshot's
+            # one-lock-at-a-time capture cannot deadlock against the
+            # admission that triggered it.
+            self._maybe_snapshot()
+        return reply
+
+    def _admit_frame_inner(self, name: str, frame, *, encoded_len: int,
+                           placement: str, raw: bytes | None):
         from repro_torch.fed import wire
 
         if isinstance(frame, wire.Hello):
@@ -474,6 +716,10 @@ class EnginePool:
                         return wire.AckFrame(
                             True, f"duplicate upload d={frame.dim} already "
                                   f"fused", duplicate=True)
+                    # Quota BEFORE the WAL: the journal holds applied frames
+                    # only (the check inside _locked is free under the RLock).
+                    self._check_client_quota(t, cid)
+                    self._journal_append(name, frame, raw)
                     packed = frame.to_packed(self.device,
                                              self._container(frame.tri))
                     self._locked(name,
@@ -499,6 +745,8 @@ class EnginePool:
                         return wire.AckFrame(
                             True, "duplicate rows already fused",
                             duplicate=True)
+                    self._check_client_quota(t, cid)
+                    self._journal_append(name, frame, raw)
                     dt = self._container(frame.A)
                     A = torch.as_tensor(frame.A).to(self.device, dt)
                     b = torch.as_tensor(frame.b).to(self.device, dt)
@@ -535,6 +783,7 @@ class EnginePool:
                     if (cid not in eng.client_ids
                             and cid not in eng.dropped_ids):
                         raise KeyError(cid)
+                    self._journal_append(name, frame, raw)
                     self._locked(name, lambda e: op(e, cid))
                 return wire.AckFrame(True, f"{frame.op} {frame.client_id!r}")
             if isinstance(frame, wire.SolveFrame):
@@ -557,10 +806,10 @@ class EnginePool:
         own = torch.float64 if arr.dtype == np.float64 else torch.float32
         return own if own.itemsize <= self.dtype.itemsize else self.dtype
 
-    @staticmethod
-    def _dedup_key(frame, raw: bytes | None):
+    def _dedup_key(self, frame, raw: bytes | None):
         """The idempotency key for an upload, or None for a frame that came
-        without its bytes (an in-process caller, which never retries blind).
+        without its bytes to a pool without a journal (an in-process caller,
+        which never retries blind).
 
         The key is ``(client_id, frame_type_byte, encoded_len, crc32)``:
         CRC32 alone is 32 bits of a *linear* code, so two different uploads
@@ -569,10 +818,11 @@ class EnginePool:
         same-length CRC collisions, which the tests pin as fused, not
         deduplicated.
         """
-        if raw is None:
+        if raw is None and self._store is None:
             return None
         from repro_torch.fed import wire
 
+        raw = self._frame_raw(frame, raw)
         return (frame.client_id, raw[5], len(raw), wire.frame_crc(raw))
 
     @staticmethod
@@ -991,8 +1241,23 @@ class EnginePool:
         self._flusher = None
 
     def close(self) -> None:
-        """Shut the pool down: stop the flusher. Idempotent."""
+        """Shut the pool down: stop the flusher, commit a final snapshot
+        (journaled pools) and close the journal. Idempotent and safe from
+        ``__exit__``, ``__del__`` and signal handlers in any combination:
+        every call stops a (re)started flusher, and the durable
+        finalization runs exactly once."""
         self.stop_flusher()
+        if self._store is None:
+            return
+        with self._close_lock:
+            if self._closed:
+                return
+            self._closed = True
+        try:
+            self.snapshot()    # the final durable cut: a restart replays 0
+        finally:
+            if self._journal is not None:
+                self._journal.close()
 
     def __enter__(self) -> "EnginePool":
         return self
@@ -1086,10 +1351,10 @@ class EnginePool:
             "admission_rejections": self.admission_rejections,
             "resident_stat_bytes": self.resident_stat_bytes(),
             "warm_tenants": len(self.warm_tenants()),
-            "journaled": False,
-            "snapshots_taken": 0,
-            "replayed_frames": 0,
-            "restored_tenants": 0,
+            "journaled": self.journaled,
+            "snapshots_taken": self.snapshots_taken,
+            "replayed_frames": self.replayed_frames,
+            "restored_tenants": self.restored_tenants,
             "duplicates": sum(t.duplicates for t in snapshot),
             "per_tenant": {t.name: t.summary() for t in snapshot},
         }

@@ -803,3 +803,112 @@ def test_wire_chaos_proxy_fuses_each_upload_once_on_card(card):
             assert torch.equal(pool.stats("t").moment, clean.stats("t").moment)
         assert pool.get("t").count == 6 * 200
         assert sched.requests > 6
+
+
+# -- durability (server.durability) and processes on the card -----------------
+
+@pytest.mark.parametrize("snapshot_every", [None, 2])
+def test_journaled_pool_on_card_restores_bitwise(card, tmp_path, snapshot_every):
+    """A journaled pool on the card, crashed (its journal closed, no final
+    snapshot) after STATS and DELTA frames (K1) and a drop / restore (P and
+    K2), restarts on the card into a pool whose solve equals the
+    uncrashed pool's bitwise; a clean close then replays nothing."""
+    from repro_torch.fed import wire
+
+    d = 160
+    rng = np.random.default_rng(6)
+    frames = [wire.encode_frame(wire.StatsFrame.from_stats(
+        _wire_stats(d, 30 + i, "cpu"), client_id=f"c{i}")) for i in range(3)]
+    for _ in range(6):
+        A = rng.integers(-3, 4, (2, d)).astype(np.float32)
+        b = rng.integers(-3, 4, 2).astype(np.float32)
+        frames.append(wire.encode_frame(wire.DeltaRowsFrame(A=A, b=b,
+                                                            client_id="s")))
+    frames += [wire.encode_frame(wire.ControlFrame("drop", "c1")),
+               wire.encode_frame(wire.ControlFrame("restore", "c1"))]
+
+    def feed(pool):
+        for raw in frames:
+            assert pool.admit_frame("t", wire.decode_frame(raw),
+                                    encoded_len=len(raw), raw=raw).ok
+
+    ref = server.EnginePool()
+    feed(ref)
+    p1 = server.EnginePool(journal_dir=tmp_path, snapshot_every=snapshot_every)
+    feed(p1)
+    p1._journal.close()
+    p1._closed = True
+    before = gram.launch_counts()
+    p2 = server.EnginePool(journal_dir=tmp_path)
+    torch.cuda.synchronize()
+    replayed = gram.launch_counts()["gram_moment"] - before["gram_moment"]
+    assert p2.stats("t").gram.is_cuda
+    n = p2.replayed_frames
+    assert n == len(frames) % (snapshot_every or len(frames) + 1)
+    assert replayed == sum(raw[5] == wire.FT_DELTA for raw in frames[len(frames) - n:])
+    assert torch.equal(p2.stats("t").gram, ref.stats("t").gram)
+    assert torch.equal(p2.solve("t", 0.01), ref.solve("t", 0.01))
+    p2.close()
+    p3 = server.EnginePool(journal_dir=tmp_path)
+    assert p3.replayed_frames == 0 and p3.restored_tenants == 1
+    assert torch.equal(p3.solve("t", 0.01), ref.solve("t", 0.01))
+    p3.close()
+    ref.close()
+
+
+def test_client_process_on_card_uploads_to_server_on_card(card, tmp_path):
+    """``python -m repro_torch.launch.serve --listen`` and
+    ``python -m repro_torch.launch.client``, both on the card: the report's
+    weights are the ones the client received, and a float64 solve of the
+    clients' rows (drawn here by the same generator on the card) agrees."""
+    import json
+    import os
+    import pathlib
+    import re
+    import subprocess
+    import sys
+
+    from repro_torch.core import fusion
+    from repro_torch.data import synthetic
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"))
+    srv = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--mode", "fusion",
+         "--listen", "0", "--expect-uploads", "2", "--serve-timeout", "240",
+         "--sigma", "0.01", "--journal-dir", str(tmp_path)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        port = None
+        for _ in range(20):
+            m = re.search(r"listening on 127\.0\.0\.1:(\d+)",
+                          srv.stdout.readline())
+            if m:
+                port = int(m.group(1))
+                break
+        assert port is not None
+        reps = []
+        for k, extra in ((0, ["--moments"]), (1, ["--solve", "0.01"])):
+            cl = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.client",
+                 "--connect", f"127.0.0.1:{port}", "--tenant", "t",
+                 "--num-clients", "2", "--client-index", str(k),
+                 "--samples", "4096", "--dim", "256", *extra],
+                capture_output=True, text=True, env=env, timeout=240)
+            assert cl.returncode == 0, cl.stderr
+            reps.append(json.loads(cl.stdout.strip().splitlines()[-1]))
+        out, err = srv.communicate(timeout=240)
+    finally:
+        if srv.poll() is None:
+            srv.kill()
+            srv.communicate(timeout=30)
+    assert srv.returncode == 0, err
+    report = json.loads(re.search(r"\[serve_wire\] report (.*)", out).group(1))
+    assert report["ledger"]["wire_upload_bytes"] == sum(
+        r["bytes_uploaded"] for r in reps)
+    assert reps[1]["solve"]["weights"] == report["weights"]["t"]
+    ds = synthetic.generate(0, num_clients=2, samples_per_client=4096, dim=256)
+    stats = [core.compute_stats(A.double().cpu(), b.double().cpu())
+             for A, b in ds.clients]
+    ref = fusion.solve_ridge(stats[0] + stats[1], 0.01)
+    assert _rel(torch.tensor(report["weights"]["t"]), ref) <= 1e-4

@@ -5,8 +5,9 @@ must complete AND report every tenant's served weights within 1e-4 of a
 float64 ``core.fusion`` solve over that tenant's own rows, with the
 streamed deltas drained by the background flusher alone. Its result dict
 carries the reference's keys (sharded and auto tenants at 0), and for the
-same sizes the same byte ledger. The flags of paths not ported yet are
-rejected by the argument parser.
+same sizes the same byte ledger. The wire server's flags are accepted (the
+server itself: tests/test_torch_serve_wire.py); the flags of paths not
+ported yet are rejected by the argument parser, naming their ROADMAP item.
 """
 import re
 import sys
@@ -82,15 +83,33 @@ def test_small_run_is_exact(results):
     assert port["pool"]["flusher_alive"] is False
 
 
-@pytest.mark.parametrize("flags", [
-    ["--listen", "0"], ["--expect-uploads", "2"], ["--solve-window", "0.01"],
-    ["--journal-dir", "j"], ["--sharded-tenants", "1"], ["--auto-tenants", "1"],
-    ["--chaos-rate", "0.1"], ["--upstream", "localhost:1"]])
-def test_unported_flags_are_rejected(monkeypatch, capsys, flags):
+@pytest.mark.parametrize("flags,item", [
+    (["--sharded-tenants", "1"], "item 15"), (["--auto-tenants", "1"], "item 15"),
+    (["--upstream", "localhost:1"], "item 13"), (["--relay-id", "r1"], "item 13"),
+    (["--forward-every", "4"], "item 13"), (["--relay-state-dir", "d"], "item 13"),
+    (["--max-chunk-payload", "4096"], "item 13")])
+def test_unported_flags_are_rejected(monkeypatch, capsys, flags, item):
     monkeypatch.setattr(sys, "argv", ARGV + flags)
     with pytest.raises(SystemExit) as e:
         serve.main()
     assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert f"{flags[0]} is not ported yet" in err and item in err
+
+
+@pytest.mark.parametrize("flags,dest,value", [
+    (["--listen", "0"], "listen", 0), (["--expect-uploads", "2"], "expect_uploads", 2),
+    (["--solve-window", "0.01"], "solve_window", 0.01),
+    (["--journal-dir", "j"], "journal_dir", "j"),
+    (["--chaos-rate", "0.1"], "chaos_rate", 0.1)])
+def test_wire_flags_are_accepted(flags, dest, value):
+    args = serve.make_parser().parse_args(ARGV[1:] + flags)
+    assert getattr(args, dest) == value
+
+
+def test_compilation_cache_is_not_defined(capsys):
+    with pytest.raises(SystemExit):
+        serve.make_parser().parse_args(ARGV[1:] + ["--compilation-cache", "c"])
     assert "unrecognized arguments" in capsys.readouterr().err
 
 
@@ -98,7 +117,7 @@ def test_relay_mode_is_rejected(monkeypatch, capsys):
     monkeypatch.setattr(sys, "argv", ["serve.py", "--mode", "relay"])
     with pytest.raises(SystemExit):
         serve.main()
-    assert "invalid choice" in capsys.readouterr().err
+    assert "--mode relay is not ported yet" in capsys.readouterr().err
 
 
 def test_model_mode_still_requires_arch(monkeypatch):

@@ -18,8 +18,8 @@ port to the reference where the two meet:
     reference ``FrameClient`` against a port ``FrameServer`` and a port
     client against a reference server both leave bitwise-equal fused stats.
 
-The subprocess half of tests/test_wire_e2e.py needs ``launch/client.py``
-and ``serve --listen``, which the port does not have yet (ROADMAP item 10).
+The subprocess half of tests/test_wire_e2e.py (``launch/client.py`` and
+``serve --listen`` as processes) is in tests/test_torch_serve_wire.py.
 """
 import logging
 import struct
