@@ -50,6 +50,21 @@ kernels' launch counts set to 0 just before it and read just after:
   in-process pool that admitted the same frames and never crashed, with no
   upload admitted after the restart; and a SIGTERMed server whose journal
   replays no frame;
+- the relay tier as processes on the card, at the same width: a root
+  ``launch.serve --listen`` and two ``launch.serve --mode relay`` processes
+  (r0, r1; forwards in 4 MiB chunks), 4 dense ``launch.client`` processes
+  on each relay and 2 RFF ones (d 128, D 4096) on r0, all at once; r1 is
+  SIGKILLed before any forward and restarts on its journal, which it
+  replays and forwards with no client connection; r0 is SIGTERMed (its
+  exit forwards epoch 0), restarts, takes a SOLVE and a DELTA client whose
+  first 256-row frames update the cached factor (P and K2), and is
+  SIGTERMed again (epoch 1, a delta). Every forwarded frame must equal the
+  frame rebuilt from the relay's journal byte for byte, the root's weights
+  those of an in-process pool that admits the rebuilt frames in the root's
+  order bitwise, and a float64 solve of all clients' rows within 1e-4; the
+  root's ledger counts relay frames only, their bytes the relays'; one
+  forward's steps (the copy to the host, the delta, the encoding, the
+  state commit, the upload) are timed in process on r0's restored state;
 - gemma3-27b serving at full width (d_model 5376, 32 heads over 16 KV heads,
   d_ff 21504, vocab 262144, bf16), depth cut to 2 stages + the 2-layer SWA
   tail (14 layers: 12 sliding-window, 2 full), random weights from a seed:
@@ -132,6 +147,20 @@ PROC_CLIENTS, PROC_SEED = 9, 0
 PROC_MOMENTS_CLIENT, PROC_CHUNK_CLIENT, PROC_BF16_CLIENT = 3, 5, 6
 PROC_DELTA_BATCHES, PROC_CHUNK = 4, 4 << 20
 PROC_TIMEOUT = 300                  # every subprocess wait, seconds
+
+# The relay tier: a root `serve --mode fusion` and two `serve --mode relay`
+# processes (r0, r1; forwards in 4 MiB chunks, no forward by the poller's
+# size trigger) on the card. 4 dense clients on each relay (tenant "ridge",
+# the process phase's dataset), 2 RFF clients on r0 (tenant "rff", the
+# feature phase's d 128, D 4096), then a DELTA client on r0 in 256-row
+# frames into a factor the phase has cached (P and K2), forwarded as r0's
+# second epoch. r1 is SIGKILLed before any forward and restarted on its
+# journal; r0 is SIGTERMed after its first wave, restarted, and SIGTERMed
+# again; the root is SIGTERMed last.
+RELAY_DENSE, RELAY_RFF = 4, 2
+RELAY_DELTA_BATCHES, RELAY_CHUNK = 64, 4 << 20
+RELAY_FORWARD_EVERY = 1 << 20       # the phase causes every forward
+RELAY_SERVE_TIMEOUT = 900           # a server that the phase ends by signal
 
 # gemma3-27b serving: the registry's config with 2 stages instead of 10
 # (14 layers instead of 62; 17.2 GB of bf16 weights), batch 4 x 4096-token
@@ -1765,6 +1794,7 @@ class Proc:
                                      stdout=subprocess.PIPE, stderr=self._err,
                                      text=True, env=env, cwd=ROOT)
         self.lines: list[str] = []
+        self.stamps: list[float] = []      # perf_counter at each line's arrival
         self._seen = threading.Condition()
         self._reader = threading.Thread(target=self._read, daemon=True)
         self._reader.start()
@@ -1773,22 +1803,24 @@ class Proc:
         for line in self.proc.stdout:
             with self._seen:
                 self.lines.append(line)
+                self.stamps.append(time.perf_counter())
                 self._seen.notify_all()
         with self._seen:
             self._seen.notify_all()
 
     def wait_line(self, pattern: str, timeout: float = PROC_TIMEOUT):
         """The first stdout line matching ``pattern``, and the seconds from
-        the spawn to it; fails at ``timeout`` or when the process ends."""
+        the spawn to its arrival; fails at ``timeout`` or when the process
+        ends."""
         import re
 
         deadline = time.monotonic() + timeout
         with self._seen:
             while True:
-                for line in self.lines:
+                for line, stamp in zip(self.lines, self.stamps):
                     m = re.search(pattern, line)
                     if m:
-                        return m, time.perf_counter() - self.t0
+                        return m, stamp - self.t0
                 left = deadline - time.monotonic()
                 check(left > 0 and (self.proc.poll() is None
                                     or self._reader.is_alive()),
@@ -2082,6 +2114,346 @@ def process_serving_phase() -> dict:
             "seconds": time.perf_counter() - t_all}
 
 
+# -- phase 8: the relay tier as processes on the card -------------------------
+
+def relay_proc(jdir: str, log: str, relay_id: str, root_port: int, *extra) -> Proc:
+    return Proc(["repro_torch.launch.serve", "--mode", "relay", "--upstream",
+                 f"127.0.0.1:{root_port}", "--journal-dir", jdir, "--relay-id",
+                 relay_id, "--max-chunk-payload", RELAY_CHUNK, "--forward-every",
+                 RELAY_FORWARD_EVERY, "--sigma", SIGMA, *extra], log)
+
+
+def proc_launches(server: Proc) -> dict:
+    """The kernel launches a finished ``serve`` process printed."""
+    import re
+
+    m = re.search(r"\[serve_wire\] launches (.*)", "".join(server.lines))
+    check(m is not None, f"no launches line: {server.tail()}")
+    return json.loads(m.group(1))
+
+
+def relay_frame(pool, tenant: str, relay_id: str, epoch: int, gram, moment,
+                count: int, yty):
+    """The frame a relay forwards for ``tenant`` of ``pool``, built here
+    from host arrays with the wire codec (not through the forwarder)."""
+    from repro_torch.core import SuffStats
+    from repro_torch.fed import PackedStats, wire
+
+    packed = PackedStats.pack(SuffStats(
+        torch.from_numpy(gram), torch.from_numpy(moment), torch.tensor(count),
+        None if yty is None else torch.from_numpy(np.asarray(yty))))
+    cid = wire.relay_client_id(relay_id, epoch)
+    fm = pool.tenant(tenant).feature_map
+    if fm is None:
+        return wire.encode_frame(wire.StatsFrame.from_packed(
+            packed, client_id=cid, moments=yty is not None))
+    return wire.encode_frame(wire.RFFFrame(
+        tri=wire.host_array(packed.tri), moment=wire.host_array(packed.moment),
+        count=int(packed.count), dim=int(packed.dim), d_orig=fm.d_orig,
+        seed=fm.seed, fhash=fm.fhash, lengthscale=fm.lengthscale, client_id=cid,
+        yty=None if yty is None else float(yty)))
+
+
+def host_stats(pool, tenant: str) -> tuple:
+    s = pool.stats(tenant)
+    return (s.gram.cpu().numpy(), s.moment.cpu().numpy(), int(s.count),
+            None if s.yty is None else s.yty.cpu().numpy())
+
+
+def relay_serving_phase() -> dict:
+    """Clients -> two relays -> root, all processes of the port on the card.
+
+    The root's weights are held to float64 and, bitwise, to an in-process
+    pool on the card that admits the frames rebuilt here from the relays'
+    journals (restored with ``server.durability``) in the root's admission
+    order (read from the root's journal): fused sums are not associative in
+    float, so the reference folds as the tree did, per relay, then across.
+    """
+    import shutil
+
+    from repro_torch import data
+    from repro_torch.core import compute_stats
+    from repro_torch.fed import transport, wire
+    from repro_torch.server import EnginePool, ForwardPolicy, RelayForwarder
+    from repro_torch.server.durability import scan_segment
+
+    t_all = time.perf_counter()
+    steps, errs, report = {}, {}, {"card": smi()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    work = os.path.join(ROOT, "build", "relay_serving")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    jroot, j0, j1 = (os.path.join(work, n) for n in ("root", "r0", "r1"))
+    report["journal_fs"] = fs_type(work)
+    procs: list[Proc] = []
+    pools: list = []
+    lengthscale = RFF_DIM ** 0.5
+    listening = r"listening on 127\.0\.0\.1:(\d+)"
+    try:
+        # 1. the root, then both relays at once
+        root = serve_proc(jroot, os.path.join(work, "root.err"), "--serve-timeout",
+                          RELAY_SERVE_TIMEOUT)
+        procs.append(root)
+        m, steps["root_spawn_to_listening_s"] = root.wait_line(listening)
+        root_port = int(m.group(1))
+        relays = {r: relay_proc(j, os.path.join(work, f"{r}.err"), r, root_port,
+                                "--serve-timeout", RELAY_SERVE_TIMEOUT)
+                  for r, j in (("r0", j0), ("r1", j1))}
+        procs += relays.values()
+        ports = {}
+        for r, p in relays.items():
+            m, steps[f"{r}_spawn_to_listening_s"] = p.wait_line(listening)
+            ports[r] = int(m.group(1))
+
+        # 2. the clients, all at once: 4 dense on each relay, 2 RFF on r0
+        def client(relay_port, log, *args):
+            return Proc(["repro_torch.launch.client", "--connect",
+                         f"127.0.0.1:{relay_port}", "--samples", ROWS, *args],
+                        os.path.join(work, log))
+
+        def dense(k, relay_port, *extra):
+            return client(relay_port, f"dense{k}.err", "--tenant", "ridge",
+                          "--seed", PROC_SEED, "--num-clients", 2 * RELAY_DENSE + 1,
+                          "--client-index", k, "--dim", DIM, *extra)
+
+        t0 = time.perf_counter()
+        wave = [dense(k, ports["r0" if k < RELAY_DENSE else "r1"])
+                for k in range(2 * RELAY_DENSE)]
+        wave += [client(ports["r0"], f"rff{k}.err", "--tenant", "rff", "--seed", 1,
+                        "--num-clients", RELAY_RFF, "--client-index", k, "--dim",
+                        RFF_DIM, "--features", "rff", "--feature-dim", RFF_M,
+                        "--lengthscale", repr(lengthscale), "--proj-seed",
+                        FEATURE_SEED) for k in range(RELAY_RFF)]
+        procs += wave
+        reps = [json.loads(c.finish().strip().splitlines()[-1]) for c in wave]
+        steps["ten_clients_at_once_s"] = time.perf_counter() - t0
+        for k, r in enumerate(reps):
+            kernel = "gram_moment" if k < 2 * RELAY_DENSE else "rff_gram"
+            check(r["ok"] and r["launches"][kernel] == 1,
+                  f"client {k}: {r['launches']}")
+
+        # 3. r1 is SIGKILLed (its clients all ACKed, nothing forwarded); its
+        #    journal is copied for the reference. r0 is SIGTERMed: its exit
+        #    forwards epoch 0 of both tenants
+        relays["r1"].proc.kill()
+        relays["r1"].proc.wait(timeout=60)
+        shutil.copytree(j1, j1 + "_ref")
+        relays["r0"].proc.send_signal(signal.SIGTERM)
+        t0 = time.perf_counter()
+        rep_r0a = serve_report(relays["r0"])
+        steps["r0_sigterm_to_exit_s"] = time.perf_counter() - t0
+        check(rep_r0a["sigterm"] and rep_r0a["relay"]["forwards"] == 2
+              and rep_r0a["ledger"]["tier"] == "relay", f"r0: {rep_r0a['relay']}")
+        shutil.copytree(j0, j0 + "_epoch0")
+
+        # 4. both relays restart on their journals at once: r1 (short
+        #    timeout) forwards its replayed fusion and exits; r0 takes a
+        #    SOLVE (a cached factor) and the DELTA client, then a SIGTERM
+        r1b = relay_proc(j1, os.path.join(work, "r1b.err"), "r1", root_port,
+                         "--serve-timeout", 2)
+        r0b = relay_proc(j0, os.path.join(work, "r0b.err"), "r0", root_port,
+                         "--serve-timeout", RELAY_SERVE_TIMEOUT)
+        procs += [r1b, r0b]
+        _, to_recovered = r1b.wait_line(r"\[serve_wire\] recovered")
+        _, steps["r1_restart_to_listening_s"] = r1b.wait_line(listening)
+        rep_r1b = serve_report(r1b)
+        steps["r1_restart_to_exit_s"] = r1b.wall
+        report["r1_restart"] = {
+            "recovered_line_s": to_recovered, "serve_timeout_s": 2,
+            "replayed_frames": rep_r1b["pool"]["replayed_frames"],
+            "connections_total": rep_r1b["connections_total"],
+            "forwards": rep_r1b["relay"]["forwards"]}
+        check(rep_r1b["connections_total"] == 0
+              and rep_r1b["transport"]["uploads_admitted"] == 0
+              and rep_r1b["pool"]["replayed_frames"] == RELAY_DENSE
+              and rep_r1b["relay"]["forwards"] == 1,
+              f"r1 restart: {report['r1_restart']}")
+        m, steps["r0_restart_to_listening_s"] = r0b.wait_line(listening)
+        port_r0b = int(m.group(1))
+        t0 = time.perf_counter()
+        with transport.TCPChannel("127.0.0.1", port_r0b, timeout_s=PROC_TIMEOUT) as ch:
+            c = transport.FrameClient(ch)
+            c.hello("ridge")
+            c.solve(SIGMA)
+        steps["r0_cold_solve_round_trip_s"] = time.perf_counter() - t0
+        last = dense(2 * RELAY_DENSE, port_r0b, "--delta-batches",
+                     RELAY_DELTA_BATCHES, "--solve", SIGMA)
+        procs.append(last)
+        t0 = time.perf_counter()
+        rep_delta = json.loads(last.finish().strip().splitlines()[-1])
+        steps["delta_client_s"] = time.perf_counter() - t0
+        r0b.proc.send_signal(signal.SIGTERM)
+        rep_r0b = serve_report(r0b)
+        check(rep_r0b["relay"]["forwards"] == 3 and rep_r0b["relay"]["empty_skips"] == 1
+              and rep_r0b["relay"]["resumed_pending"] == 0, f"r0: {rep_r0b['relay']}")
+
+        # 5. the root's journal: what it admitted, in its order
+        segs = sorted(f for f in os.listdir(jroot) if f.startswith("wal_"))
+        admitted = [rec for f in segs
+                    for rec in scan_segment(os.path.join(jroot, f)).records]
+        root.proc.send_signal(signal.SIGTERM)
+        rep_root = serve_report(root)
+
+        # 6. the reference: the relays' fused statistics restored from their
+        #    journals on the card, the frames rebuilt from them
+        def restored(jdir):
+            pool = EnginePool(journal_dir=jdir)
+            pools.append(pool)
+            return pool
+
+        p0a, p1, p0b = restored(j0 + "_epoch0"), restored(j1 + "_ref"), restored(j0)
+        want = {}
+        for tenant in ("ridge", "rff"):
+            want[(tenant, wire.relay_client_id("r0", 0))] = relay_frame(
+                p0a, tenant, "r0", 0, *host_stats(p0a, tenant))
+        want[("ridge", wire.relay_client_id("r1", 0))] = relay_frame(
+            p1, "ridge", "r1", 0, *host_stats(p1, "ridge"))
+        (g0, h0, n0, y0), (g1, h1, n1, y1) = (host_stats(p0a, "ridge"),
+                                              host_stats(p0b, "ridge"))
+        want[("ridge", wire.relay_client_id("r0", 1))] = relay_frame(
+            p0b, "ridge", "r0", 1, g1 - g0, h1 - h0, n1 - n0,
+            None if y1 is None else y1 - y0)
+        got = {(rec.tenant, rec.frame.client_id): rec.raw for rec in admitted}
+        check(len(admitted) == len(want) and got.keys() == want.keys(),
+              f"root admitted {sorted(got)}")
+        for key, raw in want.items():
+            check(got[key] == raw, f"forwarded frame {key} differs from the "
+                  "one rebuilt from the relay's journal")
+        ref = EnginePool()
+        pools.append(ref)
+        for rec in admitted:                     # the root's order
+            raw = want[(rec.tenant, rec.frame.client_id)]
+            check(ref.admit_frame(rec.tenant, wire.decode_frame(raw),
+                                  encoded_len=len(raw), raw=raw).ok,
+                  "reference admission")
+        for tenant in ("ridge", "rff"):
+            check(rep_root["weights"][tenant] == weights64(ref.solve_lifted(tenant, SIGMA)),
+                  f"root {tenant}: weights differ from the tree-associated "
+                  "in-process pool's")
+        report["root_order"] = [rec.frame.client_id for rec in admitted]
+
+        # 7. float64: the root's ridge against all 9 clients' rows, the DELTA
+        #    client's relay solve against r0's rows, rff against its stats
+        ds = data.synthetic.generate(PROC_SEED, num_clients=2 * RELAY_DENSE + 1,
+                                     samples_per_client=ROWS, dim=DIM)
+        stats64 = [compute_stats(A.double(), b.double()) for A, b in ds.clients]
+        del ds
+        r0_rows = stats64[0]
+        for k in list(range(1, RELAY_DENSE)) + [2 * RELAY_DENSE]:
+            r0_rows = r0_rows + stats64[k]
+        everyone = r0_rows
+        for k in range(RELAY_DENSE, 2 * RELAY_DENSE):
+            everyone = everyone + stats64[k]
+        errs["root_ridge_vs_f64"] = rel_err(
+            torch.tensor(rep_root["weights"]["ridge"], device="cuda"),
+            f64_solve(everyone, SIGMA))
+        errs["r0_delta_client_solve_vs_f64"] = rel_err(
+            torch.tensor(rep_delta["solve"]["weights"], device="cuda"),
+            f64_solve(r0_rows, SIGMA))
+        errs["root_rff_vs_f64"] = rel_err(
+            torch.tensor(rep_root["weights"]["rff"], device="cuda"),
+            f64_solve(ref.stats("rff"), SIGMA))
+        del stats64, r0_rows, everyone
+        check(all(e <= 1e-4 for e in errs.values()), f"relay tier: {errs}")
+
+        # 8. the root's ledger: relay frames only, their bytes the relays'
+        frames = rep_r0b["relay"]["forwards"] + rep_r1b["relay"]["forwards"]
+        led = rep_root["ledger"]
+        check(led["by_tier"] == {"relay_frames": frames, "client_frames": 0}
+              and frames == len(admitted), f"root by_tier {led['by_tier']}")
+        fwd_bytes = rep_r0b["relay"]["forwarded_bytes"] + rep_r1b["relay"]["forwarded_bytes"]
+        check(fwd_bytes == sum(len(rec.raw) for rec in admitted),
+              f"forwarded {fwd_bytes} bytes")
+        chunk_bytes = sum(u["bytes_uploaded"] for rep in (rep_r0a, rep_r0b, rep_r1b)
+                          for u in rep["relay"]["upstream"].values())
+        check(led["wire_upload_bytes"] == chunk_bytes,
+              f"root ledger {led['wire_upload_bytes']} != {chunk_bytes} bytes sent")
+        chunked = sum(len(wire.split_frame(rec.raw, max_chunk_payload=RELAY_CHUNK)) > 1
+                      for rec in admitted)
+        check(rep_root["transport"]["frames_reassembled"] == chunked,
+              f"root transport {rep_root['transport']}")
+        report["root"] = {"by_tier": led["by_tier"],
+                          "wire_upload_bytes": led["wire_upload_bytes"],
+                          "forwarded_frame_bytes": fwd_bytes,
+                          "transport": rep_root["transport"]}
+        report["relays"] = {"r0": rep_r0b["relay"], "r1": rep_r1b["relay"]}
+
+        # 9. launches: the clients' and the servers' own reports
+        launches = {name: 0 for name in reps[0]["launches"]}
+        for r in reps + [rep_delta]:
+            for name, n in r["launches"].items():
+                launches[name] += n
+        servers = {"root": proc_launches(root), "r0": proc_launches(relays["r0"]),
+                   "r0_restart": proc_launches(r0b), "r1_restart": proc_launches(r1b)}
+        for counts in servers.values():
+            for name, n in counts.items():
+                launches[name] += n
+        report["server_launches"] = servers
+        check(servers["r0_restart"]["gram_moment"] == RELAY_DELTA_BATCHES,
+              f"r0 K1 on DELTA frames: {servers['r0_restart']}")
+        for name in ("gram_moment", "rff_gram", "panel_transform", "gemm_nt"):
+            check(launches[name] > 0, f"kernel {name} was not launched on the relay path")
+
+        # 10. one forward's steps, timed in process on r0's restored state:
+        #     epoch 0 of "ridge" into a root pool behind a FrameServer, then
+        #     one more STATS frame (r1's first) and epoch 1
+        sink = EnginePool()
+        pools.append(sink)
+        relay = restored(shutil.copytree(j0 + "_epoch0", j0 + "_timing"))
+        with transport.FrameServer(sink) as srv:
+            fwd = RelayForwarder(relay, lambda: transport.TCPChannel(srv.host, srv.port),
+                                 relay_id="timing", max_chunk_payload=RELAY_CHUNK,
+                                 state_dir=os.path.join(work, "timing_state"),
+                                 policy=ForwardPolicy(max_frames=None))
+            t = {k: [] for k in ("d2h", "delta", "commit", "send")}
+            sizes = []
+            fwd._stats_arrays = timed(fwd._stats_arrays, t["d2h"])
+            fwd._delta = timed(fwd._delta, t["delta"])
+            save = timed(fwd._save_state, t["commit"])
+
+            def save_and_size(st):
+                save(st)
+                sizes.append(os.path.getsize(fwd._state_path(st.tenant)))
+            fwd._save_state = save_and_size
+            fwd._send_pending = timed(fwd._send_pending, t["send"])
+            forwards = []
+            for epoch in range(2):
+                if epoch:
+                    rec = scan_segment(os.path.join(j1 + "_ref", sorted(
+                        f for f in os.listdir(j1 + "_ref") if f.startswith("wal_"))[0])).records[0]
+                    check(relay.admit_frame("ridge", rec.frame, encoded_len=len(rec.raw),
+                                            raw=rec.raw).ok, "timing admission")
+                t0 = time.perf_counter()
+                check(fwd.forward_tenant("ridge"), "timing forward")
+                total = time.perf_counter() - t0
+                pending, final = t["commit"][-2:]
+                upload = t["send"][-1] - final
+                forwards.append({
+                    "total_s": total, "d2h_s": t["d2h"][-1], "delta_s": t["delta"][-1],
+                    "encode_s": total - t["d2h"][-1] - t["delta"][-1] - pending - t["send"][-1],
+                    "commit_s": pending + final, "upload_s": upload,
+                    "pending_record_bytes": sizes[-2], "state_record_bytes": sizes[-1]})
+            fwd.close(forward=False)
+        report["forward_steps"] = forwards
+        report["forward_frame_bytes"] = len(want[("ridge", wire.relay_client_id("r0", 0))])
+    finally:
+        for p in procs:
+            p.kill()
+        for pool in pools:
+            pool.close()
+    del pools
+    gc.collect()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return {"phase": "relay_serving", "dim": DIM, "rows_per_client": ROWS,
+            "clients": {"dense": 2 * RELAY_DENSE + 1, "rff": RELAY_RFF},
+            "errors": errs, "report": report, "steps_s": steps,
+            "launches": launches, "peak_mem_gb_this_process": peak,
+            "seconds": time.perf_counter() - t_all}
+
+
 def kernel_sequence(fn) -> list[str]:
     """Names of the device kernels that ``fn`` launches, in the order the
     card ran them (``torch.profiler``'s device events)."""
@@ -2279,6 +2651,8 @@ def main() -> int:
     emit(wire_line)
     del ds
     emit(process_serving_phase())
+    relay_line = relay_serving_phase()
+    emit(relay_line)
     serving = model_serving_phase()
     emit(serving)
     for kname, row in rows.items():
@@ -2286,8 +2660,9 @@ def main() -> int:
                else serving if kname == "swa_flash" else path)
         row["launches"] = run["launches"][kname]
         row["wire_launches"] = wire_line["launches"][kname]
+        row["relay_launches"] = relay_line["launches"][kname]
     order = ("name", "route", "source", "replaces", "launches", "wire_launches",
-             "max_abs_err",
+             "relay_launches", "max_abs_err",
              "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in order if k in row} for row in rows.values()]})
     print(smi(), flush=True)

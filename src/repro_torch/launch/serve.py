@@ -23,6 +23,13 @@ Modes:
     restart on the same directory restores the state bitwise with no
     client re-uploading; SIGTERM commits a final snapshot before exit.
     ``--chaos-*`` puts a seeded fault-injecting proxy in front.
+  * ``relay --upstream HOST:PORT`` — the same server as the middle tier of
+    an aggregation tree (the reference's relay mode, ``server.relay``): it
+    admits its clients as above into a ``tier="relay"`` pool and a
+    ``RelayForwarder`` ships one fused delta frame per tenant upstream —
+    every ``--forward-every`` admitted frames, at ``--forward-staleness``,
+    and always at exit or SIGTERM — with its forward state durable under
+    ``--relay-state-dir`` (default ``<journal-dir>/relay_state``).
 
 Run as
 
@@ -32,14 +39,16 @@ Run as
         [--dim 128 --tenants 8 --stream-deltas 64] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --mode fusion \\
         --listen 0 --expect-uploads 3 [--journal-dir DIR] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode relay \\
+        --upstream 127.0.0.1:PORT --journal-dir DIR --relay-id r0 \\
+        [--listen 0] [--device cpu]
 
 Not ported yet, and rejected by the argument parser naming their ROADMAP
 item: the sharded and auto placements (``--sharded-tenants``,
-``--auto-tenants``; queue 1, item 15) and the relay tier (``--mode relay``,
-``--upstream``, ``--relay-id``, ``--forward-*``, ``--relay-state-dir`` and
-the server's ``--max-chunk-payload``, which only the relay's forwarder
-reads; item 13). ``--compilation-cache`` is not defined: it names a JAX
-compilation cache.
+``--auto-tenants``; queue 1, item 15). ``--compilation-cache`` is not
+defined: it names a JAX compilation cache. Before its report, a
+``--listen`` process prints ``[serve_wire] launches {json}``, its launches
+of each CUDA kernel.
 """
 from __future__ import annotations
 
@@ -393,7 +402,14 @@ def serve_wire(*, port: int = 0, expect_uploads: int = 0,
                journal_dir: str | None = None,
                snapshot_every: int | None = None,
                journal_fsync: bool = True,
-               chaos=None, chaos_seed: int = 0, device="cuda") -> dict:
+               chaos=None, chaos_seed: int = 0,
+               upstream: str | None = None, relay_id: str = "relay0",
+               forward_every: int | None = 32,
+               forward_staleness_s: float | None = None,
+               forward_interval_s: float = 0.25,
+               relay_state_dir: str | None = None,
+               max_chunk_payload: int | None = None,
+               device="cuda") -> dict:
     """Run the federation server: an ``EnginePool`` on ``device`` behind a
     ``fed.transport.FrameServer`` speaking the ``fed.wire`` protocol.
 
@@ -416,24 +432,63 @@ def serve_wire(*, port: int = 0, expect_uploads: int = 0,
     fault-injecting TCP proxy in front of the server; clients connect to the
     printed proxy port.
 
-    The "listening" and "recovered" lines and the final ``[serve_wire]
-    report {json}`` line are flushed at once: a parent process reads them
-    from a pipe.
+    ``upstream="HOST:PORT"`` runs this server as a RELAY (``server.relay``):
+    the pool is built with ``tier="relay"`` and a ``RelayForwarder`` ships
+    ONE fused delta frame per tenant upstream — every ``forward_every``
+    admitted frames, at ``forward_staleness_s`` (the poller looks every
+    ``forward_interval_s``), and always at exit, SIGTERM included — stamped
+    with ``relay_id`` so that upstream dedup makes a re-forward after a
+    lost ACK idempotent, and streamed in chunks of ``max_chunk_payload``
+    payload bytes when set. Forward state persists under
+    ``relay_state_dir`` (default ``<journal_dir>/relay_state``), so a
+    restarted relay re-sends its pending frame before it listens; the
+    report carries the forwarder's ``relay`` summary.
+
+    The "listening", "recovered" and "re-sent" lines and the final
+    ``[serve_wire] report {json}`` line are flushed at once: a parent
+    process reads them from a pipe. Before the report, a ``[serve_wire]
+    launches {json}`` line gives this process's launches of each CUDA
+    kernel (none on the CPU); the report keeps the reference's keys.
     """
+    import os
     import signal
 
     from repro_torch.fed import transport
+    from repro_torch.kernels import gram
     from repro_torch.server import CoalescerPolicy, EnginePool
 
     policy = CoalescerPolicy(max_rank=coalesce_rank,
                              max_staleness_s=flush_staleness_s)
     pool = EnginePool(max_warm=max_warm, default_coalesce=policy,
                       journal_dir=journal_dir, snapshot_every=snapshot_every,
-                      journal_fsync=journal_fsync, device=device)
+                      journal_fsync=journal_fsync,
+                      tier="relay" if upstream is not None else "root",
+                      device=device)
     if pool.replayed_frames or pool.restored_tenants:
         print(f"[serve_wire] recovered {pool.restored_tenants} tenants from "
               f"snapshot + {pool.replayed_frames} replayed journal frames",
               flush=True)
+    forwarder = None
+    if upstream is not None:
+        from repro_torch.server.relay import ForwardPolicy, RelayForwarder
+
+        host, _, up_port = upstream.rpartition(":")
+        state = relay_state_dir or (os.path.join(journal_dir, "relay_state")
+                                    if journal_dir else None)
+        if state is None:
+            pool.close()
+            raise ValueError("relay mode needs relay_state_dir (or a "
+                             "journal_dir to put it under)")
+        forwarder = RelayForwarder(
+            pool, lambda: transport.TCPChannel(host, int(up_port)),
+            relay_id=relay_id, state_dir=state,
+            policy=ForwardPolicy(max_frames=forward_every,
+                                 max_staleness_s=forward_staleness_s),
+            max_chunk_payload=max_chunk_payload)
+        resumed = forwarder.resume()
+        if resumed:
+            print(f"[serve_wire] relay {relay_id}: re-sent {resumed} pending "
+                  f"forward frame(s) from a previous incarnation", flush=True)
     term = threading.Event()
     installed = False
     try:
@@ -458,6 +513,8 @@ def serve_wire(*, port: int = 0, expect_uploads: int = 0,
                       flush=True)
             print(f"[serve_wire] listening on {srv.host}:{srv.port}",
                   flush=True)
+            if forwarder is not None:
+                forwarder.start(forward_interval_s)
             deadline = time.monotonic() + timeout_s
             while time.monotonic() < deadline and not term.is_set():
                 if (expect_uploads
@@ -465,6 +522,15 @@ def serve_wire(*, port: int = 0, expect_uploads: int = 0,
                         and srv.active_connections == 0):
                     break
                 time.sleep(0.02)
+            relay_summary = None
+            if forwarder is not None:
+                # The shutdown contract, SIGTERM included: whatever the
+                # forwarding policy left unshipped goes upstream now, so
+                # the root holds this relay's whole fusion before exit.
+                forwarder.stop()
+                forwarder.forward_all()
+                relay_summary = forwarder.summary()
+                forwarder.close(forward=False)
             solves = {}
             tenant_reports = {}
             for name in pool.tenant_names:
@@ -492,9 +558,13 @@ def serve_wire(*, port: int = 0, expect_uploads: int = 0,
                 "ledger": ledger,
                 "pool": pool.summary(),
             }
+            if relay_summary is not None:
+                report["relay"] = relay_summary
             if proxy is not None:
                 report["chaos"] = proxy.schedule.summary()
     finally:
+        if forwarder is not None:
+            forwarder.close(forward=False)   # idempotent; the error path
         if proxy is not None:
             proxy.stop()
         if installed:
@@ -507,6 +577,12 @@ def serve_wire(*, port: int = 0, expect_uploads: int = 0,
     print(f"[serve_wire] ledger: {ledger['wire_upload_bytes']} upload bytes "
           f"+ {ledger['wire_download_bytes']} download bytes on the wire "
           f"across {len(report['tenants'])} tenants")
+    if report.get("relay") is not None:
+        rs = report["relay"]
+        print(f"[serve_wire] relay {rs['relay_id']}: {rs['forwards']} "
+              f"upstream frames ({rs['forwarded_bytes']} bytes), "
+              f"{rs['duplicate_acks']} duplicate acks, "
+              f"{rs['resumed_pending']} resumed pending")
     for name, w in solves.items():
         print(f"[serve_wire] tenant {name}: |w({sigma})| = "
               f"{float(np.linalg.norm(w)):.6f}")
@@ -521,6 +597,7 @@ def serve_wire(*, port: int = 0, expect_uploads: int = 0,
                       f"dof={inf['dof']:.2f} sigma2={inf['sigma2']:.6g} "
                       f"max stderr={max(rep['stderr']):.6g} "
                       f"({int(round(inf['level'] * 100))}% CI served)")
+    print(f"[serve_wire] launches {json.dumps(gram.launch_counts())}")
     print(f"[serve_wire] report {json.dumps(report)}", flush=True)
     return report
 
@@ -539,15 +616,13 @@ class _NotPorted(argparse.Action):
                      f"ROADMAP queue 1, {self.item}")
 
 
-_RELAY = "item 13 (the relay tier)"
 _SHARDED = "item 15 (the sharded backend)"
 
 
 def make_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["model", "fusion", "relay"],
-                    default="model",
-                    help=f"relay is not ported yet ({_RELAY})")
+                    default="model")
     ap.add_argument("--arch", choices=list(configs.ARCH_IDS))
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True, help="the reduced same-family config "
@@ -636,10 +711,29 @@ def make_parser() -> argparse.ArgumentParser:
                     help="seed of the chaos proxy's fault schedule")
     for flag in ("--sharded-tenants", "--auto-tenants"):
         ap.add_argument(flag, action=_NotPorted, item=_SHARDED)
-    for flag in ("--upstream", "--relay-id", "--forward-every",
-                 "--forward-staleness", "--forward-interval",
-                 "--relay-state-dir", "--max-chunk-payload"):
-        ap.add_argument(flag, action=_NotPorted, item=_RELAY)
+    ap.add_argument("--upstream", type=str, default=None, metavar="HOST:PORT",
+                    help="with --mode relay: the parent aggregator to "
+                         "forward fused per-tenant delta frames to")
+    ap.add_argument("--relay-id", type=str, default="relay0",
+                    help="stable relay identity stamped into forwarded "
+                         "frames (the upstream dedup key; unique per relay)")
+    ap.add_argument("--forward-every", type=int, default=32, metavar="N",
+                    help="forward a tenant after N admitted upload frames")
+    ap.add_argument("--forward-staleness", type=float, default=None,
+                    metavar="SECONDS",
+                    help="also forward once the oldest unforwarded "
+                         "admission is this old")
+    ap.add_argument("--forward-interval", type=float, default=0.25,
+                    metavar="SECONDS",
+                    help="relay poller period (how often the forwarding "
+                         "policy is evaluated)")
+    ap.add_argument("--relay-state-dir", type=str, default=None, metavar="DIR",
+                    help="durable forward-state directory (default: "
+                         "<journal-dir>/relay_state)")
+    ap.add_argument("--max-chunk-payload", type=int, default=None,
+                    metavar="BYTES",
+                    help="stream forwarded frames larger than BYTES of "
+                         "payload as continuation chunks")
     ap.add_argument("--device", default="cuda")
     return ap
 
@@ -661,11 +755,12 @@ def _chaos_config(args):
 def main(argv=None) -> None:
     ap = make_parser()
     args = ap.parse_args(argv)
-    if args.mode == "relay":
-        ap.error(f"--mode relay is not ported yet: it waits for ROADMAP "
-                 f"queue 1, {_RELAY}")
-    if args.mode == "fusion" and args.listen is not None:
-        serve_wire(port=args.listen, expect_uploads=args.expect_uploads,
+    if args.mode == "relay" and args.upstream is None:
+        ap.error("--mode relay requires --upstream HOST:PORT")
+    if args.mode == "relay" or (args.mode == "fusion"
+                                and args.listen is not None):
+        # a relay listens even without --listen (an ephemeral port)
+        serve_wire(port=args.listen or 0, expect_uploads=args.expect_uploads,
                    timeout_s=args.serve_timeout, sigma=args.sigma,
                    inference=args.inference, ci_level=args.ci_level,
                    coalesce_rank=args.coalesce_rank,
@@ -675,6 +770,13 @@ def main(argv=None) -> None:
                    snapshot_every=args.snapshot_every,
                    journal_fsync=not args.no_journal_fsync,
                    chaos=_chaos_config(args), chaos_seed=args.chaos_seed,
+                   upstream=args.upstream if args.mode == "relay" else None,
+                   relay_id=args.relay_id,
+                   forward_every=args.forward_every,
+                   forward_staleness_s=args.forward_staleness,
+                   forward_interval_s=args.forward_interval,
+                   relay_state_dir=args.relay_state_dir,
+                   max_chunk_payload=args.max_chunk_payload,
                    device=args.device)
         return
     if args.mode == "fusion":

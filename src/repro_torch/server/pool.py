@@ -46,7 +46,8 @@ card unless the caller asks for the CPU); a restored tenant's arrays land
 there too. The Remark-4 PSD guard is not ported yet and raises
 ``NotImplementedError`` naming its ROADMAP item; its counter in
 ``summary()`` stays at 0. Relay-forwarded frames are counted as the JAX
-package counts them; the relay itself is not ported yet.
+package counts them; ``server.relay`` forwards a ``tier="relay"`` pool's
+fusion upstream.
 
 Thread-safety contract: the pool's wrappers are safe for concurrent use.
 ``get()`` hands back the raw engine for single-threaded convenience.

@@ -912,3 +912,71 @@ def test_client_process_on_card_uploads_to_server_on_card(card, tmp_path):
              for A, b in ds.clients]
     ref = fusion.solve_ridge(stats[0] + stats[1], 0.01)
     assert _rel(torch.tensor(report["weights"]["t"]), ref) <= 1e-4
+
+
+# -- the relay tier (server.relay) on the card ----------------------------------
+
+@pytest.mark.parametrize("feature", [None, "rff"])
+def test_two_tier_forward_on_card_is_the_relays_fused_stats(card, tmp_path,
+                                                           feature):
+    """A journaled relay pool on the card (STATS frames, then DELTA rows
+    through K1; an rff tenant's RFF frames) forwards into a root pool on
+    the card: one forward leaves the root's fused (G, h) bitwise the
+    relay's, and with small-integer rows a second epoch telescopes to the
+    relay's again, bitwise. The forward's ``now`` is a host copy."""
+    from repro_torch.fed import transport, wire
+    from repro_torch.server.relay import ForwardPolicy, RelayForwarder
+
+    d = 96
+    rng = np.random.default_rng(7)
+    fm = (None if feature is None
+          else core.FeatureMap("rff", seed=5, d_orig=d, m=128, lengthscale=9.0))
+
+    def rows(n):
+        return (torch.from_numpy(rng.integers(-3, 4, (n, d)).astype(np.float32)),
+                torch.from_numpy(rng.integers(-3, 4, n).astype(np.float32)))
+
+    def frame(k):
+        A, b = rows(64)
+        if fm is None:
+            return wire.StatsFrame.from_stats(core.compute_stats(A.to(card), b.to(card)),
+                                              client_id=f"c{k}", moments=True)
+        p = PackedStats.pack(fm.stats(A.to(card), b.to(card)))
+        return wire.RFFFrame(tri=wire.host_array(p.tri), moment=wire.host_array(p.moment),
+                             count=int(p.count), dim=int(p.dim), d_orig=d, seed=fm.seed,
+                             fhash=fm.fhash, lengthscale=fm.lengthscale, client_id=f"c{k}")
+
+    def send(disp, frames):
+        for f in frames:
+            raw = wire.encode_frame(f)
+            c = transport.FrameClient(transport.LoopbackChannel(disp))
+            c.hello("t")
+            assert c.upload_raw(raw).ok
+
+    root = server.EnginePool()
+    relay = server.EnginePool(journal_dir=tmp_path, tier="relay")
+    rdisp = transport.WireDispatcher(relay)
+    fwd = RelayForwarder(relay, lambda: transport.LoopbackChannel(
+        transport.WireDispatcher(root)), relay_id="r0",
+        state_dir=tmp_path / "relay_state", policy=ForwardPolicy(max_frames=None))
+    send(rdisp, [frame(k) for k in range(3)])
+    assert fwd.forward_all() == 1
+    for field in ("gram", "moment"):
+        assert torch.equal(getattr(root.stats("t"), field),
+                           getattr(relay.stats("t"), field))
+        host = fwd._state("t").last[field]
+        assert isinstance(host, np.ndarray)
+        assert host.tobytes() == getattr(relay.stats("t"), field).cpu().numpy().tobytes()
+    assert root.stats("t").gram.is_cuda
+    if fm is None:
+        A, b = rows(40)
+        send(rdisp, [wire.DeltaRowsFrame(A=A.numpy(), b=b.numpy(), client_id="s")])
+    else:
+        send(rdisp, [frame(9)])
+    assert fwd.forward_all() == 1
+    assert torch.equal(root.stats("t").gram, relay.stats("t").gram)
+    assert torch.equal(root.stats("t").moment, relay.stats("t").moment)
+    assert root.ledger()["by_tier"] == {"relay_frames": 2, "client_frames": 0}
+    fwd.close(forward=False)
+    relay.close()
+    root.close()
