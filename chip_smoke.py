@@ -15,6 +15,16 @@ kernels' launch counts set to 0 just before it and read just after:
   streamed rows' factor updates must launch P on every panel and K2 on
   every panel but the last, and a profiled rank-64 update must run them
   as P, K2 pairs with no other kernel between;
+- Algorithm 2 and the paper's baselines on the same data
+  (``private_federation``): DP one-shot with the PSD repair on 4 of the 8
+  clients, each client's upload equal to its K1 statistics plus its
+  threefry noise bitwise and the fused noise against a float64 rebuild, the
+  repair equal to ``psd_repair`` of the unrepaired fused Gram, the pool's
+  Remark-4 guard firing on those uploads and not on clean ones; CG on the
+  8 clients' fused statistics against float64 with its residual bound;
+  FedAvg and FedProx over the 8 clients; the paper's own configuration
+  (``configs.RIDGE``) through one-shot, the baselines, DP one-shot with and
+  without the repair and DP-FedAvg;
 - the §IV-F feature tenants at full width: a Gaussian sketch of the same
   data to m = 1024 and random Fourier features (D = 4096) of d = 128 data,
   each through Phase 1 on kernels K3 / K4, the packed upload, the engine in
@@ -69,7 +79,10 @@ kernels' launch counts set to 0 just before it and read just after:
   d_ff 21504, vocab 262144, bf16), depth cut to 2 stages + the 2-layer SWA
   tail (14 layers: 12 sliding-window, 2 full), random weights from a seed:
   a batch of 4 prompts of 4096 tokens prefilled (every attention layer on
-  kernel K5), then 32 greedy tokens decoded.
+  kernel K5), then 32 greedy tokens decoded; then a one-shot linear probe
+  of that model's frozen per-token features (4 clients of 2 x 1024 tokens,
+  K5 in every layer), the fused head within 1e-3 of a float64 centralized
+  solve.
 
 Results are checked against float64 references, and the model against the
 plain attention inside it (decode) and K5's plain version. It prints one JSON line
@@ -83,6 +96,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import signal
 import socket
@@ -168,6 +182,22 @@ RELAY_SERVE_TIMEOUT = 900           # a server that the phase ends by signal
 MODEL_ARCH, MODEL_STAGES = "gemma3-27b", 2
 MODEL_BATCH, MODEL_PROMPT, MODEL_GEN = 4, 4096, 32
 MODEL_SEED = 0
+
+# Algorithm 2 and the paper's baselines (the private_federation phase), on
+# the main path's data: DP one-shot (eps 1, delta 1e-5, key 7) on 4 of its
+# 8 clients (each client's d x d noise is drawn on the host, ~8 s at d
+# 4096), the pool's Remark-4 guard, CG with 100 iterations, FedAvg and
+# FedProx (mu 0.01) for 200 rounds of 5 epochs at lr 0.01; then the paper's
+# own configuration (configs.RIDGE) with DP at eps 1, 5, 10; then a one-shot
+# probe of the served gemma3-27b: 4 clients of 2 prompts x 1024 tokens,
+# per-token final-norm features, targets with 1 and 4 columns, sigma set
+# so that the float64 kappa(G + sigma I) is 1e3.
+PRIV_DP_CLIENTS, PRIV_EPS, PRIV_DELTA, PRIV_KEY = 4, 1.0, 1e-5, 7
+PRIV_CG_ITERS = 100
+PRIV_ROUNDS, PRIV_EPOCHS, PRIV_LR, PRIV_MU = 200, 5, 0.01, 0.01
+PRIV_EPS_GRID, PRIV_RIDGE_SEED = (1.0, 5.0, 10.0), 0
+PROBE_CLIENTS, PROBE_PROMPTS, PROBE_LEN, PROBE_TARGETS = 4, 2, 1024, 4
+PROBE_SEED, PROBE_KAPPA = 1, 1e3
 
 # Published peaks, NVIDIA data sheets: memory bytes/s, FP32 operations/s
 # outside the tensor cores (the bound of K2 and P, float32 work), dense
@@ -968,8 +998,12 @@ def main_path_phase() -> tuple:
             "K2" if "gemm_nt_panel_kernel" in n else n[:60] for n in names]
     check("P" in tags, f"no P in the profiled update: {tags[:8]}")
     first, last = tags.index("P"), len(tags) - 1 - tags[::-1].index("P")
-    check(tags[first:last + 1] == ["P", "K2"] * (panels - 1) + ["P"],
-          f"the update's panels did not run as P, K2 pairs: {tags[first:first + 8]}")
+    want = ["P", "K2"] * (panels - 1) + ["P"]
+    got = tags[first:last + 1]
+    bad = next((i for i, (g, w) in enumerate(zip(got, want)) if g != w),
+               min(len(got), len(want)))
+    check(got == want, f"the update's panels did not run as P, K2 pairs: {len(got)} "
+          f"kernels for {len(want)}, first difference at {bad}: {got[max(bad - 2, 0):bad + 4]}")
     del L
     return ds, res.weights, {"phase": "main_path", "dim": DIM, "clients": CLIENTS,
             "rows_per_client": ROWS, "dtype": "float32", "errors": errs,
@@ -980,6 +1014,288 @@ def main_path_phase() -> tuple:
                                 "panel_kernels": last + 1 - first},
             "upload_wire_bytes_per_client": upload,
             "engine": eng.summary(),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "seconds": time.perf_counter() - t_all}
+
+
+# -- Algorithm 2 and the paper's baselines on the main path's data ------------
+
+def dp_noise(key, d: int, tau_g: float, tau_h: float):
+    """Algorithm 2 lines 4-6 for one client key, on the host: the
+    symmetrized (E + E^T) / sqrt(2) of tau_g-scaled normals for G and
+    tau_h-scaled normals for h, float32, from ``core.threefry``."""
+    from repro_torch.core import threefry
+
+    kg, kh = threefry.split(key)
+    E = threefry.normal(kg, (d, d)) * np.float32(tau_g)
+    E = (E + E.T) / np.float32(math.sqrt(2.0))
+    return E, threefry.normal(kh, (d,)) * np.float32(tau_h)
+
+
+def test_mse(ds, w: torch.Tensor) -> float | None:
+    """Test MSE of ``w``, or None where the weights are not finite (the
+    Remark-4 failure: an indefinite G~ + sigma I has no Cholesky factor)."""
+    if not bool(torch.isfinite(w).all()):
+        return None
+    return float(torch.mean((ds.test_A @ w - ds.test_b) ** 2))
+
+
+def private_federation_phase(ds, peaks) -> dict:
+    from repro_torch import configs, core, data, fed
+    from repro_torch.core import privacy, threefry
+    from repro_torch.kernels import gram as K
+    from repro_torch.server import EnginePool, FusionEngine
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def k1() -> int:
+        return K.launch_counts()["gram_moment"]
+
+    steps, errs, report = {}, {}, {}
+    t_all = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+
+    # 1. Algorithm 2 at d 4096 on 4 of the 8 clients, the guard's repair on
+    #    (run_one_shot(psd_repair=True)), then each client's upload rebuilt
+    #    here: the same clipped rows through K1 plus the same threefry noise.
+    ds4 = dataclasses.replace(ds, clients=ds.clients[:PRIV_DP_CLIENTS])
+    dp, key = (PRIV_EPS, PRIV_DELTA), threefry.key(PRIV_KEY)
+    clip = (1.2 * DIM ** 0.5, 4.0)                  # client_phase's default
+    s_g, s_h = privacy.sensitivities(*clip)
+    tau_g, tau_h = privacy.gaussian_tau(*dp, s_g), privacy.gaussian_tau(*dp, s_h)
+    report["dp"] = {"eps": PRIV_EPS, "delta": PRIV_DELTA, "clients": PRIV_DP_CLIENTS,
+                    "clip": list(clip), "tau_g": tau_g, "tau_h": tau_h}
+    t0, before = time.perf_counter(), k1()
+    rep = fed.run_one_shot(ds4, SIGMA, dp=dp, dp_key=key, psd_repair=True)
+    sync()
+    steps["run_one_shot_dp_repair_s"] = time.perf_counter() - t0
+    check(k1() - before == PRIV_DP_CLIENTS, "K1 launches of run_one_shot(dp=...)")
+    t0, before = time.perf_counter(), k1()
+    uploads = fed.client_phase(ds4, dp=dp, dp_key=key)
+    sync()
+    steps["client_phase_dp_s"] = time.perf_counter() - t0
+    check(k1() - before == PRIV_DP_CLIENTS, "K1 launches of client_phase(dp=...)")
+
+    keys = threefry.split(key, PRIV_DP_CLIENTS)    # over all K of ds4
+    G64 = torch.zeros((DIM, DIM), dtype=torch.float64, device="cuda")
+    h64 = torch.zeros(DIM, dtype=torch.float64, device="cuda")
+    steps["clip_k1_s"], steps["host_draw_s"] = [], []
+    for k, (A, b) in enumerate(ds4.clients):
+        t0 = time.perf_counter()
+        Ac, bc = privacy.clip_rows(A, b, clip_a=clip[0], clip_b=clip[1])
+        s = core.compute_stats(Ac, bc)
+        sync()
+        steps["clip_k1_s"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        E, e = dp_noise(keys[k], DIM, tau_g, tau_h)
+        steps["host_draw_s"].append(time.perf_counter() - t0)
+        E, e = torch.from_numpy(E).cuda(), torch.from_numpy(e).cuda()
+        want = fed.PackedStats.pack(core.SuffStats(s.gram + E, s.moment + e, s.count))
+        check(torch.equal(uploads[k].tri, want.tri)
+              and torch.equal(uploads[k].moment, want.moment),
+              f"DP client {k}'s upload is not its K1 statistics plus its noise, bitwise")
+        A64 = Ac.double()
+        G64 += A64.T @ A64 + E.double()
+        h64 += A64.T @ bc.double() + e.double()
+        del Ac, bc, A64, s, E, e, want
+    raw = FusionEngine.from_clients({k: p.unpack() for k, p in uploads.items()}).stats
+    errs["dp_fused_g_vs_f64_fro"] = fro_rel(raw.gram, G64)
+    errs["dp_fused_h_vs_f64"] = fro_rel(raw.moment, h64)
+    check(errs["dp_fused_g_vs_f64_fro"] <= 1e-5 and errs["dp_fused_h_vs_f64"] <= 1e-5,
+          f"noisy fused statistics against the float64 rebuild: {errs}")
+    del G64, h64
+
+    t0 = time.perf_counter()
+    lam = torch.linalg.eigvalsh(raw.gram)
+    sync()
+    steps["guard_eigvalsh_s"] = time.perf_counter() - t0
+    report["dp_fused_eig"] = {"min": float(lam[0]), "max": float(lam[-1])}
+    check(float(lam[0]) < 0, "the DP noise left the fused Gram PSD: the guard cannot fire")
+    t0 = time.perf_counter()
+    fixed = privacy.psd_repair(raw)
+    sync()
+    steps["psd_repair_s"] = time.perf_counter() - t0
+    repeatable = torch.equal(fixed.gram, privacy.psd_repair(raw).gram)
+    report["eigh_repeatable"] = repeatable
+    G_rep = rep.extras["fused_stats"].gram
+    if repeatable:
+        check(torch.equal(G_rep, fixed.gram),
+              "run_one_shot's repair differs from psd_repair of its fused stats")
+    else:               # cuSOLVER's eigh differs run to run: hold it to 1e-6
+        errs["repair_vs_psd_repair_fro"] = fro_rel(G_rep, fixed.gram)
+        check(errs["repair_vs_psd_repair_fro"] <= 1e-6, f"repair: {errs}")
+    lam = torch.linalg.eigvalsh(G_rep)
+    report["repaired_eig"] = {"min": float(lam[0]), "max": float(lam[-1])}
+    check(float(lam[0]) >= -1e-4 * float(lam[-1]), f"repaired Gram: {report}")
+    # The float32 (V max(lam, 0)) V^T leaves the clipped eigenvalues at
+    # +-eps32 lam_max, far beyond sigma 0.01 at lam_max ~ 7e6: G~ + 0.01 I
+    # stays indefinite, so run_one_shot's weights are NaN, as the
+    # reference's are. The repaired statistics solve at sigma_dp = 1e-3
+    # lam_max, above d eps32 lam_max (a Cholesky's backward error).
+    sigma_dp = 1e-3 * float(lam[-1])
+    report["dp_weights_finite"] = {str(SIGMA): bool(torch.isfinite(rep.weights).all())}
+    t0 = time.perf_counter()
+    w_fixed = FusionEngine.from_stats(fixed).solve(sigma_dp)
+    sync()
+    steps["solve_after_repair_s"] = time.perf_counter() - t0
+    w_dp = rep.extras["engine"].solve(sigma_dp)
+    report["dp_weights_finite"]["sigma_dp"] = sigma_dp
+    check(bool(torch.isfinite(w_dp).all()), f"DP weights not finite at sigma {sigma_dp}")
+    check(torch.equal(w_fixed, w_dp) or not repeatable,
+          "the repaired solve differs from run_one_shot's engine's")
+    clean4 = fed.run_one_shot(ds4, SIGMA)
+    report["test_mse"] = {"dp_repaired_sigma_0.01": test_mse(ds, rep.weights),
+                          "dp_repaired_sigma_dp": test_mse(ds, w_dp),
+                          "clean": test_mse(ds, clean4.weights)}
+    del lam, fixed, w_fixed
+
+    # 2. the pool's Remark-4 guard on the same 4 DP payloads, and on clean ones
+    pool = EnginePool()
+    try:
+        t0 = time.perf_counter()
+        pool.create_tenant("dp", payloads=uploads, placement="dense", psd_guard=True)
+        sync()
+        steps["pool_guarded_admission_s"] = time.perf_counter() - t0
+        t = pool.tenant("dp")
+        report["pool_guard"] = {"psd_repairs": t.psd_repairs,
+                                "guard_min_eig": t.guard_min_eig}
+        check(t.psd_repairs == 1 and t.guard_min_eig < 0, f"guard: {report['pool_guard']}")
+        if repeatable:
+            check(torch.equal(pool.get("dp").stats.gram, G_rep),
+                  "the pool's repair differs from run_one_shot's")
+            check(torch.equal(pool.solve("dp", sigma_dp), w_dp),
+                  "the guarded tenant's solve differs from run_one_shot's")
+        else:
+            errs["pool_vs_run_fro"] = fro_rel(pool.get("dp").stats.gram, G_rep)
+            check(errs["pool_vs_run_fro"] <= 1e-6, f"pool repair: {errs}")
+        pool.create_tenant("clean", payloads=fed.client_phase(ds4), placement="dense",
+                           psd_guard=True)
+        report["pool_guard"]["clean_psd_repairs"] = pool.tenant("clean").psd_repairs
+        report["pool_guard"]["clean_min_eig"] = pool.tenant("clean").guard_min_eig
+        report["pool_guard"]["summary_psd_repairs"] = pool.summary()["psd_repairs"]
+        check(pool.tenant("clean").psd_repairs == 0 and pool.summary()["psd_repairs"] == 1,
+              f"guard: {report['pool_guard']}")
+    finally:
+        pool.close()
+    del pool, uploads, rep, raw, G_rep, clean4, w_dp
+
+    # 3. the equilibrium: CG on the 8 clients' clean fused statistics
+    clean = fed.run_one_shot(ds, SIGMA)
+    fused = clean.extras["fused_stats"]
+    w64 = f64_solve(fused, SIGMA)
+    w_cg = core.solve_cg(fused, SIGMA, iters=PRIV_CG_ITERS)
+    errs["cg_vs_f64"] = rel_err(w_cg, w64)
+    check(errs["cg_vs_f64"] <= 1e-5, f"CG: {errs}")
+    steps["solve_cg_ms"] = cuda_ms(lambda: core.solve_cg(fused, SIGMA, iters=PRIV_CG_ITERS),
+                                   reps=3)
+    s64 = core.SuffStats(fused.gram.double(), fused.moment.double(), fused.count)
+    true_err = float(torch.linalg.vector_norm(w_cg.double() - w64))
+    report["cg"] = {"iters": PRIV_CG_ITERS, "true_err": true_err,
+                    "residual_bound_f64": float(core.residual_bound(s64, SIGMA,
+                                                                    w_cg.double())),
+                    "residual_bound_f32": float(core.residual_bound(fused, SIGMA, w_cg)),
+                    "residual_norm": float(torch.linalg.vector_norm(
+                        core.equilibrium_residual(fused, SIGMA, w_cg)))}
+    check(report["cg"]["residual_bound_f64"] >= true_err, f"CG bound: {report['cg']}")
+    del s64, w64, w_cg
+
+    # 4. FedAvg and FedProx at full width: 200 rounds of 5 epochs on the 8 clients
+    cfg = fed.IterativeConfig(rounds=PRIV_ROUNDS, lr=PRIV_LR, local_epochs=PRIV_EPOCHS,
+                              sigma=SIGMA)
+    rows_bytes = sum(A.numel() * A.element_size() for A, _ in ds.clients)
+    floor_s = 2 * rows_bytes * PRIV_ROUNDS * PRIV_EPOCHS / peaks[0]
+    base = {"one_shot_test_mse": test_mse(ds, clean.weights),
+            "one_shot_upload_floats": clean.comm.upload_floats_per_client,
+            "crossover_rounds": fed.crossover_rounds(DIM), "bytes_floor_s": floor_s}
+    for name, c in (("fedavg", cfg), ("fedprox", dataclasses.replace(cfg, prox_mu=PRIV_MU))):
+        t0 = time.perf_counter()
+        res = fed.run_iterative(ds, c)
+        sync()
+        wall = time.perf_counter() - t0
+        check(bool(torch.isfinite(res.weights).all()), f"{name} weights not finite")
+        base[name] = {"wall_s": wall, "loop_s": res.wall_time_s,
+                      "test_mse": test_mse(ds, res.weights),
+                      "upload_floats": res.comm.upload_floats_per_client}
+        del res
+    report["baselines_d4096"] = base
+    del clean, fused
+
+    # 5. the paper's own configuration (configs.RIDGE, §V-A): one-shot, the
+    #    baselines, DP one-shot with and without the repair, DP-FedAvg
+    rc = configs.RIDGE
+    dsp = data.synthetic.generate(PRIV_RIDGE_SEED, num_clients=rc.num_clients,
+                                  samples_per_client=rc.samples_per_client, dim=rc.dim,
+                                  gamma=rc.gamma, noise_std=rc.noise_std)
+    it = fed.IterativeConfig(lr=rc.fedavg_lr, local_epochs=rc.fedavg_epochs, sigma=rc.sigma)
+    t0 = time.perf_counter()
+    one = fed.run_one_shot(dsp, rc.sigma)
+    runs = {"one_shot": one.weights,
+            "centralized": fed.run_centralized(dsp, rc.sigma).weights}
+    avg = fed.run_iterative(dsp, it)
+    runs["fedavg"] = avg.weights
+    runs["fedprox"] = fed.run_iterative(dsp, dataclasses.replace(
+        it, prox_mu=rc.fedprox_mu)).weights
+    for eps in PRIV_EPS_GRID:
+        for repair in (False, True):
+            runs[f"dp_one_shot_eps{eps:g}" + ("_repaired" if repair else "")] = \
+                fed.run_one_shot(dsp, rc.sigma, dp=(eps, PRIV_DELTA), dp_key=key,
+                                 psd_repair=repair).weights
+        runs[f"dp_fedavg_eps{eps:g}"] = fed.run_iterative(
+            dsp, dataclasses.replace(it, dp_eps=eps)).weights
+    sync()
+    steps["ridge_config_s"] = time.perf_counter() - t0
+    mses = {name: test_mse(dsp, w) for name, w in runs.items()}
+    for name, m in mses.items():
+        if name.startswith("dp_one_shot"):
+            # Remark 4: G~ + sigma I may be indefinite, its weights NaN
+            check(m is None or m != mses["one_shot"], f"{name} equals the clean run")
+            continue
+        check(m is not None, f"{name}: weights not finite")
+        if name.startswith("dp_"):
+            check(m != mses["fedavg"], f"{name} equals the clean FedAvg")
+    # tests/test_fed.py's DP check at its own size: 20 x 500 rows, d 30, eps 5
+    ds30 = data.synthetic.generate(PRIV_RIDGE_SEED, num_clients=20, samples_per_client=500,
+                                   dim=30, gamma=0.5)
+    m_dp = test_mse(ds30, fed.run_one_shot(ds30, 0.01, dp=(5.0, PRIV_DELTA),
+                                           dp_key=threefry.key(3)).weights)
+    m_cl = test_mse(ds30, fed.run_one_shot(ds30, 0.01).weights)
+    check(m_dp is not None and m_dp != m_cl and m_dp < 20 * m_cl + 0.1,
+          f"DP one-shot at d 30: {m_dp} against clean {m_cl}")
+    # tests/test_fed.py's IID check at its own size: 8 x 100 rows, d 20, 300 rounds
+    iid = data.synthetic.generate(PRIV_RIDGE_SEED, num_clients=8, samples_per_client=100,
+                                  dim=20, gamma=0.0)
+    m_iid = test_mse(iid, fed.run_iterative(iid, fed.IterativeConfig(
+        rounds=300, sigma=0.01)).weights)
+    m_oracle = test_mse(iid, fed.run_centralized(iid, 0.01).weights)
+    check(m_iid < 1.05 * m_oracle, f"FedAvg IID {m_iid} against oracle {m_oracle}")
+    report["ridge_config"] = {
+        "config": dataclasses.asdict(rc), "rounds": it.rounds, "test_mse": mses,
+        "fedavg_iid_vs_oracle": m_iid / m_oracle,
+        "dp_eps5_d30_vs_clean": [m_dp, m_cl],
+        "upload_floats_per_client": {"one_shot": one.comm.upload_floats_per_client,
+                                     "fedavg": avg.comm.upload_floats_per_client},
+        "comm_ratio_fedavg_over_one_shot": avg.comm.analytic_total_bytes
+        / one.comm.analytic_total_bytes,
+        "paper_claim": "up to 38x less communication (abstract), not asserted"}
+    del dsp, runs, iid, ds30
+
+    # K1 once a client in every Phase 1: run_one_shot(dp), client_phase(dp),
+    # the rebuild, the clean run and clean uploads of the 4 DP clients; the
+    # 8 clients' clean run; the §V-A one-shot and its 6 DP runs; 2 oracles;
+    # the d 30 check's DP and clean runs
+    launches = K.launch_counts()
+    k1_want = (5 * PRIV_DP_CLIENTS + CLIENTS
+               + rc.num_clients * (1 + 2 * len(PRIV_EPS_GRID)) + 2 + 2 * 20)
+    check(launches["gram_moment"] == k1_want,
+          f"K1 launched {launches['gram_moment']} times on the private path, want {k1_want}")
+    for name in ("gemm_nt", "panel_transform", "sketch_gram", "rff_gram", "swa_flash"):
+        check(launches[name] == 0, f"kernel {name} launched on the private path")
+    return {"phase": "private_federation", "part": "ridge", "dim": DIM,
+            "rows_per_client": ROWS,
+            "reduced": f"DP clients: {PRIV_DP_CLIENTS} of {CLIENTS} (host draw)",
+            "errors": errs, "report": report, "steps_s": steps, "launches": launches,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
             "seconds": time.perf_counter() - t_all}
 
@@ -2456,11 +2772,18 @@ def relay_serving_phase() -> dict:
 
 def kernel_sequence(fn) -> list[str]:
     """Names of the device kernels that ``fn`` launches, in the order the
-    card ran them (``torch.profiler``'s device events)."""
+    card ran them (``torch.profiler``'s device events).
+
+    ``fn`` runs twice, first under a trace that is thrown away: the first
+    trace of a process has dropped a quarter of a rank-64 update's 255
+    launches on the H100 (PERF.md §7), later traces none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        fn()
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -2495,7 +2818,7 @@ def profile_top(fn, top: int = 8) -> dict:
 
 # -- phase 7: gemma3-27b serving at full width through the model entry points --
 
-def model_serving_phase() -> dict:
+def model_serving_phase() -> tuple:
     from repro_torch import configs
     from repro_torch.kernels import gram as K
     from repro_torch.kernels import ref
@@ -2614,9 +2937,9 @@ def model_serving_phase() -> dict:
         x = blocks.apply_layer(layer, x, cfg)
     sync()
     steps["layer_checks_s"] = time.perf_counter() - t0
-    del x, lm
+    del x
     torch.cuda.empty_cache()
-    return {"phase": "model_serving", "arch": cfg.name,
+    return lm, {"phase": "model_serving", "arch": cfg.name,
             "reduced": f"depth: num_stages {MODEL_STAGES} of 10 ({n_layers} of 62 layers)",
             "layers": {kind: specs.count(kind) for kind in ("swa", "full")},
             "params": cfg.param_count(), "weight_gb": weight_gb,
@@ -2625,6 +2948,100 @@ def model_serving_phase() -> dict:
             "profiles": profiles,
             "sample_tokens": tokens[0, :8].tolist(),
             "peak_mem_gb": peak_gb, "seconds": time.perf_counter() - t_all}
+
+
+def private_probe_phase(lm) -> dict:
+    """The one-shot linear probe on frozen gemma3-27b features at full
+    width: 4 clients' per-token final-norm hidden states (K5 in every
+    layer), their feature statistics fused and the head solved once."""
+    from repro_torch.core import fuse_stats, probe
+    from repro_torch.kernels import gram as K
+    from repro_torch.models import blocks
+
+    def sync():
+        torch.cuda.synchronize()
+
+    cfg = lm.cfg
+    steps, errs, report = {}, {}, {}
+    t_all = time.perf_counter()
+
+    def feature_fn(tokens):
+        x = lm.embed(tokens)
+        for layer in lm.all_layers():
+            x = blocks.apply_layer(layer, x, cfg)
+        return lm.final_norm(x).reshape(-1, cfg.d_model)
+
+    rng = np.random.default_rng(PROBE_SEED)
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (PROBE_PROMPTS, PROBE_LEN))
+                                .astype(np.int32)).cuda() for _ in range(PROBE_CLIENTS)]
+    w_true = torch.from_numpy(rng.standard_normal((cfg.d_model, PROBE_TARGETS))
+                              .astype(np.float32)).cuda()
+    K.reset_launch_counts()
+    feats, targets, stats = [], {1: [], PROBE_TARGETS: []}, {1: [], PROBE_TARGETS: []}
+    steps["features_s"], steps["feature_stats_s"] = [], []
+    for k, toks in enumerate(prompts):
+        t0 = time.perf_counter()
+        f = feature_fn(toks)
+        sync()
+        steps["features_s"].append(time.perf_counter() - t0)
+        check(tuple(f.shape) == (PROBE_PROMPTS * PROBE_LEN, cfg.d_model)
+              and bool(torch.isfinite(f).all()), f"client {k}'s features")
+        noise = torch.from_numpy(rng.standard_normal((f.shape[0], PROBE_TARGETS))
+                                 .astype(np.float32)).cuda()
+        y = f.float() @ w_true + 0.01 * noise
+        t0 = time.perf_counter()
+        for t, yt in ((1, y[:, 0]), (PROBE_TARGETS, y)):
+            targets[t].append(yt)
+            stats[t].append(probe._feature_stats(f, yt))
+        sync()
+        steps["feature_stats_s"].append(time.perf_counter() - t0)
+        feats.append(f)
+    launches = K.launch_counts()
+    n_layers = cfg.num_layers
+    check(launches["swa_flash"] == PROBE_CLIENTS * n_layers,
+          f"K5 launched {launches['swa_flash']} times for {PROBE_CLIENTS} clients' "
+          f"features, want {PROBE_CLIENTS * n_layers}")
+    for name in ("gram_moment", "gemm_nt", "panel_transform", "sketch_gram", "rff_gram"):
+        check(launches[name] == 0, f"kernel {name} launched in the probe")
+
+    # sigma from the float64 spectrum of the pooled features' Gram, so that
+    # kappa(G + sigma I) = PROBE_KAPPA (1e3, within the 1e6 limit)
+    t0 = time.perf_counter()
+    F = torch.cat(feats).double()
+    G64 = F.T @ F
+    lam = torch.linalg.eigvalsh(G64)
+    lmin, lmax = float(lam[0]), float(lam[-1])
+    sigma = max((lmax - PROBE_KAPPA * lmin) / (PROBE_KAPPA - 1), 0.0)
+    kappa = (lmax + sigma) / (lmin + sigma)
+    sync()
+    steps["f64_spectrum_s"] = time.perf_counter() - t0
+    check(kappa <= 1e6, f"kappa {kappa} of G + sigma I")
+    report.update({"sigma": sigma, "kappa": kappa, "gram_eig_min": lmin,
+                   "gram_eig_max": lmax})
+    eye = torch.eye(cfg.d_model, dtype=torch.float64, device="cuda")
+    for t in (1, PROBE_TARGETS):
+        t0 = time.perf_counter()
+        fused = fuse_stats(stats[t])
+        w = probe.solve_head(fused, sigma)
+        sync()
+        steps[f"fuse_solve_t{t}_s"] = time.perf_counter() - t0
+        check(int(fused.count) == PROBE_CLIENTS * PROBE_PROMPTS * PROBE_LEN, "fused count")
+        Y = torch.cat(targets[t]).double()
+        w64 = torch.linalg.solve(G64 + sigma * eye, F.T @ Y)
+        errs[f"head_t{t}_vs_f64_central"] = float(torch.linalg.norm(w.double() - w64)
+                                                 / torch.linalg.norm(w64))
+        check(errs[f"head_t{t}_vs_f64_central"] <= 1e-3, f"probe head: {errs}")
+        check(tuple(probe.head_as_params(probe.ProbeResult(w, fused, sigma))["kernel"]
+                    .shape) == (cfg.d_model, t), "head_as_params shape")
+        report[f"train_mse_t{t}"] = float(torch.mean((F.float() @ w - Y.float()) ** 2))
+    del F, G64, eye, feats, stats, targets
+    torch.cuda.empty_cache()
+    return {"phase": "private_federation", "part": "probe", "arch": cfg.name,
+            "reduced": f"depth: num_stages {MODEL_STAGES} of 10 ({n_layers} of 62 layers)",
+            "clients": PROBE_CLIENTS, "prompts_per_client": PROBE_PROMPTS,
+            "prompt_len": PROBE_LEN, "d_feat": cfg.d_model, "dtype": cfg.dtype,
+            "errors": errs, "report": report, "steps_s": steps, "launches": launches,
+            "seconds": time.perf_counter() - t_all}
 
 
 def main() -> int:
@@ -2643,6 +3060,8 @@ def main() -> int:
     emit(kernels_line)
     ds, w_dense, path = main_path_phase()
     emit(path)
+    private = private_federation_phase(ds, peaks)
+    emit(private)
     features = feature_phase(ds, w_dense)
     emit(features)
     del w_dense
@@ -2653,16 +3072,22 @@ def main() -> int:
     emit(process_serving_phase())
     relay_line = relay_serving_phase()
     emit(relay_line)
-    serving = model_serving_phase()
+    lm, serving = model_serving_phase()
     emit(serving)
+    probe = private_probe_phase(lm)       # the probe reuses the served model
+    del lm
+    torch.cuda.empty_cache()
+    emit(probe)
     for kname, row in rows.items():
         run = (features if kname in ("sketch_gram", "rff_gram")
                else serving if kname == "swa_flash" else path)
         row["launches"] = run["launches"][kname]
         row["wire_launches"] = wire_line["launches"][kname]
         row["relay_launches"] = relay_line["launches"][kname]
+        row["private_launches"] = (private["launches"][kname]
+                                   + probe["launches"][kname])
     order = ("name", "route", "source", "replaces", "launches", "wire_launches",
-             "relay_launches", "max_abs_err",
+             "relay_launches", "private_launches", "max_abs_err",
              "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in order if k in row} for row in rows.values()]})
     print(smi(), flush=True)

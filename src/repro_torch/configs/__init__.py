@@ -2,9 +2,10 @@
 
 The port knows the reference's ten architecture ids, and builds those whose
 layers it has ported (``PORTED``). The others raise ``NotImplementedError``
-naming ROADMAP item 16, which holds the rest of the model zoo.
+naming ROADMAP item 16, which holds the rest of the model zoo. ``RIDGE``
+is the paper's own ridge configuration (§V-A defaults).
 """
-from repro_torch.configs import gemma3_27b
+from repro_torch.configs import gemma3_27b, ridge
 from repro_torch.models.config import ArchConfig
 
 ARCH_IDS = ("gemma3-27b", "qwen2-72b", "yi-9b", "phi3.5-moe-42b-a6.6b",
@@ -12,6 +13,7 @@ ARCH_IDS = ("gemma3-27b", "qwen2-72b", "yi-9b", "phi3.5-moe-42b-a6.6b",
             "rwkv6-1.6b", "minitron-8b", "pixtral-12b")
 _MODULES = {"gemma3-27b": gemma3_27b}
 PORTED = tuple(_MODULES)
+RIDGE = ridge.CONFIG
 
 
 def _module(arch_id: str):

@@ -102,8 +102,8 @@ def pool_from(jpool, arrays: Mapping[str, Sequence] | None = None, *,
     """A port ``EnginePool`` holding the same tenants as a reference pool.
 
     Each tenant keeps its placement, coalescer policy, update-rank bound,
-    feature map, admission record, streamed-byte count, wire counters and
-    dedup index (so a re-send of a frame the reference fused is a
+    feature map, admission record, streamed-byte count, wire counters, PSD
+    guard record and dedup index (so a re-send of a frame the reference fused is a
     duplicate here too), and the pool its limits. A tenant's fused statistics are carried over as they are
     (after draining its queued deltas), so they equal the reference's
     bitwise whatever streamed into it without a client id or was dropped;
@@ -146,7 +146,8 @@ def pool_from(jpool, arrays: Mapping[str, Sequence] | None = None, *,
                     **dataclasses.asdict(jt.comm))
             t.streamed_floats = jt.streamed_floats
             for field in ("wire_frames", "relay_frames", "wire_upload_bytes",
-                          "wire_download_bytes", "duplicates"):
+                          "wire_download_bytes", "duplicates",
+                          "psd_repairs", "guard_min_eig"):
                 setattr(t, field, getattr(jt, field))
             t.dedup = set(jt.dedup)
     return pool

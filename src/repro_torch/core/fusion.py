@@ -19,11 +19,24 @@ import torch
 from repro_torch.core.sufficient_stats import SuffStats, fuse_stats
 
 
+def cholesky_or_nan(M: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of M (batched too), all NaN where M is not
+    positive definite.
+
+    The reference's Cholesky returns NaNs for such a matrix instead of
+    raising, so its solves return NaN weights: that is how Remark 4's
+    failure mode (DP noise making G~ + sigma I indefinite) shows there, and
+    here. A positive definite M keeps ``torch.linalg.cholesky``'s bits.
+    """
+    L, info = torch.linalg.cholesky_ex(M)
+    return L.masked_fill_((info != 0)[..., None, None], float("nan"))
+
+
 def solve_ridge(stats: SuffStats, sigma) -> torch.Tensor:
     """Phase 3: w = (G + sigma I)^{-1} h via Cholesky (Thm 3: SPD for sigma>0)."""
     G = stats.gram
     reg = G + sigma * torch.eye(stats.dim, dtype=G.dtype, device=G.device)
-    L = torch.linalg.cholesky(reg)
+    L = cholesky_or_nan(reg)
     return torch.cholesky_solve(stats.moment.unsqueeze(-1), L).squeeze(-1)
 
 

@@ -13,6 +13,11 @@ default of current JAX releases):
   shape (n,); key i is ``(bits1[i], bits2[i])``.
 - ``random_bits(key, shape)``: the same iota over ``shape``,
   ``bits1 ^ bits2``.
+- ``fold_in(key, data)``: threefry of the counter pair ``(0, data)``, as
+  ``jax.random.fold_in`` hashes ``threefry_seed(data)`` under the key.
+- ``permutation(key, n)``: ``arange(n)`` stably sorted by 32 random bits
+  per round, ``ceil(3 ln n / ln(2^32 - 1))`` rounds, the key split each
+  round (``jax.random.permutation``'s ``_shuffle``).
 - ``uniform(key, shape, minval, maxval)``: float32 from the top 23 bits,
   ``(bits >> 9 | 0x3F800000) - 1``, scaled and shifted by one fused
   multiply-add, and clamped below at ``minval``.
@@ -132,6 +137,30 @@ def random_bits(k, shape) -> np.ndarray:
     """``jax.random.bits(k, shape)`` (32-bit): uint32 of ``shape``."""
     bits1, bits2 = _hash(k, tuple(shape))
     return bits1 ^ bits2
+
+
+def fold_in(k, data: int) -> np.ndarray:
+    """``jax.random.fold_in(k, data)``: a new key from ``k`` and a uint32."""
+    k1, k2 = _as_key(k)
+    x1, x2 = np.zeros(1, _U32), np.array([int(data) & _MASK], _U32)
+    with np.errstate(over="ignore"):
+        bits1, bits2 = threefry_2x32(k1, k2, x1, x2)
+    return np.concatenate([bits1, bits2])
+
+
+def permutation(k, n: int) -> np.ndarray:
+    """``jax.random.permutation(k, n)``: a shuffled ``arange(n)`` (int32).
+
+    Each round splits the key, draws 32 bits per element from the subkey and
+    sorts by them stably, as ``lax.sort_key_val`` does.
+    """
+    n = int(n)
+    x = np.arange(n, dtype=np.int32)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(_MASK)))
+    for _ in range(rounds):
+        k, sub = split(k)
+        x = x[np.argsort(random_bits(sub, (n,)), kind="stable")]
+    return x
 
 
 def _fma32(a, b, c) -> np.ndarray:

@@ -11,13 +11,17 @@ What travels between the two sides is :class:`PackedStats`, the Theorem-4
 wire format: the d(d+1)/2 lower triangle of the client Gram
 (``kernels.ops.pack_lower``) plus the d-float moment.
 
+With ``dp=(eps, delta)`` the clients run Algorithm 2: each clips its rows,
+computes its statistics (kernel K1 on the card) and adds the Gaussian
+mechanism's noise once (``core.privacy``), drawn from its own key of
+``split(dp_key, K)`` — the bits ``jax.random`` draws for the same key.
+
 ``run_one_shot_projected`` is the §IV-F variant: clients upload the m x m
 statistics of their rows under a shared Gaussian sketch, and the engine
 solves in the m-dimensional sketch space.
 
-This slice of the port runs the dense backend only. Differential privacy and
-PSD repair wait for ROADMAP queue 1 item 14, meshes and ``backend="auto"``
-for item 15.
+This slice of the port runs the dense backend only: meshes and
+``backend="auto"`` wait for ROADMAP queue 1, item 15.
 """
 from __future__ import annotations
 
@@ -27,15 +31,13 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.core import projection
+from repro_torch.core import privacy, projection, threefry
 from repro_torch.core.sufficient_stats import SuffStats, compute_stats
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.fed import comm
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.server import FusionEngine, LinalgBackend
 
-_DP = ("is not ported yet: privacy (DP noise, clipping, PSD repair) waits "
-       "for ROADMAP queue 1, item 14")
 _MESH = ("is not ported yet: the sharded backend and backend='auto' wait "
          "for ROADMAP queue 1, item 15")
 
@@ -84,43 +86,69 @@ class RunResult:
 
 def client_phase(ds: FederatedDataset, *,
                  participating: Sequence[bool] | None = None,
-                 dp=None, dp_clip=None, dp_key=None,
+                 dp: tuple[float, float] | None = None,
+                 dp_clip: tuple[float, float] | None = None,
+                 dp_key=None,
                  client_stats: Sequence[SuffStats] | None = None,
                  ) -> dict[int, PackedStats]:
     """Phase 1 on every participating client: what each one uploads.
 
     ``client_stats`` short-circuits the (deterministic) local computation
-    with already-computed statistics.
+    with already-computed statistics — but never the DP pipeline, whose
+    clipping must see the raw rows. Under ``dp`` the key is split over all
+    K clients, whatever the participation.
     """
-    if dp is not None or dp_clip is not None or dp_key is not None:
-        raise NotImplementedError(f"dp {_DP}")
+    keys = (threefry.split(dp_key, ds.num_clients)
+            if dp is not None else [None] * ds.num_clients)
+    if dp is not None and dp_clip is None:
+        dp_clip = (1.2 * ds.dim ** 0.5, 4.0)
+
     uploads: dict[int, PackedStats] = {}
     for k, (A_k, b_k) in enumerate(ds.clients):
         if participating is not None and not participating[k]:
             continue
-        s = client_stats[k] if client_stats is not None \
-            else compute_stats(A_k, b_k)
+        if dp is None and client_stats is not None:
+            uploads[k] = PackedStats.pack(client_stats[k])
+            continue
+        s_g, s_h = (1.0, 1.0)
+        if dp is not None:
+            A_k, b_k = privacy.clip_rows(A_k, b_k, clip_a=dp_clip[0],
+                                         clip_b=dp_clip[1])
+            s_g, s_h = privacy.sensitivities(*dp_clip)
+        s = compute_stats(A_k, b_k)
+        if dp is not None:
+            s = privacy.privatize_stats(keys[k], s, *dp,
+                                        sensitivity_g=s_g, sensitivity_h=s_h)
         uploads[k] = PackedStats.pack(s)
     return uploads
 
 
 def run_one_shot(ds: FederatedDataset, sigma: float, *,
                  participating: Sequence[bool] | None = None,
-                 dp=None, dp_clip=None, dp_key=None,
+                 dp: tuple[float, float] | None = None,
+                 dp_clip: tuple[float, float] | None = None,
+                 dp_key=None,
                  psd_repair: bool = False,
                  client_stats: Sequence[SuffStats] | None = None,
                  backend: LinalgBackend | None = None,
                  mesh=None) -> RunResult:
-    """Algorithm 1 over process clients, on the dense backend.
+    """Algorithm 1 (or Algorithm 2 when ``dp`` is given) over process
+    clients, on the dense backend.
 
     Args:
       participating: Thm 8 dropout mask; dropped clients transmit nothing.
-      client_stats: reuse already-computed per-client statistics.
+      dp: (eps, delta) for Algorithm 2 — per-client Gaussian noise, no
+        composition. Rows are clipped per Definition 3 (generalized) with
+        public clip constants ``dp_clip = (clip_a, clip_b)``; default
+        (1.2 sqrt(d), 4) covers N(mu, I)-scale features without biasing.
+      dp_key: a uint32 key pair (``core.threefry.key(seed)``, or a JAX key
+        through ``convert.key_from``).
+      psd_repair: beyond-paper post-processing (``privacy.psd_repair``).
+      client_stats: reuse already-computed per-client statistics (ignored
+        under DP).
       backend: linalg backend for the engine; defaults to dense on the
         clients' device.
     """
-    if psd_repair:
-        raise NotImplementedError(f"psd_repair {_DP}")
     if mesh is not None or isinstance(backend, str):
         raise NotImplementedError(f"mesh / backend={backend!r} {_MESH}")
     t0 = time.perf_counter()
@@ -129,6 +157,8 @@ def run_one_shot(ds: FederatedDataset, sigma: float, *,
                            client_stats=client_stats)
     engine = FusionEngine.from_clients(
         {k: p.unpack() for k, p in uploads.items()}, backend=backend)
+    if psd_repair:
+        engine.apply(privacy.psd_repair)
     w = engine.solve(sigma)
     kernel_ops.synchronize(w)
     dt = time.perf_counter() - t0

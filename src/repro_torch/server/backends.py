@@ -27,6 +27,7 @@ from typing import Any, Protocol, Sequence, runtime_checkable
 
 import torch
 
+from repro_torch.core.fusion import cholesky_or_nan
 from repro_torch.core.sufficient_stats import SuffStats, zeros_like_stats
 from repro_torch.kernels.ops import pow2_bucket
 from repro_torch.server.cholesky import chol_update, chol_update_blocked
@@ -76,7 +77,7 @@ class LinalgBackend(Protocol):
 
 def _cold_factor(G: torch.Tensor, sigma: float) -> torch.Tensor:
     eye = torch.eye(G.shape[0], dtype=G.dtype, device=G.device)
-    return torch.linalg.cholesky(G + sigma * eye)
+    return cholesky_or_nan(G + sigma * eye)
 
 
 def _factor_solve(L: torch.Tensor, G: torch.Tensor, h: torch.Tensor,
@@ -115,7 +116,7 @@ def _multi_sigma_factor_solve(G, h, sigmas: Sequence[float]):
     then one Cholesky solve per sigma."""
     eye = torch.eye(G.shape[0], dtype=G.dtype, device=G.device)
     shifts = torch.tensor(list(sigmas), dtype=G.dtype, device=G.device)
-    Ls = torch.linalg.cholesky(G[None] + shifts[:, None, None] * eye[None])
+    Ls = cholesky_or_nan(G[None] + shifts[:, None, None] * eye[None])
     ws = torch.stack([_factor_solve(L, G, h, s) for L, s in zip(Ls, sigmas)])
     return Ls, ws
 

@@ -37,6 +37,7 @@ from typing import Any, Callable, Hashable, Mapping, Sequence
 
 import torch
 
+from repro_torch.core.fusion import cholesky_or_nan
 from repro_torch.core.sufficient_stats import SuffStats, compute_stats, fuse_stats
 from repro_torch.server.backends import DenseBackend, LinalgBackend
 from repro_torch.server.cholesky import psd_update_vectors
@@ -80,7 +81,7 @@ def _loco_solve(G, h, Gk, hk, sigmas):
     Gm = G[None] - Gk                      # (K, d, d)
     hm = h[None] - hk                      # (K, d)
     eye = torch.eye(G.shape[0], dtype=G.dtype, device=G.device)
-    Ls = torch.linalg.cholesky(Gm[:, None] + sigmas[None, :, None, None] * eye)
+    Ls = cholesky_or_nan(Gm[:, None] + sigmas[None, :, None, None] * eye)
     return torch.cholesky_solve(hm[:, None, :, None].expand(
         -1, sigmas.shape[0], -1, -1), Ls).squeeze(-1)
 

@@ -43,11 +43,14 @@ registry and scheduling layer:
 
 Every tenant of a pool lives on the pool's one device (``device=``, the
 card unless the caller asks for the CPU); a restored tenant's arrays land
-there too. The Remark-4 PSD guard is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP item; its counter in
-``summary()`` stays at 0. Relay-forwarded frames are counted as the JAX
-package counts them; ``server.relay`` forwards a ``tier="relay"`` pool's
-fusion upstream.
+there too. ``create_tenant(psd_guard=True)`` runs the Remark-4 guard on the
+admitted Gram (``eigvalsh`` on the pool's device in the tenant's dtype; if
+DP noise made it indefinite, ``privacy.psd_repair``), and ``summary()``
+counts its firings. The guard is not journaled, as in the reference: a
+restored tenant holds the repaired statistics of its snapshot, with
+``psd_repairs`` 0 and ``guard_min_eig`` None. Relay-forwarded frames are
+counted as the JAX package counts them; ``server.relay`` forwards a
+``tier="relay"`` pool's fusion upstream.
 
 Thread-safety contract: the pool's wrappers are safe for concurrent use.
 ``get()`` hands back the raw engine for single-threaded convenience.
@@ -63,6 +66,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.features import FeatureMap
+from repro_torch.core.privacy import psd_repair
 from repro_torch.core.sufficient_stats import SuffStats
 from repro_torch.server.backends import solve_snapshot
 from repro_torch.server.batch import solve_stacked
@@ -70,9 +74,6 @@ from repro_torch.server.engine import CoalescerPolicy, FusionEngine
 from repro_torch.server.select import SHARDED_NOT_YET, prefer_sharded
 
 PLACEMENTS = ("dense", "sharded", "auto")
-
-_PRIVACY = ("is not ported yet: psd_repair waits for ROADMAP queue 1, "
-            "item 14 (privacy)")
 
 
 class AdmissionError(ValueError):
@@ -110,6 +111,8 @@ class Tenant:
     background_flushes: int = 0    # flushes driven by the pool's thread
     max_flush_age_s: float = 0.0   # oldest delta age ever seen at a drain
     factor_evictions: int = 0      # LRU evictions of this tenant's factors
+    psd_repairs: int = 0           # Remark-4 guard firings
+    guard_min_eig: float | None = None   # min eig seen by the last guard check
 
     @property
     def backend_name(self) -> str:
@@ -133,7 +136,7 @@ class Tenant:
                 "rhash": fm.fhash}
 
     def summary(self) -> dict:
-        """The reference's keys; the PSD guard's counter is 0."""
+        """The reference's keys."""
         with self.lock:
             return {
                 "placement": self.placement,
@@ -148,7 +151,7 @@ class Tenant:
                 "background_flushes": self.background_flushes,
                 "max_flush_age_s": self.max_flush_age_s,
                 "factor_evictions": self.factor_evictions,
-                "psd_repairs": 0,
+                "psd_repairs": self.psd_repairs,
                 "engine": self.engine.summary(),
             }
 
@@ -306,12 +309,15 @@ class EnginePool:
         already BE feature-space statistics), serving lifts through the map
         (``solve_lifted`` / ``solve_report``), and the ledger accounts the
         tenant under its kind.
+
+        ``psd_guard`` runs the Remark-4 check on the admitted Gram: if DP
+        noise made it indefinite, ``privacy.psd_repair`` is applied (DP
+        post-processing, free) and the firing is counted in the tenant
+        record.
         """
         if placement not in PLACEMENTS:
             raise ValueError(f"placement must be one of {PLACEMENTS}, "
                              f"got {placement!r}")
-        if psd_guard:
-            raise NotImplementedError(f"create_tenant(psd_guard=True) {_PRIVACY}")
         given = [x is not None for x in (clients, payloads, stats)]
         if sum(given) > 1:
             raise ValueError("pass at most one of clients/payloads/stats")
@@ -383,6 +389,8 @@ class EnginePool:
                 engine, dim,
                 payloads=[p for _, p in items] if payloads is not None
                 else None)
+        if psd_guard:
+            self._run_psd_guard(t)
 
         with self._reg_lock:
             if name in self._tenants:   # lost a create/create race
@@ -455,6 +463,17 @@ class EnginePool:
         if payloads is not None:
             return fed_comm.measured_one_shot(payloads, download_floats=dim)
         return fed_comm.one_shot_comm(dim, max(len(engine.client_ids), 1))
+
+    def _run_psd_guard(self, t: Tenant) -> bool:
+        """Remark 4: repair the admitted Gram if noise made it indefinite."""
+        with t.lock:
+            min_eig = float(torch.linalg.eigvalsh(t.engine.stats.gram)[0])
+            t.guard_min_eig = min_eig
+            if min_eig < 0.0:
+                t.engine.apply(psd_repair)
+                t.psd_repairs += 1
+                return True
+        return False
 
     # -- durability: WAL + snapshot/compaction (server.durability) ------------
 
@@ -1346,7 +1365,7 @@ class EnginePool:
             "max_flush_age_s": max(
                 (t.max_flush_age_s for t in snapshot), default=0.0),
             "factor_evictions": sum(t.factor_evictions for t in snapshot),
-            "psd_repairs": 0,
+            "psd_repairs": sum(t.psd_repairs for t in snapshot),
             "batched_sweeps": self.batched_sweeps,
             "batched_solves": self.batched_solves,
             "admission_rejections": self.admission_rejections,

@@ -9,6 +9,8 @@ a card, run them with
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors, and the CUDA path of the port against its own CPU path.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -980,3 +982,96 @@ def test_two_tier_forward_on_card_is_the_relays_fused_stats(card, tmp_path,
     fwd.close(forward=False)
     relay.close()
     root.close()
+
+
+def _dp_dataset(card, d=48, K=4, n=200):
+    from repro_torch import data
+
+    ds = data.synthetic.generate(5, num_clients=K, samples_per_client=n, dim=d,
+                                 device="cpu")
+    on = dataclasses.replace(ds, clients=tuple((A.to(card), b.to(card))
+                                               for A, b in ds.clients),
+                             test_A=ds.test_A.to(card), test_b=ds.test_b.to(card),
+                             w_star=ds.w_star.to(card))
+    return ds, on
+
+
+@pytest.mark.parametrize("eps", [0.05, 5.0])
+def test_dp_run_one_shot_on_card_matches_cpu_path(card, eps):
+    """Algorithm 2 on the card: K1 on the clipped rows plus the host-drawn
+    noise, fused as on the CPU (K1's tolerance); the repair is psd_repair
+    of the unrepaired run's fused Gram, bitwise on the card."""
+    from repro_torch import fed
+    from repro_torch.core import privacy, threefry
+
+    cpu_ds, ds = _dp_dataset(card)
+    before = gram.gram_moment_cuda.launches
+    raw = fed.run_one_shot(ds, 0.01, dp=(eps, 1e-5), dp_key=threefry.key(7))
+    assert gram.gram_moment_cuda.launches == before + 4
+    rep = fed.run_one_shot(ds, 0.01, dp=(eps, 1e-5), dp_key=threefry.key(7),
+                           psd_repair=True)
+    cpu = fed.run_one_shot(cpu_ds, 0.01, dp=(eps, 1e-5), dp_key=threefry.key(7))
+    G, Gc = raw.extras["fused_stats"].gram, cpu.extras["fused_stats"].gram
+    assert G.is_cuda and _rel(G, Gc) <= 1e-5
+    assert _rel(raw.extras["fused_stats"].moment, cpu.extras["fused_stats"].moment) <= 1e-5
+    assert torch.equal(rep.extras["fused_stats"].gram, privacy.psd_repair(
+        raw.extras["fused_stats"]).gram)
+    assert torch.isfinite(rep.weights).all()
+    lam = torch.linalg.eigvalsh(rep.extras["fused_stats"].gram.double())
+    assert float(lam[0]) >= -1e-4 * float(lam[-1])
+
+
+def test_psd_guard_on_card_matches_run_one_shot(card):
+    """The pool's Remark-4 guard on the card fires once and leaves the
+    fused stats of ``run_one_shot(psd_repair=True)``, bitwise."""
+    from repro_torch import fed
+    from repro_torch.core import threefry
+
+    _, ds = _dp_dataset(card)
+    key = threefry.key(7)
+    rep = fed.run_one_shot(ds, 0.01, dp=(0.05, 1e-5), dp_key=key, psd_repair=True)
+    uploads = fed.client_phase(ds, dp=(0.05, 1e-5), dp_key=key)
+    pool = server.EnginePool()
+    pool.create_tenant("dp", payloads=uploads, placement="dense", psd_guard=True)
+    clean = server.EnginePool()
+    clean.create_tenant("clean", payloads=fed.client_phase(ds), placement="dense",
+                        psd_guard=True)
+    t = pool.tenant("dp")
+    assert t.psd_repairs == 1 and t.guard_min_eig < 0
+    assert clean.tenant("clean").psd_repairs == 0
+    assert pool.summary()["psd_repairs"] == 1
+    assert torch.equal(pool.get("dp").stats.gram, rep.extras["fused_stats"].gram)
+    assert torch.equal(pool.solve("dp", 0.01), rep.weights)
+
+
+@pytest.mark.parametrize("iters", [5, 100])
+def test_solve_cg_on_card_matches_cpu_path(card, iters):
+    A, b = _randn((600, 96)), _randn((600,), seed=1)
+    s = core.compute_stats(A, b)
+    sc = core.SuffStats(s.gram.to(card), s.moment.to(card), s.count.to(card))
+    w = core.solve_cg(sc, 0.5, iters=iters)
+    assert w.is_cuda
+    assert _rel(w, core.solve_cg(s, 0.5, iters=iters)) <= 1e-5
+
+
+@pytest.mark.parametrize("kw", [{}, {"prox_mu": 0.01}, {"sample_fraction": 0.5},
+                                {"dp_eps": 5.0}])
+def test_run_iterative_on_card_matches_cpu_path(card, kw):
+    from repro_torch import fed
+
+    cpu_ds, ds = _dp_dataset(card, d=32, K=6, n=100)
+    cfg = fed.IterativeConfig(rounds=30, **kw)
+    res = fed.run_iterative(ds, cfg, track_history=True)
+    ref = fed.run_iterative(cpu_ds, cfg, track_history=True)
+    assert res.weights.is_cuda and res.extras["history"].shape == (30, 32)
+    assert _rel(res.weights, ref.weights) <= 1e-4
+    assert _rel(res.extras["history"], ref.extras["history"]) <= 1e-4
+
+
+@pytest.mark.parametrize("targets", [(), (3,)])
+def test_one_shot_probe_on_card_matches_cpu_path(card, targets):
+    X, Y = _randn((300, 64)), _randn((300, *targets), seed=2)
+    res = core.one_shot_probe(torch.tanh, X.to(card), Y.to(card), sigma=0.1)
+    ref = core.one_shot_probe(torch.tanh, X, Y, sigma=0.1)
+    assert res.weights.is_cuda and res.weights.shape == ref.weights.shape
+    assert _rel(res.weights, ref.weights) <= 1e-5

@@ -399,16 +399,25 @@ class TestAdmission:
         assert len(pool) == 0
 
     @pytest.mark.parametrize("case,item", [
-        ("mesh", "item 15"), ("sharded", "item 15"), ("psd_guard", "item 14")])
+        ("mesh", "item 15"), ("sharded", "item 15")])
     def test_not_ported_yet_raises_naming_its_item(self, case, item):
         with pytest.raises(NotImplementedError, match=item):
             if case == "mesh":
                 EnginePool(device="cpu", mesh=object())
             pool = EnginePool(device="cpu")
-            if case == "sharded":
-                pool.create_tenant("x", dim=D, placement="sharded")
-            else:
-                pool.create_tenant("x", stats=self._stats(), psd_guard=True)
+            pool.create_tenant("x", dim=D, placement="sharded")
+
+    def test_psd_guard_admission(self):
+        """``psd_guard=True`` checks the admitted Gram: PSD statistics pass
+        untouched (bitwise), and the pool counts no repair."""
+        pool = EnginePool(device="cpu")
+        s = self._stats()
+        eng = pool.create_tenant("x", stats=s, psd_guard=True)
+        t = pool.tenant("x")
+        assert t.psd_repairs == 0 and t.guard_min_eig >= 0
+        assert torch.equal(eng.stats.gram, s.gram)
+        assert pool.summary()["psd_repairs"] == 0
+        assert pool.summary()["per_tenant"]["x"]["psd_repairs"] == 0
 
     @pytest.mark.parametrize("case", ["journal_dir", "snapshot"])
     def test_the_pool_journals_and_snapshots(self, case, tmp_path):

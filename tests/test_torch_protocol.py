@@ -73,14 +73,28 @@ class TestRunOneShot:
 
     def test_not_ported_options_raise(self):
         _, dt = _datasets(num_clients=2, n=20, d=4)
-        with pytest.raises(NotImplementedError, match="item 14"):
-            tfed.run_one_shot(dt, 0.1, dp=(1.0, 1e-5))
-        with pytest.raises(NotImplementedError, match="item 14"):
-            tfed.run_one_shot(dt, 0.1, psd_repair=True)
         with pytest.raises(NotImplementedError, match="item 15"):
             tfed.run_one_shot(dt, 0.1, mesh=object())
         with pytest.raises(NotImplementedError, match="item 15"):
             tfed.run_one_shot(dt, 0.1, backend="auto")
+
+    def test_dp_and_psd_repair_run(self):
+        """Algorithm 2 runs (noisy, finite, the count kept), and
+        ``psd_repair=True`` is ``privacy.psd_repair`` of the fused stats."""
+        from repro_torch.core import privacy, threefry
+
+        _, dt = _datasets(num_clients=3, n=30, d=6)
+        clean = tfed.run_one_shot(dt, 0.1)
+        raw = tfed.run_one_shot(dt, 0.1, dp=(0.05, 1e-5), dp_key=threefry.key(1))
+        rep = tfed.run_one_shot(dt, 0.1, dp=(0.05, 1e-5), dp_key=threefry.key(1),
+                                psd_repair=True)
+        noisy = raw.extras["fused_stats"]
+        assert not torch.equal(noisy.gram, clean.extras["fused_stats"].gram)
+        assert int(noisy.count) == 90 and noisy.yty is None
+        assert torch.equal(rep.extras["fused_stats"].gram,
+                           privacy.psd_repair(noisy).gram)
+        assert torch.isfinite(rep.weights).all()
+        assert _fields(rep.comm) == _fields(clean.comm)
 
 
 class TestPackedStats:
