@@ -75,6 +75,19 @@ kernels' launch counts set to 0 just before it and read just after:
   root's ledger counts relay frames only, their bytes the relays'; one
   forward's steps (the copy to the host, the delta, the encoding, the
   state commit, the upload) are timed in process on r0's restored state;
+- the sharded backend (``server.distributed.ShardedBackend``) on a (4, 2)
+  mesh of 8 shards all on the card, at the main path's data: block size
+  256, so 16 block columns of 1024 x 2048 blocks; ``run_one_shot(mesh=)``
+  against the dense weights and float64; an engine of the 8 clients (the
+  4-sigma ``solve_batch``, each factor 68 SYRK and 15 TRSM launches of K2;
+  256 streamed rows at rank 64 and a 64-row client ingested, dropped and
+  restored, all through the tiles' factor update, P and K2, with no
+  refactorization); a CG solve; ``ingest_distributed`` of all rows with a
+  mesh client masked (4 K1); ``serve_fusion`` with 2 sharded and 2 auto
+  tenants on one mesh; ``distributed_stats`` with the DP noise hook at d
+  1024, each mesh client's statistics its K1 statistics plus its noise
+  bits; K2 at the three sharded tile shapes against ``addmm`` and the
+  tile's composed P against the plain loop (``sharded_serving``);
 - gemma3-27b serving at full width (d_model 5376, 32 heads over 16 KV heads,
   d_ff 21504, vocab 262144, bf16), depth cut to 2 stages + the 2-layer SWA
   tail (14 layers: 12 sliding-window, 2 full), random weights from a seed:
@@ -82,7 +95,7 @@ kernels' launch counts set to 0 just before it and read just after:
   kernel K5), then 32 greedy tokens decoded; then a one-shot linear probe
   of that model's frozen per-token features (4 clients of 2 x 1024 tokens,
   K5 in every layer), the fused head within 1e-3 of a float64 centralized
-  solve.
+  solve, then again on a (4, 2) mesh of the card, 2 prompts a mesh client.
 
 Results are checked against float64 references, and the model against the
 plain attention inside it (decode) and K5's plain version. It prints one JSON line
@@ -198,6 +211,23 @@ PRIV_ROUNDS, PRIV_EPOCHS, PRIV_LR, PRIV_MU = 200, 5, 0.01, 0.01
 PRIV_EPS_GRID, PRIV_RIDGE_SEED = (1.0, 5.0, 10.0), 0
 PROBE_CLIENTS, PROBE_PROMPTS, PROBE_LEN, PROBE_TARGETS = 4, 2, 1024, 4
 PROBE_SEED, PROBE_KAPPA = 1, 1e3
+
+# The sharded backend (the sharded_serving phase), on the main path's data:
+# a (4, 2) mesh of 8 shards, all on cuda:0 (block size 256 at d 4096, 16
+# block columns, blocks of 1024 x 2048). run_one_shot on the mesh; an engine
+# of the 8 clients on a ShardedBackend (the 4-sigma solve_batch, 256
+# streamed rows at coalescer rank 64, a 64-row client ingested, dropped and
+# restored, all through the factor update: P and K2 on the tiles); a CG
+# solve; ingest_distributed of all rows with mesh client 1 masked out;
+# serve_fusion with 2 sharded and 2 auto tenants (threshold d, so the auto
+# ones place sharded) of 4 clients x 4096 rows; distributed_stats with the
+# DP noise hook at d 1024 (8192 rows a mesh client); K2 at the three
+# sharded tile shapes against addmm, and the tile's composed P against the
+# plain loop.
+SHARD_DEVICES, SHARD_RANK, SHARD_SMALL_ROWS = 8, 64, 64
+SHARD_SERVE_TENANTS, SHARD_SERVE_CLIENTS, SHARD_SERVE_ROWS = 4, 4, 4096
+SHARD_SERVE_QUERIES, SHARD_SERVE_STREAM = 64, 64
+SHARD_DP_DIM, SHARD_DP_ROWS = 1024, 8192
 
 # Published peaks, NVIDIA data sheets: memory bytes/s, FP32 operations/s
 # outside the tensor cores (the bound of K2 and P, float32 work), dense
@@ -1766,6 +1796,296 @@ def pool_serving_phase(ds) -> dict:
             "peak_mem_gb": peak, "seconds": time.perf_counter() - t_all}
 
 
+# -- the sharded backend on a mesh of 8 shards of one card --------------------
+
+def sharded_update_launches(be, updates: int) -> dict:
+    """P and K2 launches of ``updates`` rank-r updates of one factor of
+    ``be``: per block column, ceil(bs / 32) P and, inside the tile, a K2
+    panel entry and a composing K2 between them; then a trailing K2 on each
+    row shard with rows at or below the panel."""
+    subs = -(-be.block_size // 32)
+    trailing = sum(1 for k in range(be._nb) for ri in range(be._nrows)
+                   if (ri + 1) * be._rl > k * be.block_size)
+    return {"panel_transform": updates * be._nb * subs,
+            "gemm_nt": updates * (be._nb * 2 * (subs - 1) + trailing)}
+
+
+def sharded_factor_launches(be) -> int:
+    """K2 launches of one cold factor: a SYRK on every shard holding rows
+    and columns at or below the panel, a TRSM for every panel but the last."""
+    syrk = sum(1 for k in range(be._nb) for ri in range(be._nrows)
+               for ci in range(be._ncols)
+               if (ri + 1) * be._rl > k * be.block_size
+               and (ci + 1) * be._cl > k * be.block_size)
+    return syrk + be._nb - 1
+
+
+def sharded_serving_phase(ds, peaks) -> dict:
+    from repro_torch import core, data, fed
+    from repro_torch.core import compute_stats, privacy, threefry
+    from repro_torch.kernels import gram as K
+    from repro_torch.kernels import ref
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.serve import serve_fusion
+    from repro_torch.server import CoalescerPolicy, FusionEngine, ShardedBackend
+    from repro_torch.server.cholesky import panel_transform_ref
+    from repro_torch.server.distributed import composed_panel_transform
+
+    def sync():
+        torch.cuda.synchronize()
+
+    steps, errs, report = {}, {}, {}
+    t_all = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = mesh_lib.make_device_mesh(SHARD_DEVICES, device="cuda")
+    check(mesh.shape == {"data": 4, "model": 2}
+          and mesh.distinct_devices == [torch.device("cuda", 0)], f"mesh {mesh}")
+    w_dense = fed.run_one_shot(ds, SIGMA).weights      # the comparison, uncounted
+    K.reset_launch_counts()
+
+    # 1. run_one_shot on the mesh: the dense path's weights and float64.
+    t0 = time.perf_counter()
+    res = fed.run_one_shot(ds, SIGMA, mesh=mesh)
+    sync()
+    steps["run_one_shot_s"] = time.perf_counter() - t0
+    eng0 = res.extras["engine"]
+    check(eng0.backend.name == "sharded" and "fused_stats" not in res.extras
+          and isinstance(res.comm, fed.ShardedCommRecord), "run_one_shot(mesh=)")
+    errs["one_shot_vs_f64"] = rel_err(res.weights, f64_solve(eng0.stats, SIGMA))
+    errs["one_shot_vs_dense"] = rel_err(res.weights, w_dense)
+    report["cross_shard_bytes"] = res.comm.cross_shard_bytes
+    report["layout"] = {"padded": eng0.backend.padded,
+                        "block_size": eng0.backend.block_size,
+                        "block": [eng0.backend._rl, eng0.backend._cl],
+                        "spec": list(eng0.backend.spec)}
+    del res, eng0, w_dense
+
+    # 2. an engine of the 8 clients on a ShardedBackend: the 4-sigma sweep
+    t0 = time.perf_counter()
+    stats = [compute_stats(A, b) for A, b in ds.clients]
+    be = ShardedBackend(DIM, mesh)
+    eng = FusionEngine.from_clients(stats, backend=be,
+                                    coalesce=CoalescerPolicy(max_rank=SHARD_RANK))
+    k2_0 = K.launch_counts()["gemm_nt"]
+    ws = eng.solve_batch(SIGMAS, method="chol")
+    sync()
+    steps["engine_solve_batch_s"] = time.perf_counter() - t0
+    factor_k2 = K.launch_counts()["gemm_nt"] - k2_0
+    check(factor_k2 == len(SIGMAS) * sharded_factor_launches(be),
+          f"4 factors launched K2 {factor_k2} times, want "
+          f"{len(SIGMAS) * sharded_factor_launches(be)}")
+    for sg, w in zip(SIGMAS, ws):
+        errs[f"sweep_{sg}_vs_f64"] = rel_err(w, f64_solve(eng.stats, sg))
+    w1 = eng.solve(SIGMA)
+    check(torch.equal(w1, eng.solve(SIGMA)), "a cached sharded solve differs")
+    sync()
+    t0 = time.perf_counter()
+    eng.solve(SIGMA)
+    sync()
+    steps["solve_s"] = time.perf_counter() - t0
+
+    # 3. 256 streamed rows through the coalescer (rank 64): every cached
+    #    factor updated on the tiles (P, K2), never refactored
+    cold0, upd0 = eng.cold_factorizations, eng.incremental_updates
+    rows_A, rows_b = ds.test_A[:STREAM_ROWS], ds.test_b[:STREAM_ROWS]
+    l0 = K.launch_counts()
+    t0 = time.perf_counter()
+    for i in range(STREAM_ROWS):
+        eng.ingest_rows_async(rows_A[i:i + 1], rows_b[i:i + 1], client_id=7)
+    eng.flush()
+    sync()
+    steps["stream_rows_s"] = time.perf_counter() - t0
+    l1 = K.launch_counts()
+    updates = eng.incremental_updates - upd0
+    stream = {k: l1[k] - l0[k] for k in ("panel_transform", "gemm_nt", "gram_moment")}
+    want = sharded_update_launches(be, updates)
+    check(updates == len(SIGMAS) * STREAM_ROWS // SHARD_RANK,
+          f"{updates} factor updates for {STREAM_ROWS} rows")
+    check(stream["panel_transform"] == want["panel_transform"]
+          and stream["gemm_nt"] == want["gemm_nt"],
+          f"streaming launched {stream}, want {want}")
+    check(eng.cold_factorizations == cold0, "sharded streaming refactorized")
+    for sg in SIGMAS:
+        errs[f"stream_{sg}_vs_f64"] = rel_err(eng.solve(sg), f64_solve(eng.stats, sg))
+
+    # 4. a 64-row client ingested, dropped and restored: rank-64 updates
+    g = torch.Generator("cuda").manual_seed(5)
+    A_s = torch.randn(SHARD_SMALL_ROWS, DIM, generator=g, device="cuda")
+    b_s = torch.randn(SHARD_SMALL_ROWS, generator=g, device="cuda")
+    t0 = time.perf_counter()
+    eng.ingest_rows(A_s, b_s, client_id="small")
+    eng.drop("small")
+    w_drop = eng.solve(SIGMA)
+    errs["drop_vs_f64"] = rel_err(w_drop, f64_solve(eng.stats, SIGMA))
+    eng.restore("small")
+    w_back = eng.solve(SIGMA)
+    sync()
+    steps["small_client_ingest_drop_restore_s"] = time.perf_counter() - t0
+    errs["restore_vs_f64"] = rel_err(w_back, f64_solve(eng.stats, SIGMA))
+    check(eng.cold_factorizations == cold0, "drop / restore refactorized")
+    report["engine"] = eng.summary()
+    report["update_buckets"] = {f"{r}{'+' if up else '-'}": n
+                                for (r, up), n in be.update_buckets.items()}
+    report["k2_copies"] = be.k2_copies
+
+    # 5. CG on the same statistics
+    fused = eng.stats
+    becg = ShardedBackend(DIM, mesh, method="cg")
+    ecg = FusionEngine.from_stats(fused, backend=becg)
+    t0 = time.perf_counter()
+    w_cg = ecg.solve(SIGMA)
+    sync()
+    steps["cg_solve_s"] = time.perf_counter() - t0
+    errs["cg_vs_f64"] = rel_err(w_cg, f64_solve(fused, SIGMA))
+    report["cg_iterations"] = becg.cg_last_iters
+    del eng, ecg, becg, fused, be
+
+    # 6. ingest_distributed of all rows, mesh client 1 (rows 32768..65535)
+    #    masked out: 4 K1 launches, one reduction into the blocks
+    A_all = torch.cat([A for A, _ in ds.clients])
+    b_all = torch.cat([b for _, b in ds.clients])
+    k1_0 = K.launch_counts()["gram_moment"]
+    bed = ShardedBackend(DIM, mesh)
+    ed = FusionEngine(DIM, backend=bed, device="cuda")
+    t0 = time.perf_counter()
+    ed.ingest_distributed(A_all, b_all, participation=[1.0, 0.0, 1.0, 1.0])
+    sync()
+    steps["ingest_distributed_s"] = time.perf_counter() - t0
+    check(K.launch_counts()["gram_moment"] - k1_0 == 4, "ingest_distributed: 4 K1")
+    per = A_all.shape[0] // 4
+    check(ed.count == 3 * per, f"ingest_distributed count {ed.count}")
+    kept = [s for k, s in enumerate(stats) if k // 2 != 1]
+    ref_stats = core.fuse_stats(kept)
+    t0 = time.perf_counter()
+    w_dist = ed.solve(SIGMA)
+    sync()
+    steps["ingest_distributed_solve_s"] = time.perf_counter() - t0
+    errs["ingest_distributed_vs_f64"] = rel_err(w_dist, f64_solve(ref_stats, SIGMA))
+    errs["ingest_distributed_gram_rel"] = rel_err(bed.stats().gram, ref_stats.gram)
+    del ed, bed, A_all, b_all, kept, ref_stats, stats
+
+    # 7. serve_fusion: 2 sharded and 2 auto tenants (threshold d: sharded)
+    t0 = time.perf_counter()
+    srv = serve_fusion(num_clients=SHARD_SERVE_CLIENTS,
+                       samples_per_client=SHARD_SERVE_ROWS, dim=DIM,
+                       tenants=SHARD_SERVE_TENANTS, sharded_tenants=2,
+                       auto_tenants=2, threshold=DIM,
+                       sigmas_per_tenant=len(SIGMAS),
+                       queries=SHARD_SERVE_QUERIES, query_rows=8,
+                       stream_deltas=SHARD_SERVE_STREAM, coalesce_rank=32,
+                       flush_staleness_s=0.05, seed=3, device="cuda")
+    sync()
+    steps["serve_fusion_s"] = time.perf_counter() - t0
+    check(srv["placements"] == {"sharded": SHARD_SERVE_TENANTS},
+          f"serve_fusion placements {srv['placements']}")
+    check(srv["pool"]["meshes_built"] == 1, f"meshes_built {srv['pool']['meshes_built']}")
+    check(srv["streaming"]["pending_after"] == 0, "serve_fusion left deltas pending")
+    errs["serve_fusion_rel"] = srv["exact_max_rel_err"]
+    errs["serve_fusion_stream_rel"] = srv["streaming"]["exact_max_rel_err"]
+    report["serve_fusion"] = {
+        "naive_qps": srv["naive_qps"], "pool_qps": srv["pool_qps"],
+        "flush_ranks": {int(r): n for r, n in srv["streaming"]["flush_ranks"].items()},
+        "cross_shard_bytes": srv["ledger"]["cross_shard_bytes"],
+        "meshes_built": srv["pool"]["meshes_built"]}
+
+    # 8. distributed_stats with Algorithm 2's noise hook at d 1024: each
+    #    mesh client's noisy statistics = its K1 statistics + its noise bits
+    dsd = data.synthetic.generate(1, num_clients=4, samples_per_client=SHARD_DP_ROWS,
+                                  dim=SHARD_DP_DIM, device="cuda")
+    A_dp = torch.cat([A for A, _ in dsd.clients])
+    b_dp = torch.cat([b for _, b in dsd.clients])
+    key = threefry.key(PRIV_KEY)
+    nf = privacy.make_dp_noise_fn(key, PRIV_EPS, PRIV_DELTA, SHARD_DP_DIM)
+    seen = []
+
+    def recording(idx, G, h):
+        Gt, ht = nf(idx, G, h)
+        seen.append((idx, G, h, Gt, ht))
+        return Gt, ht
+
+    t0 = time.perf_counter()
+    s_dp = core.distributed_stats(A_dp, b_dp, mesh, client_axes=("data",),
+                                  noise_fn=recording)
+    sync()
+    steps["distributed_stats_dp_s"] = time.perf_counter() - t0
+    check([i for i, *_ in seen] == [0, 1, 2, 3], f"noise hook indices {[i for i, *_ in seen]}")
+    tau = privacy.gaussian_tau(PRIV_EPS, PRIV_DELTA)
+    noise_sum = None
+    for k, G, h, Gt, ht in seen:
+        E, e = dp_noise(threefry.fold_in(key, k), SHARD_DP_DIM, tau, tau)
+        Et, et = torch.from_numpy(E).cuda(), torch.from_numpy(e).cuda()
+        check(torch.equal(Gt, G + Et) and torch.equal(ht, h + et),
+              f"mesh client {k}: noisy statistics != K1 statistics + its noise")
+        noise_sum = E.astype(np.float64) if noise_sum is None else noise_sum + E
+    clean = core.fuse_stats([compute_stats(A, b) for A, b in dsd.clients])
+    rebuilt = clean.gram.double() + torch.from_numpy(noise_sum).cuda()
+    errs["dp_fused_vs_f64_rebuild"] = rel_err(s_dp.gram, rebuilt)
+    check(s_dp.yty is None, "privatized statistics keep no yty")
+    check(torch.equal(s_dp.gram, s_dp.gram.T), "the noisy fused Gram is not symmetric")
+    report["dp"] = {"dim": SHARD_DP_DIM, "rows_per_mesh_client": SHARD_DP_ROWS,
+                    "tau": tau, "count": float(s_dp.count)}
+    del dsd, A_dp, b_dp, seen, clean, rebuilt, s_dp
+    sync()
+    launches = K.launch_counts()
+    for name in ("gram_moment", "gemm_nt", "panel_transform"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the sharded path")
+    for name, err in errs.items():
+        limit = 1e-6 if name == "dp_fused_vs_f64_rebuild" else 1e-4
+        check(err <= limit, f"sharded {name} = {err} > {limit}")
+
+    # 9. K2 at the three sharded tile shapes against gemm_nt_ref and addmm;
+    #    the tile's composed P against the plain loop. Not counted above.
+    lay = ShardedBackend(DIM, mesh)
+    bs, rl, cl = lay.block_size, lay._rl, lay._cl
+    del lay
+    shapes = {"syrk": (rl, cl, bs), "trsm": (DIM - bs, bs, bs),
+              "update": (rl, bs + SHARD_RANK, bs + SHARD_RANK)}
+    gk = torch.Generator("cuda").manual_seed(11)
+    k2_rows = {}
+    for tag, (m, n, k) in shapes.items():
+        C = torch.randn(m, n, generator=gk, device="cuda")
+        Am = torch.randn(m, k, generator=gk, device="cuda")
+        Bm = torch.randn(n, k, generator=gk, device="cuda")
+        got = K.gemm_nt_cuda(C, Am, Bm, alpha=-1.0)
+        want = ref.gemm_nt_ref(C, Am, Bm, alpha=-1.0)
+        err = rel_err(got, want)
+        check(err <= 1e-5, f"K2 at the sharded {tag} shape: {err} > 1e-5")
+        bms, by = bound(2.0 * m * n * k, 4.0 * (2 * m * n + m * k + n * k), peaks)
+        k2_rows[tag] = {
+            "shape": [m, n, k], "rel_err": err,
+            "max_abs_err": float((got - want).abs().max()),
+            "ms": cuda_ms(lambda: K.gemm_nt_cuda(C, Am, Bm, alpha=-1.0)),
+            "plain_ms": cuda_ms(lambda: ref.gemm_nt_ref(C, Am, Bm, alpha=-1.0)),
+            "library_ms": cuda_ms(lambda: torch.addmm(C, Am, Bm.T, alpha=-1.0)),
+            "bound_ms": bms, "bound_by": by}
+    report["k2_sharded_shapes"] = {"card": smi(), **k2_rows}
+    Wt = torch.randn(bs, 2 * bs, generator=gk, device="cuda")
+    Lt = torch.linalg.cholesky(Wt @ Wt.T / bs + torch.eye(bs, device="cuda")).contiguous()
+    Xt = torch.randn(SHARD_RANK, bs, generator=gk, device="cuda")
+    La, Ta = composed_panel_transform(Lt, Xt, sign=1.0)
+    t0 = time.perf_counter()
+    Lb, Tb = panel_transform_ref(Lt, Xt, sign=1.0)
+    sync()
+    p_plain_s = time.perf_counter() - t0
+    p_err = max(rel_err(torch.tril(La), torch.tril(Lb)), rel_err(Ta, Tb))
+    check(p_err <= 1e-4, f"composed P of a {bs}-wide tile: {p_err} > 1e-4")
+    report["tile_transform"] = {
+        "bs": bs, "r": SHARD_RANK, "rel_err": p_err,
+        "ms": cuda_ms(lambda: composed_panel_transform(Lt, Xt, sign=1.0)),
+        "plain_s": p_plain_s, "tolerance": "rel 1e-4 (f32), not bitwise"}
+    del La, Ta, Lb, Tb, Lt, Xt, Wt
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    return {"phase": "sharded_serving", "dim": DIM, "mesh": mesh.shape,
+            "devices": [str(d) for d in mesh.distinct_devices],
+            "errors": errs, "report": report, "steps_s": steps,
+            "launches": launches,
+            "stream_launches": {**stream, "updates": updates},
+            "factor_k2_launches": sharded_factor_launches(ShardedBackend(DIM, mesh)),
+            "peak_mem_gb": peak, "seconds": time.perf_counter() - t_all}
+
+
 # -- phase 6: federated uploads over TCP into a pool on the card --------------
 
 def timed(fn, store: list):
@@ -3019,6 +3339,7 @@ def private_probe_phase(lm) -> dict:
     report.update({"sigma": sigma, "kappa": kappa, "gram_eig_min": lmin,
                    "gram_eig_max": lmax})
     eye = torch.eye(cfg.d_model, dtype=torch.float64, device="cuda")
+    heads = {}
     for t in (1, PROBE_TARGETS):
         t0 = time.perf_counter()
         fused = fuse_stats(stats[t])
@@ -3034,14 +3355,41 @@ def private_probe_phase(lm) -> dict:
         check(tuple(probe.head_as_params(probe.ProbeResult(w, fused, sigma))["kernel"]
                     .shape) == (cfg.d_model, t), "head_as_params shape")
         report[f"train_mse_t{t}"] = float(torch.mean((F.float() @ w - Y.float()) ** 2))
-    del F, G64, eye, feats, stats, targets
+        heads[t] = (w, w64)
+    del F, G64, eye, feats, stats
+
+    # the mesh half: the 4 clients' prompts as one batch of rows on a (4, 2)
+    # mesh of the card, split over its 4 clients (2 prompts each), the
+    # features computed on each row shard, one reduction, one head
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = mesh_lib.make_device_mesh(SHARD_DEVICES, device="cuda")
+    tokens, Y = torch.cat(prompts), torch.cat(targets[PROBE_TARGETS])
+    w1, w64 = heads[PROBE_TARGETS]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    r_mesh = probe.one_shot_probe(feature_fn, tokens, Y, sigma=sigma, mesh=mesh)
+    sync()
+    steps["mesh_probe_s"] = time.perf_counter() - t0
+    mesh_launches = K.launch_counts()
+    check(mesh_launches["swa_flash"] == PROBE_CLIENTS * n_layers,
+          f"the mesh probe launched K5 {mesh_launches['swa_flash']} times, want "
+          f"{PROBE_CLIENTS * n_layers}")
+    check(int(r_mesh.stats.count) == PROBE_CLIENTS * PROBE_PROMPTS * PROBE_LEN,
+          "mesh probe count")
+    errs["mesh_head_vs_f64_central"] = float(torch.linalg.norm(r_mesh.weights.double() - w64)
+                                             / torch.linalg.norm(w64))
+    errs["mesh_head_vs_one_device_head"] = float(torch.linalg.norm(r_mesh.weights - w1)
+                                                 / torch.linalg.norm(w1))
+    check(errs["mesh_head_vs_f64_central"] <= 1e-3, f"mesh probe head: {errs}")
+    del targets, tokens, Y, heads, r_mesh
     torch.cuda.empty_cache()
     return {"phase": "private_federation", "part": "probe", "arch": cfg.name,
             "reduced": f"depth: num_stages {MODEL_STAGES} of 10 ({n_layers} of 62 layers)",
             "clients": PROBE_CLIENTS, "prompts_per_client": PROBE_PROMPTS,
             "prompt_len": PROBE_LEN, "d_feat": cfg.d_model, "dtype": cfg.dtype,
             "errors": errs, "report": report, "steps_s": steps, "launches": launches,
-            "seconds": time.perf_counter() - t_all}
+            "mesh_launches": mesh_launches, "seconds": time.perf_counter() - t_all}
 
 
 def main() -> int:
@@ -3066,6 +3414,8 @@ def main() -> int:
     emit(features)
     del w_dense
     emit(pool_serving_phase(ds))
+    sharded_line = sharded_serving_phase(ds, peaks)
+    emit(sharded_line)
     wire_line = wire_serving_phase(ds)
     emit(wire_line)
     del ds
@@ -3086,8 +3436,10 @@ def main() -> int:
         row["relay_launches"] = relay_line["launches"][kname]
         row["private_launches"] = (private["launches"][kname]
                                    + probe["launches"][kname])
+        row["sharded_launches"] = (sharded_line["launches"][kname]
+                                   + probe["mesh_launches"][kname])
     order = ("name", "route", "source", "replaces", "launches", "wire_launches",
-             "relay_launches", "private_launches", "max_abs_err",
+             "relay_launches", "private_launches", "sharded_launches", "max_abs_err",
              "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in order if k in row} for row in rows.values()]})
     print(smi(), flush=True)

@@ -7,7 +7,9 @@ dict keys sorted, a sequence position as ``[0]``, ``None`` holds no leaf),
 and are written as one ``.npz`` per step plus a manifest. So a step written
 by either package loads in the other. Restore rebuilds the template's
 structure, casts every leaf onto the template leaf's dtype and puts it on
-``device``.
+``device``; a ``launch.sharding.ShardedTensor`` template leaf is restored
+onto its mesh and spec instead (the reference's restore onto a sharded
+template), and a ``ShardedTensor`` leaf is saved whole.
 """
 from __future__ import annotations
 
@@ -19,8 +21,7 @@ import re
 import numpy as np
 import torch
 
-_NOT_YET = ("is not ported yet: a sharded template waits for ROADMAP queue "
-            "1, item 15 (distributed)")
+from repro_torch.launch.sharding import ShardedTensor
 
 
 def _paths(tree, prefix: str = ""):
@@ -50,6 +51,8 @@ def _rebuild(tree, fn, prefix: str = ""):
 
 
 def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.full("cpu")
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
         if leaf.dtype in (torch.bfloat16, torch.float16):
@@ -115,14 +118,18 @@ def load_pytree(template, directory: str | pathlib.Path, step: int, *,
     """Restore into the structure of ``template``: each leaf becomes a tensor
     on ``device`` in the template leaf's dtype (a leaf without a dtype keeps
     the saved one). A template leaf may be a tensor on the ``meta`` device,
-    which costs no memory. A sharded (DTensor) template leaf raises."""
+    which costs no memory. A ``ShardedTensor`` template leaf gives a
+    ``ShardedTensor`` on the template's mesh and spec, each block on its
+    shard's device (``device`` is not used for it)."""
     d = pathlib.Path(directory)
     with np.load(d / f"step_{step:08d}.npz") as data:
         def leaf(key, t):
-            if getattr(t, "placements", None) is not None:
-                raise NotImplementedError(f"restoring onto a sharded leaf "
-                                          f"{_NOT_YET}")
             x = torch.from_numpy(data[key])
+            if isinstance(t, ShardedTensor):
+                if tuple(x.shape) != t.shape:
+                    raise ValueError(f"{key}: saved shape {tuple(x.shape)}, "
+                                     f"template {t.shape}")
+                return ShardedTensor.distribute(x.to(t.dtype), t.mesh, t.spec)
             return x.to(device=device, dtype=_torch_dtype(t))
 
         return _rebuild(template, leaf)

@@ -1,5 +1,6 @@
-"""Carry statistics, datasets, engine ledgers, serving pools, feature maps
-and model parameters across from numpy arrays.
+"""Carry statistics, datasets, engine ledgers, serving pools, meshes,
+sharded backends, feature maps and model parameters across from numpy
+arrays.
 
 Everything here goes through ``np.asarray``, so any object whose arrays
 convert to numpy (the reference package's arrays included) can be handed
@@ -19,6 +20,8 @@ from repro_torch.core.sufficient_stats import SuffStats
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import BackboneLM
+from repro_torch.launch.mesh import Mesh, make_mesh
+from repro_torch.server.distributed import ShardedBackend
 from repro_torch.server.engine import CoalescerPolicy, FusionEngine
 from repro_torch.server.pool import EnginePool
 
@@ -101,7 +104,9 @@ def pool_from(jpool, arrays: Mapping[str, Sequence] | None = None, *,
               device="cuda") -> EnginePool:
     """A port ``EnginePool`` holding the same tenants as a reference pool.
 
-    Each tenant keeps its placement, coalescer policy, update-rank bound,
+    The pool keeps the reference's mesh shape (``mesh_from``, on ``device``)
+    and ``meshes_built``. Each tenant keeps its placement (a sharded tenant
+    keeps its block size and method), coalescer policy, update-rank bound,
     feature map, admission record, streamed-byte count, wire counters, PSD
     guard record and dedup index (so a re-send of a frame the reference fused is a
     duplicate here too), and the pool its limits. A tenant's fused statistics are carried over as they are
@@ -114,13 +119,18 @@ def pool_from(jpool, arrays: Mapping[str, Sequence] | None = None, *,
     """
     from repro_torch.fed import comm as fed_comm
 
+    jmesh = getattr(jpool, "_mesh", None)
     pool = EnginePool(
+        mesh=None if jmesh is None else mesh_from(jmesh, device=device),
+        mesh_devices=getattr(jpool, "_mesh_devices", 8),
+        journal_placement=getattr(jpool, "_journal_placement", "dense"),
         threshold=jpool._threshold, table=jpool._table,
         max_warm=jpool.max_warm, max_tenants=jpool.max_tenants,
         stat_budget_bytes=jpool.stat_budget_bytes,
         max_clients_per_tenant=jpool.max_clients_per_tenant,
         default_coalesce=_policy_from(jpool._default_coalesce),
         tier=jpool.tier, device=device)
+    pool.meshes_built = getattr(jpool, "meshes_built", 0)
     for name in jpool.tenant_names:
         jt = jpool.tenant(name)
         with jt.lock:
@@ -132,11 +142,15 @@ def pool_from(jpool, arrays: Mapping[str, Sequence] | None = None, *,
                 fm = feature_map_from(
                     fm, (arrays or {}).get(name, fm.materialize()),
                     device=device)
+            jbe = jeng.backend
             engine = pool.create_tenant(
                 name, stats=suffstats_from(fused, device=device),
                 placement=jt.placement, features=fm,
                 coalesce=_policy_from(jeng.coalesce),
-                max_update_rank=jeng.max_update_rank)
+                max_update_rank=jeng.max_update_rank,
+                backend_kwargs=({"block_size": jbe.block_size,
+                                 "method": jbe.method}
+                                if jbe.name == "sharded" else None))
             engine.import_ledger(
                 {c: suffstats_from(s, device=device) for c, s in clients.items()},
                 {c: suffstats_from(s, device=device) for c, s in dropped.items()})
@@ -151,6 +165,28 @@ def pool_from(jpool, arrays: Mapping[str, Sequence] | None = None, *,
                 setattr(t, field, getattr(jt, field))
             t.dedup = set(jt.dedup)
     return pool
+
+
+def mesh_from(jmesh, *, device="cuda") -> Mesh:
+    """A port mesh with a reference mesh's axis names and shape, every shard
+    on ``device``."""
+    return make_mesh(tuple(np.shape(jmesh.devices)), tuple(jmesh.axis_names),
+                     device=device)
+
+
+def sharded_backend_from(jbackend, mesh: Mesh | None = None, *,
+                         device="cuda") -> ShardedBackend:
+    """A port ``ShardedBackend`` holding a reference sharded backend's fused
+    statistics: its gathered (G, h, count) cut into the port's blocks on
+    ``mesh`` (default: ``mesh_from`` of the reference's mesh on
+    ``device``), with the same dimension, dtype, block size and method."""
+    if mesh is None:
+        mesh = mesh_from(jbackend.mesh, device=device)
+    stats = suffstats_from(jbackend.stats(), device=mesh.distinct_devices[0])
+    be = ShardedBackend(jbackend.dim, mesh, dtype=stats.gram.dtype,
+                        block_size=jbackend.block_size, method=jbackend.method)
+    be.set_stats(stats)
+    return be
 
 
 def key_from(jax_key) -> np.ndarray:

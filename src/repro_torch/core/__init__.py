@@ -3,6 +3,7 @@ from repro_torch.core.sufficient_stats import (
     SuffStats,
     compute_stats,
     compute_stats_streaming,
+    distributed_stats,
     fuse_stats,
     streaming_update,
     zeros_like_stats,
@@ -49,7 +50,8 @@ from repro_torch.core.probe import (
 )
 
 __all__ = [
-    "SuffStats", "compute_stats", "compute_stats_streaming", "fuse_stats",
+    "SuffStats", "compute_stats", "compute_stats_streaming",
+    "distributed_stats", "fuse_stats",
     "streaming_update", "zeros_like_stats",
     "condition_number", "coverage", "dropout_fusion", "loco_cv", "mse",
     "one_shot_fusion", "solve_ridge",

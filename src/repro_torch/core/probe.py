@@ -7,10 +7,12 @@ to the head. One aggregation of (d_feat^2 + d_feat) floats replaces
 iterative head training. Multi-target heads (e.g. num_classes regression
 targets) are supported by stacking moment vectors.
 
-This is the single-device half of the reference's module: the Gram of the
-features is a float32 ``torch.matmul`` (TF32 off, ``repro_torch``'s
-default), as the reference's einsum is, and the head is solved by Cholesky.
-The mesh half (``mesh=``) waits for ROADMAP queue 1, item 15.
+The Gram of the features is a float32 ``torch.matmul`` (TF32 off,
+``repro_torch``'s default), as the reference's einsum is, and the head is
+solved by Cholesky. With ``mesh=`` the rows are split over the mesh's
+client axes, the feature function runs on each row shard on that shard's
+device, and the shards' feature statistics are added in flat shard order:
+the one fusion round.
 """
 from __future__ import annotations
 
@@ -21,9 +23,6 @@ import torch
 
 from repro_torch.core.fusion import cholesky_or_nan
 from repro_torch.core.sufficient_stats import SuffStats
-
-_MESH = ("is not ported yet: the mesh half of the probe waits for ROADMAP "
-         "queue 1, item 15")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,16 +69,36 @@ def one_shot_probe(
     Args:
       feature_fn: frozen backbone, maps (n, ...) inputs -> (n, d_feat)
         features.
-      inputs / targets: everything runs on one device (K=1 degenerate case —
-        still the exact centralized solution, by Thm 2).
-      mesh, client_axes: the reference's on-mesh fusion; ``mesh`` raises
-        ``NotImplementedError`` until item 15.
+      inputs / targets: without ``mesh`` everything runs on one device (the
+        K=1 degenerate case — still the exact centralized solution, by
+        Thm 2); with a ``launch.mesh.Mesh`` the rows of each split evenly
+        over the shards along ``client_axes`` (each by its own length, so a
+        feature function may give several feature rows an input row, as
+        per-token features of a prompt), each shard's features and
+        statistics are computed on its device, and one reduction fuses them.
     """
-    del client_axes
-    if mesh is not None:
-        raise NotImplementedError(f"one_shot_probe(mesh=...) {_MESH}")
-    stats = _feature_stats(feature_fn(inputs), targets)
-    return ProbeResult(solve_head(stats, sigma), stats, sigma)
+    if mesh is None:
+        stats = _feature_stats(feature_fn(inputs), targets)
+        return ProbeResult(solve_head(stats, sigma), stats, sigma)
+    from repro_torch.launch import mesh as mesh_lib
+
+    k_all = mesh_lib.axis_size(mesh, client_axes)
+    for t in (inputs, targets):
+        if t.shape[0] % k_all:
+            raise ValueError(f"{t.shape[0]} rows do not split over {k_all} "
+                             f"shards along {client_axes}")
+    rows, trows = inputs.shape[0] // k_all, targets.shape[0] // k_all
+    local = []
+    for k in range(k_all):
+        dev = mesh.device_at(mesh_lib.unflatten(mesh, client_axes, k))
+        x_k = inputs[k * rows:(k + 1) * rows].to(dev)
+        local.append(_feature_stats(feature_fn(x_k),
+                                    targets[k * trows:(k + 1) * trows].to(dev)))
+    dev = local[0].gram.device
+    fused = SuffStats(mesh_lib.psum([s.gram for s in local], dev),
+                      mesh_lib.psum([s.moment for s in local], dev),
+                      mesh_lib.psum([s.count for s in local], dev))
+    return ProbeResult(solve_head(fused, sigma), fused, sigma)
 
 
 def probe_mse(feature_fn, inputs, targets, result: ProbeResult) -> torch.Tensor:

@@ -10,9 +10,8 @@ provides:
   * ``compute_stats_streaming`` — chunked pass over rows (bounded memory)
   * ``fuse_stats``              — Phase-2 server aggregation (a tree-sum)
   * ``streaming_update``        — §VI-C: fold new rows into old statistics
-
-The on-mesh ``distributed_stats`` of the reference waits for the
-distributed slice of the port.
+  * ``distributed_stats``       — Phases 1+2 on a mesh: each row shard is a
+                                  client, one reduction is the round
 """
 from __future__ import annotations
 
@@ -176,3 +175,58 @@ def streaming_update(old: SuffStats, delta_A: torch.Tensor,
                      delta_b: torch.Tensor) -> SuffStats:
     """§VI-C streaming extension: fold newly arrived rows into existing stats."""
     return old + compute_stats(delta_A, delta_b)
+
+
+# ---------------------------------------------------------------------------
+# Distributed protocol: clients = mesh shards, Phase 2 = one psum.
+# ---------------------------------------------------------------------------
+
+def distributed_stats(A: torch.Tensor, b: torch.Tensor, mesh, *,
+                      client_axes: tuple[str, ...] = ("data",),
+                      participation=None, noise_fn=None) -> SuffStats:
+    """One-Shot protocol Phases 1+2 on a mesh (``launch.mesh.Mesh``).
+
+    The rows of ``A`` and ``b`` are split evenly over the shards along
+    ``client_axes``; each such shard plays one client: it computes its local
+    (G_k, h_k) (kernel K1 on the card) on its own device, and the single
+    reduction, added in flat client order, is the one communication round
+    (d^2 + d floats, Theorem 4's upload cost). The result lies on the first
+    client's device.
+
+    Args:
+      client_axes: mesh axes the rows are sharded over; client k is flat
+        (row-major) position k along them.
+      participation: optional (K,) 0/1 weights by client index (Thm 8
+        dropout): a dropped client's statistics are zeroed before the
+        reduction, and the count becomes the float weighted row count.
+      noise_fn: optional ``(client_index, G, h) -> (G~, h~)`` applied before
+        aggregation (Algorithm 2's per-client noise, e.g.
+        ``privacy.make_dp_noise_fn``); the privatized statistics drop yty.
+    """
+    from repro_torch.launch import mesh as mesh_lib
+
+    n_clients = mesh_lib.axis_size(mesh, client_axes)
+    if A.shape[0] % n_clients:
+        raise ValueError(f"{A.shape[0]} rows do not split over {n_clients} "
+                         f"clients along {client_axes}")
+    part = (torch.ones(n_clients, dtype=torch.float32) if participation is None
+            else torch.as_tensor(participation, dtype=torch.float32))
+    rows = A.shape[0] // n_clients
+    local = []
+    for k in range(n_clients):
+        dev = mesh.device_at(mesh_lib.unflatten(mesh, client_axes, k))
+        s = compute_stats(A[k * rows:(k + 1) * rows].to(dev),
+                          b[k * rows:(k + 1) * rows].to(dev))
+        if noise_fn is not None:
+            # DP noise covers (G, h) only; an un-noised sum of y^2 riding
+            # along would leak, so the privatized statistics drop it.
+            g_t, h_t = noise_fn(k, s.gram, s.moment)
+            s = SuffStats(g_t, h_t, s.count)
+        local.append(s.scale(part[k].to(dev)))
+    dev = local[0].gram.device
+    yty = (None if any(s.yty is None for s in local)
+           else mesh_lib.psum([s.yty for s in local], dev))
+    return SuffStats(gram=mesh_lib.psum([s.gram for s in local], dev),
+                     moment=mesh_lib.psum([s.moment for s in local], dev),
+                     count=mesh_lib.psum([s.count for s in local], dev),
+                     yty=yty)

@@ -20,8 +20,8 @@ mechanism's noise once (``core.privacy``), drawn from its own key of
 statistics of their rows under a shared Gaussian sketch, and the engine
 solves in the m-dimensional sketch space.
 
-This slice of the port runs the dense backend only: meshes and
-``backend="auto"`` wait for ROADMAP queue 1, item 15.
+``run_one_shot(mesh=...)`` fuses into a ``server.ShardedBackend`` on the
+mesh; ``backend="auto"`` picks dense or sharded (``server.select``).
 """
 from __future__ import annotations
 
@@ -36,10 +36,7 @@ from repro_torch.core.sufficient_stats import SuffStats, compute_stats
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.fed import comm
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.server import FusionEngine, LinalgBackend
-
-_MESH = ("is not ported yet: the sharded backend and backend='auto' wait "
-         "for ROADMAP queue 1, item 15")
+from repro_torch.server import FusionEngine, LinalgBackend, ShardedBackend
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,7 +130,7 @@ def run_one_shot(ds: FederatedDataset, sigma: float, *,
                  backend: LinalgBackend | None = None,
                  mesh=None) -> RunResult:
     """Algorithm 1 (or Algorithm 2 when ``dp`` is given) over process
-    clients, on the dense backend.
+    clients.
 
     Args:
       participating: Thm 8 dropout mask; dropped clients transmit nothing.
@@ -147,11 +144,22 @@ def run_one_shot(ds: FederatedDataset, sigma: float, *,
       client_stats: reuse already-computed per-client statistics (ignored
         under DP).
       backend: linalg backend for the engine; defaults to dense on the
-        clients' device.
+        clients' device. With a sharded backend the engine in
+        ``extras["engine"]`` keeps the fused Gram block-sharded, the record
+        gains the cross-shard reduction ledger, and no eager dense
+        ``fused_stats`` is gathered (``extras["engine"].stats`` gives one).
+        ``backend="auto"`` picks dense or sharded(``mesh``) by the threshold
+        (``server.select``).
+      mesh: shorthand for ``backend=ShardedBackend(ds.dim, mesh)`` (or the
+        candidate mesh under ``backend="auto"``).
     """
-    if mesh is not None or isinstance(backend, str):
-        raise NotImplementedError(f"mesh / backend={backend!r} {_MESH}")
     t0 = time.perf_counter()
+    if backend == "auto":
+        from repro_torch.server import auto_backend
+
+        backend = auto_backend(ds.dim, mesh, device=ds.test_A.device)
+    elif backend is None and mesh is not None:
+        backend = ShardedBackend(ds.dim, mesh)
     uploads = client_phase(ds, participating=participating, dp=dp,
                            dp_clip=dp_clip, dp_key=dp_key,
                            client_stats=client_stats)
@@ -162,12 +170,18 @@ def run_one_shot(ds: FederatedDataset, sigma: float, *,
     w = engine.solve(sigma)
     kernel_ops.synchronize(w)
     dt = time.perf_counter() - t0
-    record = comm.measured_one_shot(list(uploads.values()),
-                                    download_floats=ds.dim)
-    return RunResult(
-        weights=w, comm=record, wall_time_s=dt, rounds=1,
-        extras={"engine": engine, "participating_clients": len(uploads),
-                "fused_stats": engine.stats})
+    extras = {"engine": engine, "participating_clients": len(uploads)}
+    if isinstance(backend, ShardedBackend):
+        # the ledger models the on-mesh reduction into the block layout;
+        # gathering G onto one device is what the backend exists to avoid
+        record = comm.sharded_oneshot_record(
+            ds.dim, len(uploads), backend.fusion_axis_sizes)
+    else:
+        record = comm.measured_one_shot(list(uploads.values()),
+                                        download_floats=ds.dim)
+        extras["fused_stats"] = engine.stats
+    return RunResult(weights=w, comm=record, wall_time_s=dt, rounds=1,
+                     extras=extras)
 
 
 def run_one_shot_projected(ds: FederatedDataset, sigma: float, m: int, *,

@@ -8,7 +8,10 @@ Modes:
   * ``fusion`` — ridge serving on one ``server.EnginePool``, in process
     (the reference's ``serve_fusion``): every tenant is an independent
     fusion problem admitted from Thm-4 packed payloads (K1, or K3 / K4 for
-    §IV-F sketched / rff tenants), queries run off cached factors against a
+    §IV-F sketched / rff tenants); ``--sharded-tenants N`` pins the first N
+    to the pool's one shared mesh (8 shards on ``--device``) and
+    ``--auto-tenants M`` lets the next M follow ``server.select`` (dense
+    unless ``--auto-threshold`` is at or below ``--dim``); queries run off cached factors against a
     naive cold solve per query, and ``--stream-deltas`` queues row deltas
     with no reads while the pool's background flusher drains them (P and
     K2 on every flush of rank 8 and up). Every tenant's served weights are
@@ -36,17 +39,17 @@ Run as
     PYTHONPATH=src python -m repro_torch.launch.serve --mode model \\
         --arch gemma3-27b [--no-reduced] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --mode fusion \\
-        [--dim 128 --tenants 8 --stream-deltas 64] [--device cpu]
+        [--dim 128 --tenants 8 --stream-deltas 64] \\
+        [--sharded-tenants 2 --auto-tenants 2 --auto-threshold 64] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --mode fusion \\
         --listen 0 --expect-uploads 3 [--journal-dir DIR] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --mode relay \\
         --upstream 127.0.0.1:PORT --journal-dir DIR --relay-id r0 \\
         [--listen 0] [--device cpu]
 
-Not ported yet, and rejected by the argument parser naming their ROADMAP
-item: the sharded and auto placements (``--sharded-tenants``,
-``--auto-tenants``; queue 1, item 15). ``--compilation-cache`` is not
-defined: it names a JAX compilation cache. Before its report, a
+``--compilation-cache`` is not defined: it names a JAX compilation cache.
+``--auto-threshold`` is the port's: the reference's auto tenants read its
+measured crossover table, of which the port has none. Before its report, a
 ``--listen`` process prints ``[serve_wire] launches {json}``, its launches
 of each CUDA kernel.
 """
@@ -150,6 +153,8 @@ def _f64_stats(rows: Sequence[tuple[torch.Tensor, torch.Tensor]],
 def serve_fusion(*, num_clients: int = 4, samples_per_client: int = 128,
                  dim: int = 128, tenants: int = 8, sigmas_per_tenant: int = 4,
                  queries: int = 256, query_rows: int = 8,
+                 sharded_tenants: int = 0, auto_tenants: int = 0, mesh=None,
+                 threshold: float | None = None,
                  sketched_tenants: int = 0, rff_tenants: int = 0,
                  feature_dim: int = 16, lengthscale: float = 1.0,
                  stream_deltas: int = 0, coalesce_rank: int = 32,
@@ -160,7 +165,11 @@ def serve_fusion(*, num_clients: int = 4, samples_per_client: int = 128,
     Each tenant is its own fusion problem: its own synthetic clients
     (``data.synthetic.generate`` from ``seed + 7919 t`` on ``device``),
     uploaded as Thm-4 :class:`fed.PackedStats` payloads (the ledger records
-    their measured bytes), its own sigma grid. The last ``rff_tenants`` and
+    their measured bytes), its own sigma grid, and its own placement: the
+    first ``sharded_tenants`` pinned to the pool's shared mesh (``mesh``,
+    or one the pool builds on ``device``), the next ``auto_tenants`` placed
+    by ``server.select`` (``threshold``: dense at +inf, the port's default
+    without a table), the rest dense. The last ``rff_tenants`` and
     the ``sketched_tenants`` before them are §IV-F feature tenants: their
     uploads are m-space statistics from ``FeatureMap.stats`` (K3 / K4 on
     the card), and their queries and deltas are featurized before they
@@ -191,12 +200,14 @@ def serve_fusion(*, num_clients: int = 4, samples_per_client: int = 128,
     from repro_torch.server import CoalescerPolicy, EnginePool
 
     device = torch.device(device)
+    sharded_tenants = min(sharded_tenants, tenants)
+    auto_tenants = min(auto_tenants, tenants - sharded_tenants)
     rff_tenants = min(rff_tenants, tenants)
     sketched_tenants = min(sketched_tenants, tenants - rff_tenants)
     policy = CoalescerPolicy(max_rank=coalesce_rank,
                              max_staleness_s=flush_staleness_s)
-    pool = EnginePool(max_warm=max_warm, default_coalesce=policy,
-                      device=device)
+    pool = EnginePool(mesh=mesh, threshold=threshold, max_warm=max_warm,
+                      default_coalesce=policy, device=device)
 
     tenant_rows: dict[str, list[tuple[torch.Tensor, torch.Tensor]]] = {}
     feature_maps: dict[str, FeatureMap] = {}
@@ -215,11 +226,16 @@ def serve_fusion(*, num_clients: int = 4, samples_per_client: int = 128,
         if fm is None:
             payloads = {k: PackedStats.pack(compute_stats(A_k, b_k))
                         for k, (A_k, b_k) in enumerate(ds_t.clients)}
+            placement = ("sharded" if t < sharded_tenants
+                         else "auto" if t < sharded_tenants + auto_tenants
+                         else "dense")
         else:
+            # feature tenants stay dense: their solve is too small to shard
             payloads = {k: PackedStats.pack(fm.stats(A_k, b_k))
                         for k, (A_k, b_k) in enumerate(ds_t.clients)}
+            placement = "dense"
             feature_maps[name] = fm
-        pool.create_tenant(name, payloads=payloads, placement="dense",
+        pool.create_tenant(name, payloads=payloads, placement=placement,
                            features=fm)
         tenant_rows[name] = list(ds_t.clients)
 
@@ -334,8 +350,8 @@ def serve_fusion(*, num_clients: int = 4, samples_per_client: int = 128,
     return {
         "tenants": tenants,
         "placements": pool.summary()["placements"],
-        "sharded_tenants": 0,
-        "auto_tenants": 0,
+        "sharded_tenants": sharded_tenants,
+        "auto_tenants": auto_tenants,
         "sketched_tenants": sketched_tenants,
         "rff_tenants": rff_tenants,
         "feature_reports": feature_reports,
@@ -354,7 +370,9 @@ def serve_fusion(*, num_clients: int = 4, samples_per_client: int = 128,
 
 def _print_fusion(res: dict) -> None:
     print(f"[serve_fusion] {res['queries']} queries, {res['tenants']} "
-          f"tenants on one pool, placements {res['placements']}, "
+          f"tenants on one pool, placements {res['placements']} "
+          f"({res['sharded_tenants']} pinned sharded, "
+          f"{res['auto_tenants']} auto), "
           f"{res['distinct_sigmas']} distinct sigmas")
     print(f"[serve_fusion] naive {res['naive_qps']:.0f} qps -> pooled "
           f"{res['pool_qps']:.0f} qps ({res['speedup']:.1f}x)")
@@ -396,7 +414,8 @@ def _print_fusion(res: dict) -> None:
 def serve_wire(*, port: int = 0, expect_uploads: int = 0,
                timeout_s: float = 30.0, sigma: float = 0.1,
                inference: bool = False, ci_level: float = 0.95,
-               coalesce_rank: int = 32, flush_staleness_s: float = 0.05,
+               placement: str = "dense", coalesce_rank: int = 32,
+               flush_staleness_s: float = 0.05,
                max_warm: int | None = None,
                solve_window_s: float | None = None,
                journal_dir: str | None = None,
@@ -413,8 +432,9 @@ def serve_wire(*, port: int = 0, expect_uploads: int = 0,
     """Run the federation server: an ``EnginePool`` on ``device`` behind a
     ``fed.transport.FrameServer`` speaking the ``fed.wire`` protocol.
 
-    Tenants are created lazily, dense, by the first upload frame that names
-    them (the HELLO's tenant binding); clients negotiate their wire dtype
+    Tenants are created lazily, with ``placement`` (a sharded one on the
+    pool's shared mesh), by the first upload frame that names them (the
+    HELLO's tenant binding); clients negotiate their wire dtype
     per session, in the order the pool's float32 container prefers. The
     loop exits once ``expect_uploads`` upload frames were admitted AND every
     connection has closed (so a SOLVE after the last upload still gets its
@@ -501,7 +521,7 @@ def serve_wire(*, port: int = 0, expect_uploads: int = 0,
         pass
     proxy = None
     try:
-        with pool, transport.FrameServer(pool, port=port,
+        with pool, transport.FrameServer(pool, port=port, placement=placement,
                                          solve_window_s=solve_window_s) as srv:
             if chaos is not None:
                 from repro_torch.fed.chaos import ChaosProxy, ChaosSchedule
@@ -602,23 +622,6 @@ def serve_wire(*, port: int = 0, expect_uploads: int = 0,
     return report
 
 
-class _NotPorted(argparse.Action):
-    """A reference flag whose path is not ported yet: using it is a parser
-    error that names the ROADMAP item it waits for."""
-
-    def __init__(self, option_strings, dest, *, item: str, **kw):
-        super().__init__(option_strings, dest, nargs="?",
-                         help=f"not ported yet ({item})")
-        self.item = item
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported yet: it waits for "
-                     f"ROADMAP queue 1, {self.item}")
-
-
-_SHARDED = "item 15 (the sharded backend)"
-
-
 def make_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["model", "fusion", "relay"],
@@ -638,6 +641,15 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--samples", type=int, default=128,
                     help="samples per client per tenant")
     ap.add_argument("--queries", type=int, default=256)
+    ap.add_argument("--sharded-tenants", type=int, default=2,
+                    help="pin the first N tenants to the pool's shared mesh "
+                         "(8 shards on --device)")
+    ap.add_argument("--auto-tenants", type=int, default=2,
+                    help="place the next M tenants by server/select.py "
+                         "(dense unless --auto-threshold <= --dim)")
+    ap.add_argument("--auto-threshold", type=float, default=None, metavar="D",
+                    help="the dimension at or above which auto tenants place "
+                         "sharded (default: no table, so dense)")
     ap.add_argument("--sketched-tenants", type=int, default=0,
                     help="make the N tenants before the rff ones §IV-F "
                          "sketched: m-space uploads (K3), m-space solves, "
@@ -709,8 +721,6 @@ def make_parser() -> argparse.ArgumentParser:
                     help="injected latency per delay fault")
     ap.add_argument("--chaos-seed", type=int, default=0,
                     help="seed of the chaos proxy's fault schedule")
-    for flag in ("--sharded-tenants", "--auto-tenants"):
-        ap.add_argument(flag, action=_NotPorted, item=_SHARDED)
     ap.add_argument("--upstream", type=str, default=None, metavar="HOST:PORT",
                     help="with --mode relay: the parent aggregator to "
                          "forward fused per-tenant delta frames to")
@@ -783,6 +793,8 @@ def main(argv=None) -> None:
         _print_fusion(serve_fusion(
             dim=args.dim, tenants=args.tenants, num_clients=args.clients,
             samples_per_client=args.samples, queries=args.queries,
+            sharded_tenants=args.sharded_tenants,
+            auto_tenants=args.auto_tenants, threshold=args.auto_threshold,
             sketched_tenants=args.sketched_tenants,
             rff_tenants=args.rff_tenants, feature_dim=args.feature_dim,
             lengthscale=args.lengthscale, stream_deltas=args.stream_deltas,

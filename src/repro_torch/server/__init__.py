@@ -4,7 +4,9 @@
 ``(G, h)`` ownership, cached and incrementally maintained factors, batched
 multi-sigma solving, Thm 8 dropout, §VI-C streaming, and Prop 5 LOCO CV.
 The engine is the policy layer; the linear algebra lives behind a
-``LinalgBackend`` (``DenseBackend`` in this slice of the port).
+``LinalgBackend``: ``DenseBackend`` (one device) or ``ShardedBackend``
+((G, h) block-sharded over a ``launch.mesh.Mesh``; on-mesh fusion and a
+block-Cholesky / CG solve over the blocks).
 
 ``EnginePool`` serves many tenants' engines from one process: admission
 quotas, per-tenant locks, a background staleness flusher, LRU eviction of
@@ -23,6 +25,7 @@ from repro_torch.server.batch import SolveBatcher, solve_stacked
 from repro_torch.server.cholesky import (chol_rank1, chol_update,
                                          chol_update_blocked, panel_transform,
                                          psd_update_vectors)
+from repro_torch.server.distributed import ShardedBackend, ShardedFactor
 from repro_torch.server.engine import CoalescerPolicy, FusionEngine
 from repro_torch.server.inference import inference_report, reference_inference
 from repro_torch.server.pool import AdmissionError, EnginePool, Tenant
@@ -36,7 +39,8 @@ __all__ = ["FusionEngine", "CoalescerPolicy", "EnginePool", "Tenant",
            "AdmissionError", "DurableStore", "Journal", "scan_segment",
            "ForwardPolicy", "RelayForwarder",
            "SolveBatcher", "solve_stacked", "solve_snapshot",
-           "LinalgBackend", "DenseBackend", "chol_rank1", "chol_update",
+           "LinalgBackend", "DenseBackend", "ShardedBackend", "ShardedFactor",
+           "chol_rank1", "chol_update",
            "chol_update_blocked", "panel_transform", "psd_update_vectors",
            "inference_report", "reference_inference", "auto_backend",
            "backend_threshold", "prefer_sharded"]

@@ -11,6 +11,7 @@ method              paper surface
 ``ingest_rows``     §VI-C with row-level deltas (incremental factor update)
 ``ingest_async``    queued §VI-C deltas, coalesced into one rank-r mutation
 ``flush``           apply the async queue as ONE fused delta (Thm 1 batching)
+``ingest_distributed``  Phases 1+2 on a mesh: shard-local stats, one reduction
 ``drop/restore``    client dropout and rejoin (Thm 8) — exact on the subset
 ``solve``           Phase 3 ridge solve (Thm 3), factor cached per sigma
 ``solve_batch``     one batched multi-sigma solve (batched Phase 3)
@@ -22,7 +23,9 @@ method              paper surface
 
 The engine is backend-agnostic: the linear algebra on the fused ``(G, h)``
 is delegated to a :class:`~repro_torch.server.backends.LinalgBackend`
-(dense single-device here). What stays here is policy: the per-client
+(dense single-device by default; ``server.distributed.ShardedBackend``
+keeps ``G`` block-sharded over a mesh). What stays here is policy: the
+per-client
 ledger, the async ingest coalescer (:class:`CoalescerPolicy`), per-sigma
 factor caching with staleness-bounded incremental updates, and the
 chol-vs-spectral ``solve_batch`` choice. ``core.fusion`` holds the
@@ -41,9 +44,6 @@ from repro_torch.core.fusion import cholesky_or_nan
 from repro_torch.core.sufficient_stats import SuffStats, compute_stats, fuse_stats
 from repro_torch.server.backends import DenseBackend, LinalgBackend
 from repro_torch.server.cholesky import psd_update_vectors
-
-_NOT_YET = ("is not ported yet: the sharded backend and on-mesh fusion wait "
-            "for ROADMAP queue 1, item 15 (distributed)")
 
 
 @dataclasses.dataclass
@@ -86,8 +86,11 @@ def _loco_solve(G, h, Gk, hk, sigmas):
         -1, sigmas.shape[0], -1, -1), Ls).squeeze(-1)
 
 
-def _nbytes(t: torch.Tensor) -> int:
-    return t.numel() * t.element_size()
+def _nbytes(t) -> int:
+    """Bytes of a tensor, or of a backend's opaque factor (its ``nbytes``)."""
+    if isinstance(t, torch.Tensor):
+        return t.numel() * t.element_size()
+    return int(t.nbytes)
 
 
 class FusionEngine:
@@ -98,7 +101,8 @@ class FusionEngine:
                  max_update_rank: int | None = None, rank_tol: float = 1e-7,
                  coalesce: CoalescerPolicy | None = None, device="cuda"):
         if isinstance(backend, str):
-            raise NotImplementedError(f"backend={backend!r} {_NOT_YET}")
+            raise ValueError(f"backend={backend!r}: pass a backend instance "
+                             "(from_clients resolves backend='auto')")
         if backend is None:
             backend = DenseBackend(dim, dtype=dtype if dtype is not None
                                    else torch.float32, device=device)
@@ -135,7 +139,11 @@ class FusionEngine:
     @classmethod
     def from_clients(cls, stats: Mapping[Hashable, SuffStats] | Sequence[SuffStats],
                      **kwargs) -> "FusionEngine":
-        """Engine over per-client stats; retains each for drop/restore/LOCO."""
+        """Engine over per-client stats; retains each for drop/restore/LOCO.
+
+        ``backend="auto"`` (with optional ``mesh=`` and ``threshold=``)
+        picks dense or sharded through :func:`server.select.auto_backend`.
+        """
         items = list(stats.items() if isinstance(stats, Mapping)
                      else enumerate(stats))
         if not items:
@@ -143,9 +151,14 @@ class FusionEngine:
         first = items[0][1]
         kwargs.setdefault("dtype", first.gram.dtype)
         kwargs.setdefault("device", first.gram.device)
+        if kwargs.get("backend") == "auto":
+            from repro_torch.server.select import auto_backend
+
+            kwargs["backend"] = auto_backend(
+                first.dim, kwargs.pop("mesh", None),
+                threshold=kwargs.pop("threshold", None),
+                dtype=kwargs["dtype"], device=kwargs["device"])
         backend = kwargs.get("backend")
-        if isinstance(backend, str):
-            raise NotImplementedError(f"backend={backend!r} {_NOT_YET}")
         if backend is not None and int(backend.count) != 0:
             raise ValueError(
                 "backend already holds fused statistics "
@@ -308,8 +321,23 @@ class FusionEngine:
 
     def ingest_distributed(self, A: torch.Tensor, b: torch.Tensor,
                            **kwargs) -> None:
-        """Phases 1+2 on a mesh: not in this slice of the port."""
-        raise NotImplementedError(f"ingest_distributed {_NOT_YET}")
+        """Phases 1+2 on a mesh: each row shard's statistics are reduced
+        straight into the backend's (sharded) state.
+
+        Needs a backend with ``fuse_distributed`` (``ShardedBackend``);
+        ``participation`` and ``noise_fn`` pass through. Mesh shards are not
+        ledger clients: dropout on this path is the participation mask
+        (Thm 8), not ``drop``/``restore``.
+        """
+        self.flush()
+        fuse = getattr(self.backend, "fuse_distributed", None)
+        if fuse is None:
+            raise ValueError(
+                f"backend {self.backend.name!r} has no on-mesh fusion path")
+        fuse(A, b, **kwargs)
+        # an unknown-rank delta folded behind the engine's back: drop caches
+        self._factors.clear()
+        self.stats_version += 1
 
     def drop(self, client_id: Hashable) -> None:
         """Thm 8: remove a client; state becomes exact on the remaining subset."""

@@ -11,10 +11,15 @@ registry and scheduling layer:
     measure), from pre-fused statistics, or empty from ``dim``. Quotas on
     tenants, fused-statistic bytes and retained clients refuse with
     :class:`AdmissionError`.
-  * **Placement** — every tenant is dense. ``"auto"`` asks
-    ``server.select`` (the port has no default crossover table, so it
-    resolves dense); a sharded placement raises until the sharded backend
-    is ported (ROADMAP queue 1, item 15).
+  * **Placement** — each tenant picks ``"dense"``, ``"sharded"`` or
+    ``"auto"`` (``server.select``: an explicit ``threshold=`` or a table's
+    crossover decides; the port has no default table, so without one
+    ``"auto"`` resolves dense). All sharded tenants share ONE mesh, built
+    lazily on the pool's device at the first sharded placement
+    (``meshes_built``): K sharded tenants cost one mesh, and a pool that
+    places everything dense builds none. Sharded tenants solve under their
+    lock and stay out of cross-tenant stacks (their backend declines the
+    operand snapshot).
   * **Locking** — every tenant operation goes through a per-tenant
     re-entrant lock, so producers, the background flusher and readers can
     hit one tenant concurrently and reads observe fully drained state.
@@ -71,7 +76,7 @@ from repro_torch.core.sufficient_stats import SuffStats
 from repro_torch.server.backends import solve_snapshot
 from repro_torch.server.batch import solve_stacked
 from repro_torch.server.engine import CoalescerPolicy, FusionEngine
-from repro_torch.server.select import SHARDED_NOT_YET, prefer_sharded
+from repro_torch.server.select import prefer_sharded
 
 PLACEMENTS = ("dense", "sharded", "auto")
 
@@ -165,7 +170,8 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 class EnginePool:
     """Named multi-tenant registry of :class:`FusionEngine` servers."""
 
-    def __init__(self, *, mesh=None, threshold: float | None = None,
+    def __init__(self, *, mesh=None, mesh_devices: int = 8,
+                 threshold: float | None = None,
                  table=None, max_warm: int | None = None,
                  max_tenants: int | None = None,
                  stat_budget_bytes: int | None = None,
@@ -174,9 +180,12 @@ class EnginePool:
                  journal_dir: str | None = None,
                  snapshot_every: int | None = None,
                  journal_fsync: bool = True,
+                 journal_placement: str = "dense",
                  tier: str = "root", device="cuda", dtype=torch.float32):
         """Args:
-          mesh: a mesh for sharded tenants; raises (item 15).
+          mesh: mesh shared by every sharded tenant; built lazily
+            (``launch.mesh.make_device_mesh(mesh_devices)`` on ``device``)
+            when omitted and a tenant places sharded.
           threshold / table: forwarded to ``server.select`` for ``"auto"``
             placement (an explicit threshold beats a table's crossover).
           max_warm: LRU bound on tenants with resident factor caches
@@ -205,6 +214,8 @@ class EnginePool:
             power loss) or only flush it to the OS (a crash may lose the
             last ACKed frames, which retrying clients re-send and the dedup
             index absorbs).
+          journal_placement: placement of tenants that journal replay
+            recreates and no snapshot covers yet.
           tier: accounting label ("root" / "relay"), reported by ``ledger``.
           device: where every tenant's state lives.
           dtype: the container of tenants created empty (from ``dim`` or a
@@ -212,10 +223,14 @@ class EnginePool:
             dispatcher prefers it in negotiation (the JAX package's
             ``jax_enable_x64``).
         """
-        if mesh is not None:
-            raise NotImplementedError(f"EnginePool(mesh=...) {SHARDED_NOT_YET}")
+        if journal_placement not in PLACEMENTS:
+            raise ValueError(f"journal_placement must be one of {PLACEMENTS}, "
+                             f"got {journal_placement!r}")
         self._tenants: dict[str, Tenant] = {}
         self._reg_lock = threading.RLock()
+        self._mesh = mesh
+        self._mesh_devices = mesh_devices
+        self.meshes_built = 0
         self._threshold = threshold
         self._table = table
         self.max_warm = max_warm
@@ -233,6 +248,7 @@ class EnginePool:
         self._stop = threading.Event()
         # -- durability (server.durability) ---------------------------------
         self.snapshot_every = snapshot_every
+        self._journal_placement = journal_placement
         self._store = None
         self._journal = None
         self._snap_lock = threading.Lock()
@@ -280,6 +296,17 @@ class EnginePool:
         with self._reg_lock:
             return list(self._tenants.values())
 
+    def shared_mesh(self):
+        """The one mesh every sharded tenant is placed on (built lazily)."""
+        with self._reg_lock:
+            if self._mesh is None:
+                from repro_torch.launch import mesh as mesh_lib
+
+                self._mesh = mesh_lib.make_device_mesh(self._mesh_devices,
+                                                       device=self.device)
+                self.meshes_built += 1
+            return self._mesh
+
     # -- admission -----------------------------------------------------------
 
     def create_tenant(self, name: str,
@@ -294,7 +321,8 @@ class EnginePool:
                       features: FeatureMap | None = None,
                       coalesce: CoalescerPolicy | None = None,
                       max_update_rank: int | None = None,
-                      psd_guard: bool = False) -> FusionEngine:
+                      psd_guard: bool = False,
+                      backend_kwargs: dict | None = None) -> FusionEngine:
         """Admit a tenant from at most one of ``clients`` / ``payloads`` /
         ``stats`` (or none, with ``dim``, for an empty engine fed later).
 
@@ -313,7 +341,8 @@ class EnginePool:
         ``psd_guard`` runs the Remark-4 check on the admitted Gram: if DP
         noise made it indefinite, ``privacy.psd_repair`` is applied (DP
         post-processing, free) and the firing is counted in the tenant
-        record.
+        record. ``backend_kwargs`` go to a sharded tenant's
+        ``ShardedBackend`` (``block_size``, ``method``, ...).
         """
         if placement not in PLACEMENTS:
             raise ValueError(f"placement must be one of {PLACEMENTS}, "
@@ -362,19 +391,22 @@ class EnginePool:
         eff_dtype = (dtype if dtype is not None
                      else first.gram.dtype if first is not None else self.dtype)
         self._check_admission(name, dim, eff_dtype)
-        self._place(dim, placement)
+        backend = self._place(dim, placement, eff_dtype, backend_kwargs or {})
         kwargs: dict = {"coalesce": coalesce if coalesce is not None
                         else self._default_coalesce}
         if max_update_rank is not None:
             kwargs["max_update_rank"] = max_update_rank
-        if dtype is not None:
+        if backend is not None:
+            kwargs["backend"] = backend
+        elif dtype is not None:
             kwargs["dtype"] = dtype
         if unpacked is not None:
             engine = FusionEngine.from_clients(unpacked, **kwargs)
         elif stats is not None:
             engine = FusionEngine.from_stats(stats, **kwargs)
         else:
-            kwargs["dtype"] = eff_dtype
+            if backend is None:
+                kwargs["dtype"] = eff_dtype
             engine = FusionEngine(dim, device=self.device, **kwargs)
 
         t = Tenant(name, engine, placement)
@@ -447,22 +479,41 @@ class EnginePool:
                 total += t.engine.resident_bytes
         return total
 
-    def _place(self, dim: int, placement: str) -> None:
-        """Resolve a placement request; only dense is ported."""
-        if placement == "auto" and not prefer_sharded(
-                dim, threshold=self._threshold, table=self._table):
-            return
-        if placement != "dense":
-            raise NotImplementedError(
-                f"placing d={dim} sharded (placement={placement!r}) "
-                f"{SHARDED_NOT_YET}")
+    def _place(self, dim: int, placement: str, dtype, backend_kwargs):
+        """Resolve a placement request to a backend (None = default dense)."""
+        if placement == "auto":
+            placement = ("sharded"
+                         if prefer_sharded(dim, threshold=self._threshold,
+                                           table=self._table) else "dense")
+        if placement == "dense":
+            return None
+        from repro_torch.server.distributed import ShardedBackend
+
+        kw = dict(backend_kwargs)
+        kw.setdefault("dtype", dtype)
+        return ShardedBackend(dim, self.shared_mesh(), **kw)
 
     def _admission_record(self, engine: FusionEngine, dim: int, *, payloads):
         from repro_torch.fed import comm as fed_comm
 
         if payloads is not None:
-            return fed_comm.measured_one_shot(payloads, download_floats=dim)
-        return fed_comm.one_shot_comm(dim, max(len(engine.client_ids), 1))
+            base = fed_comm.measured_one_shot(payloads, download_floats=dim)
+        else:
+            base = fed_comm.one_shot_comm(dim, max(len(engine.client_ids), 1))
+        axis_sizes = getattr(engine.backend, "fusion_axis_sizes", None)
+        if axis_sizes:
+            # sharded tenants also pay the one on-mesh fusion reduction
+            base = fed_comm.ShardedCommRecord(
+                upload_floats_per_client=base.upload_floats_per_client,
+                download_floats_per_client=base.download_floats_per_client,
+                num_clients=base.num_clients,
+                rounds=base.rounds,
+                upload_wire_bytes_per_client=base.upload_wire_bytes_per_client,
+                download_wire_bytes_per_client=(
+                    base.download_wire_bytes_per_client),
+                psum_floats_per_axis=fed_comm.sharded_oneshot_record(
+                    dim, base.num_clients, axis_sizes).psum_floats_per_axis)
+        return base
 
     def _run_psd_guard(self, t: Tenant) -> bool:
         """Remark 4: repair the admitted Gram if noise made it indefinite."""
@@ -514,7 +565,8 @@ class EnginePool:
                         continue   # already inside the snapshot
                     self.admit_frame(
                         rec.tenant, rec.frame, encoded_len=len(rec.raw),
-                        placement=placements.get(rec.tenant, "dense"),
+                        placement=placements.get(rec.tenant,
+                                                 self._journal_placement),
                         raw=rec.raw)
                     self.replayed_frames += 1
         finally:
@@ -1359,7 +1411,7 @@ class EnginePool:
         return {
             "tenants": len(snapshot),
             "placements": placements,
-            "meshes_built": 0,
+            "meshes_built": self.meshes_built,
             "flusher_alive": self.flusher_alive,
             "background_flushes": sum(t.background_flushes for t in snapshot),
             "max_flush_age_s": max(

@@ -10,8 +10,7 @@ dense-vs-sharded table named by ``table=``, then +inf (dense everywhere).
 Unlike the reference, the port has no default table: the reference's
 ``experiments/repro/sharded_fusion_bench.json`` is a CPU measurement of its
 JAX sharded backend, not evidence for the card, so every dimension goes
-dense unless a caller pins a number. The sharded backend itself is not
-ported yet: a choice that would place a tenant sharded raises.
+dense unless a caller pins a number.
 """
 from __future__ import annotations
 
@@ -20,9 +19,6 @@ import math
 import pathlib
 
 import torch
-
-SHARDED_NOT_YET = ("is not ported yet: the sharded backend and meshes wait "
-                   "for ROADMAP queue 1, item 15 (distributed)")
 
 
 def backend_threshold(threshold: float | None = None,
@@ -51,14 +47,14 @@ def prefer_sharded(dim: int, *, threshold: float | None = None,
 
 def auto_backend(dim: int, mesh=None, *, threshold: float | None = None,
                  table: pathlib.Path | str | None = None,
-                 dtype=torch.float32, device="cuda"):
-    """Backend for ``dim``: sharded iff a mesh is given AND ``dim`` clears
-    the threshold (which raises ``NotImplementedError`` until item 15),
-    else a ``DenseBackend`` on ``device``."""
+                 dtype=torch.float32, device="cuda", **sharded_kwargs):
+    """Backend for ``dim``: a ``ShardedBackend`` on ``mesh`` iff a mesh is
+    given AND ``dim`` clears the threshold, else a ``DenseBackend`` on
+    ``device``."""
     from repro_torch.server.backends import DenseBackend
+    from repro_torch.server.distributed import ShardedBackend
 
     if mesh is not None and prefer_sharded(dim, threshold=threshold,
                                            table=table):
-        raise NotImplementedError(f"auto_backend placing d={dim} sharded "
-                                  f"{SHARDED_NOT_YET}")
+        return ShardedBackend(dim, mesh, dtype=dtype, **sharded_kwargs)
     return DenseBackend(dim, dtype=dtype, device=device)

@@ -2,10 +2,10 @@
 JAX package's (``repro.checkpoint``).
 
 The durable pool trusts its snapshots to this module, so it is held to the
-reference's own tests (``tests/test_checkpoint.py``; the sharded-template
-half waits for the sharded backend and must raise): bitwise roundtrips at
-f64 / f32 / bf16, step discovery with gaps, restore onto a template's dtype
-and onto a device. Beyond those, the npz keys are the reference's key
+reference's own tests (``tests/test_checkpoint.py``): bitwise roundtrips at
+f64 / f32 / bf16, step discovery with gaps, restore onto a template's dtype,
+onto a device and onto a sharded template (a ``ShardedTensor`` on a mesh of
+8 CPU shards: the pool's restore of a sharded tenant). Beyond those, the npz keys are the reference's key
 strings (``jax.tree_util.keystr``), and a step written by either package
 restores in the other bitwise.
 """
@@ -122,16 +122,36 @@ class TestRoundtrip:
         assert '"step": 42' in manifest
         assert f'"num_leaves": {len(_leaves(tree))}' in manifest
 
-    def test_sharded_template_raises_naming_its_item(self, tmp_path):
-        class Sharded:        # what a DTensor leaf carries
-            placements = ("Shard(0)",)
-            dtype = torch.float32
+    def test_restore_onto_sharded_template(self, tmp_path):
+        """Save a replicated tree, restore onto a mesh-sharded template: the
+        restored leaves carry the template's mesh and spec, bitwise (what
+        the pool's snapshot restore does for sharded-placement tenants)."""
+        from repro_torch.launch import mesh as mesh_lib
+        from repro_torch.launch.sharding import P, ShardedTensor
 
-        checkpoint.save_pytree({"G": np.ones((2, 2), np.float32)}, tmp_path,
-                               step=0)
-        with pytest.raises(NotImplementedError, match="item 15"):
-            checkpoint.load_pytree({"G": Sharded()}, tmp_path, step=0,
-                                   device="cpu")
+        mesh = mesh_lib.make_cpu_mesh(8)
+        rng = np.random.default_rng(3)
+        G = rng.standard_normal((8, 8)).astype(np.float32)
+        h = rng.standard_normal(8).astype(np.float32)
+        jcheckpoint.save_pytree({"G": G, "h": h}, tmp_path, step=7)
+        template = {"G": ShardedTensor.distribute(torch.zeros(8, 8), mesh,
+                                                  P("data", "model")),
+                    "h": ShardedTensor.distribute(torch.zeros(8, dtype=torch.float64),
+                                                  mesh, P("data"))}
+        out = checkpoint.load_pytree(template, tmp_path, step=7, device="cpu")
+        assert out["G"].spec == P("data", "model") and out["G"].mesh is mesh
+        assert out["h"].spec == P("data") and out["h"].dtype == torch.float64
+        assert len(out["G"].blocks) == 8 and len(out["h"].blocks) == 4
+        assert out["G"].full().numpy().tobytes() == G.tobytes()
+        assert np.array_equal(out["h"].full().numpy(), h.astype(np.float64))
+        # a sharded leaf saves whole, as the reference's arrays do
+        checkpoint.save_pytree({"G": out["G"]}, tmp_path / "again", step=1)
+        back = jcheckpoint.load_pytree({"G": jnp.zeros((8, 8), jnp.float32)},
+                                       tmp_path / "again", step=1)
+        assert np.asarray(back["G"]).tobytes() == G.tobytes()
+        with pytest.raises(ValueError, match="template"):
+            checkpoint.load_pytree({"G": template["h"], "h": template["h"]},
+                                   tmp_path, step=7)
 
 
 class TestLatestStep:

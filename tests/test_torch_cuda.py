@@ -1075,3 +1075,118 @@ def test_one_shot_probe_on_card_matches_cpu_path(card, targets):
     ref = core.one_shot_probe(torch.tanh, X, Y, sigma=0.1)
     assert res.weights.is_cuda and res.weights.shape == ref.weights.shape
     assert _rel(res.weights, ref.weights) <= 1e-5
+
+
+# -- the sharded backend on a (4, 2) mesh of the card ---------------------------
+
+def _card_mesh(card, n=8):
+    from repro_torch.launch import mesh as mesh_lib
+
+    return mesh_lib.make_device_mesh(n, device=card)
+
+
+@pytest.mark.parametrize("d,bs", [(100, None), (300, 32), (256, 64)])
+def test_sharded_engine_on_card_matches_cpu_path(card, d, bs):
+    """Factor, solve, a rank-r update, drop and restore on the card's mesh
+    (K2 at the SYRK / TRSM / trailing sites, P on the tiles) against the
+    same calls on a CPU mesh and against float64."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    A, b = _randn((4 * d + 48, d)), _randn((4 * d + 48,), seed=1)
+    # one large client and three of 16 rows (a drop is a rank-16 downdate)
+    cuts = [0, 4 * d, 4 * d + 16, 4 * d + 32, 4 * d + 48]
+    stats = {k: core.compute_stats(A[cuts[k]:cuts[k + 1]], b[cuts[k]:cuts[k + 1]])
+             for k in range(4)}
+    out = {}
+    for dev, mesh in (("cpu", mesh_lib.make_cpu_mesh(8)), ("card", _card_mesh(card))):
+        on = {k: core.SuffStats(s.gram.to(mesh.distinct_devices[0]),
+                                s.moment.to(mesh.distinct_devices[0]),
+                                s.count.to(mesh.distinct_devices[0]))
+              for k, s in stats.items()}
+        eng = server.FusionEngine.from_clients(
+            on, backend=server.ShardedBackend(d, mesh, block_size=bs),
+            max_update_rank=d)
+        gram.reset_launch_counts()
+        w0 = eng.solve(0.1)
+        k2_factor = gram.launch_counts()["gemm_nt"]
+        rows = _randn((24, d), seed=3).to(mesh.distinct_devices[0])
+        eng.ingest_rows(rows, rows[:, 0].clone())
+        w1 = eng.solve(0.1)
+        eng.drop(2)
+        w2 = eng.solve(0.1)
+        launches = gram.launch_counts()
+        out[dev] = (w0, w1, w2, eng.stats, k2_factor, launches,
+                    eng.cold_factorizations)
+    for i in range(3):
+        assert _rel(out["card"][i], out["cpu"][i]) <= 1e-4
+    G, h = out["card"][3].gram.double(), out["card"][3].moment.double()
+    w64 = torch.linalg.solve(G + 0.1 * torch.eye(d, dtype=G.dtype, device=G.device), h)
+    assert _rel(out["card"][2], w64) <= 1e-5
+    assert out["card"][4] > 0 and out["cpu"][4] == 0
+    assert out["card"][5]["panel_transform"] > 0
+    assert out["card"][6] == out["cpu"][6] == 1      # no refactorization
+
+
+@pytest.mark.parametrize("bs,r", [(64, 1), (128, 16), (256, 64), (256, 200)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_composed_panel_transform_on_card(card, bs, r, dtype):
+    from repro_torch.server.distributed import composed_panel_transform
+
+    W = _randn((bs, 2 * bs), dtype=torch.float64)
+    L = torch.linalg.cholesky(W @ W.T / bs + torch.eye(bs, dtype=torch.float64))
+    L, X = L.to(dtype).to(card).contiguous(), _randn((r, bs), dtype, seed=4).to(card)
+    gram.reset_launch_counts()
+    La, Ta = composed_panel_transform(L, X, sign=1.0)
+    c = gram.launch_counts()
+    assert c["panel_transform"] == bs // 32 and c["gemm_nt"] == 2 * (bs // 32 - 1)
+    Lb, Tb = cholesky.panel_transform_ref(L.cpu(), X.cpu(), sign=1.0)
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    assert _rel(torch.tril(La), torch.tril(Lb)) <= tol
+    assert _rel(Ta, Tb) <= tol
+
+
+def test_fuse_distributed_and_probe_on_card_mesh(card):
+    from repro_torch.core import probe
+
+    mesh = _card_mesh(card)
+    A, b = _randn((512, 48)), _randn((512,), seed=1)
+    be = server.ShardedBackend(48, mesh)
+    eng = server.FusionEngine(48, backend=be, device=card)
+    gram.reset_launch_counts()
+    eng.ingest_distributed(A.to(card), b.to(card), participation=[1, 0, 1, 1])
+    assert gram.launch_counts()["gram_moment"] == 4
+    keep = torch.cat([torch.arange(0, 128), torch.arange(256, 512)])
+    ref = core.compute_stats(A[keep], b[keep])
+    assert eng.count == 384
+    assert _rel(be.stats().gram, ref.gram) <= 1e-5
+    s = core.distributed_stats(A.to(card), b.to(card), mesh)
+    assert s.gram.is_cuda and _rel(s.gram, core.compute_stats(A, b).gram) <= 1e-5
+    W = _randn((48, 16), seed=5)
+    r = probe.one_shot_probe(lambda x: torch.tanh(x @ W.to(x.device)), A.to(card),
+                             b.to(card), sigma=0.1, mesh=mesh)
+    r0 = probe.one_shot_probe(lambda x: torch.tanh(x @ W), A, b, sigma=0.1)
+    assert r.weights.is_cuda and _rel(r.weights, r0.weights) <= 1e-4
+
+
+def test_sharded_pool_on_card_restores_bitwise(card, tmp_path):
+    """A sharded tenant on the pool's card mesh, journaled: the restored
+    pool's solves equal the never-crashed pool's, bitwise."""
+    from repro_torch.fed import wire
+
+    pool = server.EnginePool(device=card, journal_dir=str(tmp_path))
+    raws = []
+    for k in range(3):
+        A, b = _randn((64, 40), seed=10 + k), _randn((64,), seed=20 + k)
+        frame = wire.StatsFrame.from_stats(core.compute_stats(A, b), client_id=f"c{k}")
+        raws.append(wire.encode_frame(frame, dtype="f32"))
+    for raw in raws:
+        assert pool.admit_frame("s", wire.decode_frame(raw), encoded_len=len(raw),
+                                placement="sharded", raw=raw).ok
+    w = pool.solve("s", 0.1)
+    assert pool.tenant("s").backend_name == "sharded" and pool.meshes_built == 1
+    assert pool.get("s").backend.mesh.distinct_devices == [torch.device("cuda", 0)]
+    pool.close()
+    back = server.EnginePool(device=card, journal_dir=str(tmp_path))
+    assert back.tenant("s").backend_name == "sharded"
+    assert torch.equal(back.solve("s", 0.1), w)
+    back.close()

@@ -638,9 +638,11 @@ def _cross_workload(seed):
     return out
 
 
-def _feed(pool, frames, snapshot_at=None):
+def _feed(pool, frames, snapshot_at=None, placement="dense"):
+    """Admit the frames in order; the "dense" tenant takes ``placement``."""
     for i, (tenant, raw) in enumerate(frames):
-        assert _admit_raw(pool, tenant, raw).ok
+        assert _admit_raw(pool, tenant, raw,
+                          placement=placement if tenant == "dense" else "dense").ok
         if i == snapshot_at:
             pool.snapshot()
 
@@ -689,6 +691,60 @@ class TestAcrossPackages:
         assert jp.ledger()["wire_upload_bytes"] == pp.ledger()["wire_upload_bytes"]
         assert _admit_raw(jp, frames[1][0], frames[1][1]).duplicate
         _crash(jp)
+
+    @pytest.mark.parametrize("snapshot_at", [None, 3])
+    @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+    def test_sharded_tenant_restores_across_packages(self, tmp_path, direction,
+                                                     snapshot_at):
+        """A journal with a sharded tenant (its placement in the snapshot,
+        or ``journal_placement`` for a replay no snapshot covers) restores
+        in the other package as a sharded tenant, fused statistics bitwise."""
+        import warnings
+
+        def jpool():
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # a 1 x 1 mesh in process
+                return JEnginePool(journal_dir=str(tmp_path),
+                                   journal_placement="sharded")
+
+        def ppool():
+            return _pool(journal_dir=str(tmp_path), journal_placement="sharded")
+
+        first, second = (jpool, ppool) if direction == "jax_to_port" else (ppool, jpool)
+        frames = _cross_workload(44)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            a = first()
+            _feed(a, frames, snapshot_at, placement="sharded")
+        assert a.tenant("dense").backend_name == "sharded"
+        want = {n: _fused(a, n) for n in a.tenant_names}
+        _crash(a)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            b = second()
+        assert b.tenant("dense").backend_name == "sharded"
+        assert b.tenant("dense").placement == "sharded"
+        assert b.meshes_built == 1
+        for n, arrays in want.items():
+            for got, w in zip(_fused(b, n), arrays):
+                assert got.tobytes() == w.astype(got.dtype).tobytes(), n
+        _crash(b)
+
+    def test_restored_sharded_solves_equal_the_uncrashed_pool(self, tmp_path):
+        frames = _cross_workload(45)
+        never = _pool()
+        _feed(never, frames, placement="sharded")
+        p1 = _pool(journal_dir=str(tmp_path))
+        _feed(p1, frames[:4], snapshot_at=2, placement="sharded")
+        _crash(p1)
+        p2 = _pool(journal_dir=str(tmp_path))
+        _feed(p2, frames[4:], placement="sharded")
+        assert p2.tenant("dense").backend_name == "sharded"
+        assert p2.replayed_frames == 1 and p2.restored_tenants == 1
+        for sigma in (0.01, SIGMA):
+            w, w_never = p2.solve("dense", sigma), never.solve("dense", sigma)
+            assert torch.equal(w, w_never)
+        _crash(p2)
 
     def test_the_two_packages_write_the_same_files(self, tmp_path):
         """The same frames in the same order: byte-identical WAL segments

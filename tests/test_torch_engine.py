@@ -193,13 +193,26 @@ class TestPortContracts:
         assert tinf.z_value(level) == pytest.approx(jinf.z_value(level), rel=1e-6)
 
     def test_not_ported_paths_raise(self):
+        """The paths that waited for the sharded backend now run: "auto"
+        resolves in from_clients (dense without a threshold, sharded past
+        one), a string backend in the constructor is refused, and only a
+        backend with on-mesh fusion takes ingest_distributed."""
+        from repro_torch.launch.mesh import make_cpu_mesh
+
         st = [tcore.compute_stats(torch.ones(5, 3), torch.ones(5))]
-        with pytest.raises(NotImplementedError, match="item 15"):
+        with pytest.raises(ValueError, match="backend='auto'"):
             tserver.FusionEngine(3, backend="auto", device="cpu")
-        with pytest.raises(NotImplementedError, match="item 15"):
-            tserver.FusionEngine.from_clients(st, backend="auto")
-        with pytest.raises(NotImplementedError, match="item 15"):
-            tserver.FusionEngine.from_clients(st).ingest_distributed(None, None)
+        assert tserver.FusionEngine.from_clients(
+            st, backend="auto").backend.name == "dense"
+        mesh = make_cpu_mesh(8)
+        eng = tserver.FusionEngine.from_clients(st, backend="auto", mesh=mesh,
+                                                threshold=3)
+        assert eng.backend.name == "sharded" and eng.count == 5
+        with pytest.raises(ValueError, match="no on-mesh fusion"):
+            tserver.FusionEngine.from_clients(st).ingest_distributed(
+                torch.ones(8, 3), torch.ones(8))
+        eng.ingest_distributed(torch.ones(8, 3), torch.ones(8))
+        assert eng.count == 13
 
     def test_rejects_populated_backend_and_dim_mismatch(self):
         st = tcore.compute_stats(torch.ones(5, 3), torch.ones(5))

@@ -1,7 +1,7 @@
 """Port parity for the serving pool (``server/pool.py``).
 
-Mirrors tests/test_pool_properties.py (dense placements only: a sharded
-placement raises, naming ROADMAP item 15), tests/test_pool_stress.py's
+Mirrors tests/test_pool_properties.py (with its sharded and auto
+placements on one shared mesh per pool), tests/test_pool_stress.py's
 producer, staleness and shutdown classes, and the pool half of
 tests/test_feature_tenants.py. The same numpy data and the same operations
 go through a JAX pool and a port pool on the CPU:
@@ -17,7 +17,9 @@ go through a JAX pool and a port pool on the CPU:
 Feature tenants use the reference's map arrays (``convert.feature_map_from``)
 and rows the reference featurized, so both pools solve in the same space.
 """
+import dataclasses
 import threading
+import warnings
 import time
 
 import jax.numpy as jnp
@@ -398,14 +400,30 @@ class TestAdmission:
             pool.create_tenant("x", clients=[self._stats()], placement="dense")
         assert len(pool) == 0
 
-    @pytest.mark.parametrize("case,item", [
-        ("mesh", "item 15"), ("sharded", "item 15")])
-    def test_not_ported_yet_raises_naming_its_item(self, case, item):
-        with pytest.raises(NotImplementedError, match=item):
-            if case == "mesh":
-                EnginePool(device="cpu", mesh=object())
-            pool = EnginePool(device="cpu")
-            pool.create_tenant("x", dim=D, placement="sharded")
+    @pytest.mark.parametrize("case", ["mesh", "sharded"])
+    def test_mesh_and_sharded_placement_admit(self, case):
+        """A given mesh is the one every sharded tenant shares (none is
+        built); without one the pool builds its own at the first sharded
+        placement, on its device. ``backend_kwargs`` reach the backend."""
+        from repro_torch.launch.mesh import make_cpu_mesh
+
+        mesh = make_cpu_mesh(4) if case == "mesh" else None
+        pool = EnginePool(device="cpu", mesh=mesh)
+        pool.create_tenant("x", dim=D, placement="sharded",
+                           backend_kwargs={"block_size": 4})
+        be = pool.get("x").backend
+        assert be.name == "sharded" and be.block_size == 4
+        assert be.mesh is pool.shared_mesh()
+        assert pool.meshes_built == (0 if case == "mesh" else 1)
+        assert be.mesh.shape == ({"data": 2, "model": 2} if case == "mesh"
+                                 else {"data": 4, "model": 2})
+        A, b = (torch.from_numpy(x) for x in _np_rows(3))
+        pool.ingest_rows("x", A, b, client_id=0)
+        w_ref = fusion.solve_ridge(tcore.compute_stats(A, b), SIGMA)
+        np.testing.assert_allclose(pool.solve("x", SIGMA).numpy(),
+                                   w_ref.numpy(), rtol=1e-5, atol=1e-6)
+        with pytest.raises(ValueError, match="journal_placement"):
+            EnginePool(device="cpu", journal_placement="nowhere")
 
     def test_psd_guard_admission(self):
         """``psd_guard=True`` checks the admitted Gram: PSD statistics pass
@@ -460,11 +478,81 @@ class TestPlacement:
             assert pool.summary()["placements"] == {"dense": 2}
 
     def test_auto_threshold_override_would_place_sharded(self):
-        pool = EnginePool(threshold=D, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 15"):
-            pool.create_tenant("a0", clients=[_t(_jstats(*_np_rows(0)))],
-                               placement="auto")
-        assert "a0" not in pool
+        """tests/test_pool_properties.py's override: every tenant at or
+        above the threshold goes sharded, on one mesh built for it; the
+        reference pool here (its mesh as wide as this process's host
+        devices, 1 x 1 on one) and a port pool whose mesh has that shape
+        agree on the ledger, the summary and the fused statistics."""
+        import jax
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            jp = jserver.EnginePool(threshold=D)
+            s = _jstats(*_np_rows(0))
+            jp.create_tenant("a0", clients=[s], placement="auto")
+        tp = EnginePool(threshold=D, device="cpu",
+                        mesh_devices=min(8, jax.device_count()))
+        tp.create_tenant("a0", clients=[_t(s)], placement="auto")
+        for pool in (jp, tp):
+            assert pool.tenant("a0").backend_name == "sharded"
+            assert pool.meshes_built == 1
+        assert tp.summary() == jp.summary()
+        assert tp.ledger() == jp.ledger()
+        np.testing.assert_array_equal(tp.stats("a0").gram.numpy(),
+                                      np.asarray(jp.stats("a0").gram))
+
+    def test_auto_threshold_override_places_sharded(self):
+        pool = EnginePool(threshold=D, device="cpu")   # every d >= D: sharded
+        pool.create_tenant("a0", clients=[_t(_jstats(*_np_rows(0)))],
+                           placement="auto")
+        assert pool.tenant("a0").backend_name == "sharded"
+        assert pool.tenant("a0").placement == "auto"
+        assert pool.meshes_built == 1
+
+    def test_sharded_tenants_share_one_mesh(self):
+        pool = EnginePool(device="cpu")
+        s = _t(_jstats(*_np_rows(0)))
+        for i in range(3):
+            pool.create_tenant(f"s{i}", clients=[s], placement="sharded")
+        meshes = {id(pool.get(f"s{i}").backend.mesh) for i in range(3)}
+        assert len(meshes) == 1
+        assert pool.meshes_built == 1
+        assert pool.summary()["placements"] == {"sharded": 3}
+        assert pool.summary()["meshes_built"] == 1
+
+    def test_sharded_admission_ledger_is_the_references_record(self):
+        """On the (4, 2) mesh the reduction crosses the 4-way data axis: the
+        admission record is the reference's ShardedCommRecord for it, field
+        for field, and the pool ledger counts its cross-shard bytes."""
+        from repro.fed import comm as jcomm
+
+        pool = EnginePool(device="cpu")
+        stats = {k: _t(_jstats(*_np_rows(k))) for k in range(3)}
+        pool.create_tenant("s", clients=stats, placement="sharded")
+        rec = pool.tenant("s").comm
+        assert isinstance(rec, comm.ShardedCommRecord)
+        base = jcomm.one_shot_comm(D, 3)
+        want = jcomm.ShardedCommRecord(
+            upload_floats_per_client=base.upload_floats_per_client,
+            download_floats_per_client=base.download_floats_per_client,
+            num_clients=3, rounds=base.rounds,
+            upload_wire_bytes_per_client=base.upload_wire_bytes_per_client,
+            download_wire_bytes_per_client=base.download_wire_bytes_per_client,
+            psum_floats_per_axis=jcomm.sharded_oneshot_record(
+                D, 3, {"data": 4}).psum_floats_per_axis)
+        assert dataclasses.asdict(rec) == dataclasses.asdict(want)
+        assert pool.ledger()["cross_shard_bytes"] == want.cross_shard_bytes > 0
+
+    def test_sharded_tenants_solve_under_their_lock_outside_stacks(self):
+        pool = EnginePool(device="cpu", mesh_devices=4)
+        for name, placement in (("d0", "dense"), ("d1", "dense"), ("s0", "sharded")):
+            pool.create_tenant(name, clients=[_t(_jstats(*_np_rows(7)))],
+                               placement=placement)
+        ws = pool.solve_many([("d0", SIGMA), ("s0", SIGMA), ("d1", SIGMA)])
+        assert pool.batched_solves == 2 and pool.batched_sweeps == 1
+        assert torch.equal(ws[1], pool.solve("s0", SIGMA))
+        np.testing.assert_allclose(ws[1].numpy(), ws[0].numpy(), rtol=1e-5,
+                                   atol=1e-6)
 
 
 class TestEviction:
@@ -618,6 +706,29 @@ class TestFeatureTenants:
 
 
 # -- convert.pool_from ---------------------------------------------------------------------
+
+def test_pool_from_keeps_a_sharded_placement():
+    """A reference pool's sharded tenant comes over sharded, on a mesh of
+    the reference mesh's shape (``convert.mesh_from``), with its block size
+    and method; fused statistics, summary and ledger equal."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # a 1 x 1 mesh in this process
+        jp = jserver.EnginePool()
+        s = _jstats(*_np_rows(11))
+        jp.create_tenant("s0", clients={0: s}, placement="sharded",
+                         backend_kwargs={"block_size": 4})
+        jp.create_tenant("d0", clients={0: s}, placement="dense")
+    tp = pool_from(jp, device="cpu")
+    t = tp.tenant("s0")
+    assert t.backend_name == "sharded" and t.placement == "sharded"
+    assert t.engine.backend.block_size == 4
+    assert t.engine.backend.mesh.shape == dict(jp.shared_mesh().shape)
+    assert tp.meshes_built == jp.meshes_built == 1
+    assert tp.summary() == jp.summary() and tp.ledger() == jp.ledger()
+    np.testing.assert_array_equal(tp.stats("s0").gram.numpy(),
+                                  np.asarray(jp.stats("s0").gram))
+    _close(tp.solve("s0", SIGMA), jp.solve("s0", SIGMA))
+
 
 def test_pool_from_round_trips_a_mixed_pool():
     jp = jserver.EnginePool(max_warm=3, max_tenants=9, max_clients_per_tenant=6,

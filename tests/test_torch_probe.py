@@ -105,9 +105,25 @@ class TestAgainstReference:
             assert _rel(ht["kernel"], hj["kernel"]) <= 1e-5
 
     def test_mesh_raises_naming_item_15(self):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            probe.one_shot_probe(torch.tanh, torch.zeros(4, 2), torch.zeros(4),
-                                 mesh=object())
+        """The mesh half (item 15) runs: rows split over the client axes,
+        one reduction, the same head as one device; the reference's mesh in
+        this process is 1 x 1."""
+        from repro.launch import mesh as jmesh_lib
+        from repro_torch.launch.mesh import make_cpu_mesh
+
+        X, y = _np((64, 6), 5), _np((64, 2), 6)
+        W = _np((6, 5), 7)
+        got = probe.one_shot_probe(lambda x: torch.tanh(x @ torch.from_numpy(W)),
+                                   torch.from_numpy(X), torch.from_numpy(y),
+                                   mesh=make_cpu_mesh(8))
+        one = probe.one_shot_probe(lambda x: torch.tanh(x @ torch.from_numpy(W)),
+                                   torch.from_numpy(X), torch.from_numpy(y))
+        ref = jprobe.one_shot_probe(lambda x: jnp.tanh(x @ W), jnp.asarray(X),
+                                    jnp.asarray(y),
+                                    mesh=jmesh_lib.make_host_mesh((1, 1)))
+        assert _rel(got.weights, one.weights.numpy()) <= 1e-4
+        assert _rel(got.weights, ref.weights) <= 1e-4
+        assert int(got.stats.count) == 64
 
 
 # -- frozen reduced-gemma3 features ----------------------------------------------

@@ -72,11 +72,21 @@ class TestRunOneShot:
                                    np.asarray(rj.extras["cv_losses"]), rtol=1e-4, atol=1e-6)
 
     def test_not_ported_options_raise(self):
+        """mesh= and backend="auto" (item 15) run: the mesh fuses into a
+        sharded engine with the cross-shard record, auto without a table
+        stays dense; both give the dense weights."""
+        from repro_torch.launch.mesh import make_cpu_mesh
+
         _, dt = _datasets(num_clients=2, n=20, d=4)
-        with pytest.raises(NotImplementedError, match="item 15"):
-            tfed.run_one_shot(dt, 0.1, mesh=object())
-        with pytest.raises(NotImplementedError, match="item 15"):
-            tfed.run_one_shot(dt, 0.1, backend="auto")
+        dense = tfed.run_one_shot(dt, 0.1)
+        res = tfed.run_one_shot(dt, 0.1, mesh=make_cpu_mesh(8))
+        assert res.extras["engine"].backend.name == "sharded"
+        assert res.comm.cross_shard_bytes > 0 and "fused_stats" not in res.extras
+        auto = tfed.run_one_shot(dt, 0.1, backend="auto")
+        assert auto.extras["engine"].backend.name == "dense"
+        for r in (res, auto):
+            np.testing.assert_allclose(r.weights.numpy(), dense.weights.numpy(),
+                                       rtol=1e-5, atol=1e-6)
 
     def test_dp_and_psd_repair_run(self):
         """Algorithm 2 runs (noisy, finite, the count kept), and

@@ -4,8 +4,9 @@ The same thresholds and tables go through both packages: an explicit
 threshold wins, a table's ``crossover_d`` comes next, and a missing table,
 an unreadable one or a null crossover reads as +inf (dense everywhere).
 The port has no default table (the reference's is a CPU measurement of its
-JAX sharded backend), so with neither argument it resolves +inf, and a
-choice that would place a dimension sharded raises, naming ROADMAP item 15.
+JAX sharded backend), so with neither argument it resolves +inf. A
+dimension that clears the threshold on a mesh gets a ``ShardedBackend``
+there, as in the reference (tests/test_mutation_path.py's auto tests).
 """
 import json
 import math
@@ -73,13 +74,50 @@ def test_auto_backend_dense():
 
 
 def test_sharded_choice_raises_naming_item_15():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tselect.auto_backend(12, mesh=object(), threshold=4, device="cpu")
+    """The choice that raised before the sharded backend was ported now
+    places: sharded past the threshold on a mesh, dense below it."""
+    from repro_torch.launch.mesh import make_cpu_mesh
+
+    be = tselect.auto_backend(12, mesh=make_cpu_mesh(8), threshold=4,
+                              dtype=torch.float64, block_size=4)
+    assert be.name == "sharded" and be.dtype == torch.float64
+    assert be.block_size == 4
     pool = EnginePool(threshold=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        pool.create_tenant("a", dim=12, placement="auto")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        pool.create_tenant("s", dim=12, placement="sharded")
-    assert len(pool) == 0
+    pool.create_tenant("a", dim=12, placement="auto")
+    pool.create_tenant("s", dim=12, placement="sharded")
     pool.create_tenant("d", dim=3, placement="auto")   # below the threshold
     assert pool.tenant("d").backend_name == "dense"
+    assert [pool.tenant(n).backend_name for n in "as"] == ["sharded"] * 2
+    assert pool.meshes_built == 1
+
+
+def test_auto_backend_picks_by_dim(tmp_path):
+    from repro_torch.launch.mesh import make_cpu_mesh
+
+    table = tmp_path / "crossover.json"
+    table.write_text('{"crossover_d": 32}')
+    mesh = make_cpu_mesh(8)
+    for dim, m, want in ((16, mesh, "dense"), (64, mesh, "sharded"),
+                         (64, None, "dense")):
+        assert tselect.auto_backend(dim, m, table=table, device="cpu").name == want
+        jmesh = None
+        if m is not None:
+            import warnings
+
+            from repro.launch import mesh as jmesh_lib
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                jmesh = jmesh_lib.make_cpu_mesh(8)
+        assert jselect.auto_backend(dim, jmesh, table=table).name == want
+
+
+def test_from_clients_auto(tmp_path):
+    from repro_torch import core as tcore
+    from repro_torch.server import FusionEngine
+
+    table = tmp_path / "crossover.json"
+    table.write_text('{"crossover_d": null}')
+    s = tcore.compute_stats(torch.ones((4, 6)), torch.ones((4,)))
+    eng = FusionEngine.from_clients({0: s}, backend="auto",
+                                    threshold=tselect.backend_threshold(table=table))
+    assert eng.summary()["backend"] == "dense"

@@ -4,10 +4,11 @@ The CLI runs at a tiny size on the CPU (argv patched, no subprocess): it
 must complete AND report every tenant's served weights within 1e-4 of a
 float64 ``core.fusion`` solve over that tenant's own rows, with the
 streamed deltas drained by the background flusher alone. Its result dict
-carries the reference's keys (sharded and auto tenants at 0), and for the
-same sizes the same byte ledger. The wire server's flags are accepted (the
-server itself: tests/test_torch_serve_wire.py); the flags of paths not
-ported yet are rejected by the argument parser, naming their ROADMAP item.
+carries the reference's keys, and for the same sizes the same byte ledger.
+``--sharded-tenants`` and ``--auto-tenants`` default to the reference's 2
+and 2: the first tenants go to the pool's one mesh (8 CPU shards here) and
+are held to float64 like the rest. The wire server's flags are accepted
+(the server itself: tests/test_torch_serve_wire.py).
 """
 import re
 import sys
@@ -33,7 +34,11 @@ def test_fusion_cli_is_exact_and_drains(monkeypatch, capsys):
     assert len(errs) == 2, out                 # after admission, after stream
     assert all(e < 1e-4 for e in errs), out
     assert "0 left pending" in out, out
-    assert "placements {'dense': 4}" in out, out
+    # the reference's defaults: 2 pinned sharded, 2 auto (dense: no table;
+    # the last two are the feature tenants, always dense)
+    assert "placements {'sharded': 2, 'dense': 2} (2 pinned sharded, 2 auto)" \
+        in out, out
+    assert "pool: meshes_built=1 " in out, out
     assert "kind=sketched" in out and "kind=rff" in out, out
     # 4 tenants x 4 clients, each upload at its encoded Thm-4 frame length
     # for its solve space (d 32; m 16 for the feature tenants) plus a
@@ -86,12 +91,54 @@ def test_small_run_is_exact(results):
 @pytest.mark.parametrize("flags,item", [
     (["--sharded-tenants", "1"], "item 15"), (["--auto-tenants", "1"], "item 15")])
 def test_unported_flags_are_rejected(monkeypatch, capsys, flags, item):
-    monkeypatch.setattr(sys, "argv", ARGV + flags)
-    with pytest.raises(SystemExit) as e:
-        serve.main()
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert f"{flags[0]} is not ported yet" in err and item in err
+    """The flags that waited for the sharded backend (ROADMAP ``item``) now
+    reach serve_fusion, and the run stays exact."""
+    seen = {}
+    real = serve.serve_fusion
+    monkeypatch.setattr(serve, "serve_fusion",
+                        lambda **kw: seen.update(kw) or real(**kw))
+    monkeypatch.setattr(sys, "argv", ARGV + flags + ["--auto-threshold", "32"])
+    serve.main()
+    out = capsys.readouterr().out
+    sharded, auto = (1, 2) if flags[0] == "--sharded-tenants" else (2, 1)
+    assert (seen["sharded_tenants"], seen["auto_tenants"]) == (sharded, auto)
+    assert seen["threshold"] == 32.0
+    # at d 32 with a threshold of 32 the auto tenants place sharded too
+    n = min(sharded + auto, 2)
+    assert f"placements {{'sharded': {n}, 'dense': {4 - n}}}" in out, out
+    errs = [float(v) for v in re.findall(r"max\|dw\|=([0-9.eE+-]+)", out)]
+    assert errs and all(e < 1e-4 for e in errs), out
+
+
+def test_sharded_and_auto_tenants_match_reference():
+    """The reference's serve_fusion with 2 sharded and 1 auto tenant (its
+    mesh is 1 x 1 in this process) against the port's on 8 CPU shards: the
+    same placements, one mesh each, the same upload ledger; the port's
+    cross-shard bytes are the reference's record for the 4-way data axis."""
+    from repro.fed import comm as jcomm
+
+    kw = dict(num_clients=2, samples_per_client=16, dim=8, tenants=4,
+              queries=4, stream_deltas=4, coalesce_rank=2,
+              flush_staleness_s=0.02)
+    ref = jserve.serve_fusion(sharded_tenants=2, auto_tenants=1, **kw)
+    port = serve.serve_fusion(sharded_tenants=2, auto_tenants=1, device="cpu", **kw)
+    assert port["placements"] == ref["placements"] == {"sharded": 2, "dense": 2}
+    assert port["pool"]["meshes_built"] == ref["pool"]["meshes_built"] == 1
+    assert (port["sharded_tenants"], port["auto_tenants"]) == (2, 1)
+    assert port["exact_max_rel_err"] < 1e-4
+    assert port["streaming"]["exact_max_rel_err"] < 1e-4
+    led, jled = dict(port["ledger"]), dict(ref["ledger"])
+    cross = led.pop("cross_shard_bytes")
+    jled.pop("cross_shard_bytes")
+    for d in (led, jled):
+        for t in d.get("per_tenant", {}).values():
+            t.pop("cross_shard_bytes", None)
+    assert led == jled
+    assert cross == 2 * jcomm.sharded_oneshot_record(8, 2, {"data": 4}).cross_shard_bytes
+    port_t = serve.serve_fusion(sharded_tenants=1, auto_tenants=2, threshold=8,
+                                device="cpu", **kw)
+    assert port_t["placements"] == {"sharded": 3, "dense": 1}
+    assert port_t["pool"]["meshes_built"] == 1
 
 
 @pytest.mark.parametrize("flags,dest,value", [
