@@ -223,8 +223,12 @@ PROBE_SEED, PROBE_KAPPA = 1, 1e3
 # ones place sharded) of 4 clients x 4096 rows; distributed_stats with the
 # DP noise hook at d 1024 (8192 rows a mesh client); K2 at the three
 # sharded tile shapes against addmm, and the tile's composed P against the
-# plain loop.
+# plain loop. Sharded solves are unrefined, as the reference's; besides the
+# solves, every factor the phase leaves cached (cold, streamed, after the
+# drop and after the restore) is held itself: ||tril(L) tril(L)^T - (G +
+# sigma I)||_F / ||G + sigma I||_F <= SHARD_FACTOR_TOL, in float64.
 SHARD_DEVICES, SHARD_RANK, SHARD_SMALL_ROWS = 8, 64, 64
+SHARD_FACTOR_TOL = 1e-5
 SHARD_SERVE_TENANTS, SHARD_SERVE_CLIENTS, SHARD_SERVE_ROWS = 4, 4, 4096
 SHARD_SERVE_QUERIES, SHARD_SERVE_STREAM = 64, 64
 SHARD_DP_DIM, SHARD_DP_ROWS = 1024, 8192
@@ -1812,12 +1816,24 @@ def sharded_update_launches(be, updates: int) -> dict:
 
 def sharded_factor_launches(be) -> int:
     """K2 launches of one cold factor: a SYRK on every shard holding rows
-    and columns at or below the panel, a TRSM for every panel but the last."""
+    and columns at or below the panel and not wholly above the diagonal, a
+    TRSM for every panel but the last."""
     syrk = sum(1 for k in range(be._nb) for ri in range(be._nrows)
                for ci in range(be._ncols)
                if (ri + 1) * be._rl > k * be.block_size
-               and (ci + 1) * be._cl > k * be.block_size)
+               and (ci + 1) * be._cl > k * be.block_size
+               and (ri + 1) * be._rl > ci * be._cl)
     return syrk + be._nb - 1
+
+
+def factor_residual(eng, sigma: float) -> float:
+    """||tril(L) tril(L)^T - (G + sigma I)||_F / ||G + sigma I||_F in
+    float64, for the engine's cached sharded factor at ``sigma`` and its
+    live padded block Gram: the factor itself, not a solve off it."""
+    L = torch.tril(eng.factor(sigma).L.full()).double()
+    Gs = eng.backend.gram.full().double()
+    Gs.diagonal().add_(sigma)
+    return float(torch.linalg.norm(L @ L.T - Gs) / torch.linalg.norm(Gs))
 
 
 def sharded_serving_phase(ds, peaks) -> dict:
@@ -1834,7 +1850,7 @@ def sharded_serving_phase(ds, peaks) -> dict:
     def sync():
         torch.cuda.synchronize()
 
-    steps, errs, report = {}, {}, {}
+    steps, errs, report, factor_errs = {}, {}, {}, {}
     t_all = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1877,6 +1893,7 @@ def sharded_serving_phase(ds, peaks) -> dict:
           f"{len(SIGMAS) * sharded_factor_launches(be)}")
     for sg, w in zip(SIGMAS, ws):
         errs[f"sweep_{sg}_vs_f64"] = rel_err(w, f64_solve(eng.stats, sg))
+        factor_errs[f"cold_{sg}"] = factor_residual(eng, sg)
     w1 = eng.solve(SIGMA)
     check(torch.equal(w1, eng.solve(SIGMA)), "a cached sharded solve differs")
     sync()
@@ -1908,6 +1925,7 @@ def sharded_serving_phase(ds, peaks) -> dict:
     check(eng.cold_factorizations == cold0, "sharded streaming refactorized")
     for sg in SIGMAS:
         errs[f"stream_{sg}_vs_f64"] = rel_err(eng.solve(sg), f64_solve(eng.stats, sg))
+        factor_errs[f"stream_{sg}"] = factor_residual(eng, sg)
 
     # 4. a 64-row client ingested, dropped and restored: rank-64 updates
     g = torch.Generator("cuda").manual_seed(5)
@@ -1918,11 +1936,15 @@ def sharded_serving_phase(ds, peaks) -> dict:
     eng.drop("small")
     w_drop = eng.solve(SIGMA)
     errs["drop_vs_f64"] = rel_err(w_drop, f64_solve(eng.stats, SIGMA))
+    t_res = time.perf_counter()
+    factor_errs["drop"] = factor_residual(eng, SIGMA)
+    t_res = time.perf_counter() - t_res
     eng.restore("small")
     w_back = eng.solve(SIGMA)
     sync()
-    steps["small_client_ingest_drop_restore_s"] = time.perf_counter() - t0
+    steps["small_client_ingest_drop_restore_s"] = time.perf_counter() - t0 - t_res
     errs["restore_vs_f64"] = rel_err(w_back, f64_solve(eng.stats, SIGMA))
+    factor_errs["restore"] = factor_residual(eng, SIGMA)
     check(eng.cold_factorizations == cold0, "drop / restore refactorized")
     report["engine"] = eng.summary()
     report["update_buckets"] = {f"{r}{'+' if up else '-'}": n
@@ -2033,6 +2055,12 @@ def sharded_serving_phase(ds, peaks) -> dict:
     for name, err in errs.items():
         limit = 1e-6 if name == "dp_fused_vs_f64_rebuild" else 1e-4
         check(err <= limit, f"sharded {name} = {err} > {limit}")
+    # the factors the tile updates left behind, held themselves: a float32
+    # factor's own backward error is O(1e-7) at d 4096
+    for name, err in factor_errs.items():
+        check(err <= SHARD_FACTOR_TOL,
+              f"sharded factor {name}: ||LL^T - (G + sigma I)|| / ||G + sigma I|| "
+              f"= {err} > {SHARD_FACTOR_TOL}")
 
     # 9. K2 at the three sharded tile shapes against gemm_nt_ref and addmm;
     #    the tile's composed P against the plain loop. Not counted above.
@@ -2079,7 +2107,9 @@ def sharded_serving_phase(ds, peaks) -> dict:
     torch.cuda.empty_cache()
     return {"phase": "sharded_serving", "dim": DIM, "mesh": mesh.shape,
             "devices": [str(d) for d in mesh.distinct_devices],
-            "errors": errs, "report": report, "steps_s": steps,
+            "errors": errs, "factor_residuals": factor_errs,
+            "factor_tolerance": SHARD_FACTOR_TOL,
+            "report": report, "steps_s": steps,
             "launches": launches,
             "stream_launches": {**stream, "updates": updates},
             "factor_k2_launches": sharded_factor_launches(ShardedBackend(DIM, mesh)),

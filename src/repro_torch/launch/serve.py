@@ -10,8 +10,8 @@ Modes:
     fusion problem admitted from Thm-4 packed payloads (K1, or K3 / K4 for
     §IV-F sketched / rff tenants); ``--sharded-tenants N`` pins the first N
     to the pool's one shared mesh (8 shards on ``--device``) and
-    ``--auto-tenants M`` lets the next M follow ``server.select`` (dense
-    unless ``--auto-threshold`` is at or below ``--dim``); queries run off cached factors against a
+    ``--auto-tenants M`` lets the next M follow ``server.select`` (dense:
+    the port has no crossover table); queries run off cached factors against a
     naive cold solve per query, and ``--stream-deltas`` queues row deltas
     with no reads while the pool's background flusher drains them (P and
     K2 on every flush of rank 8 and up). Every tenant's served weights are
@@ -40,7 +40,7 @@ Run as
         --arch gemma3-27b [--no-reduced] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --mode fusion \\
         [--dim 128 --tenants 8 --stream-deltas 64] \\
-        [--sharded-tenants 2 --auto-tenants 2 --auto-threshold 64] [--device cpu]
+        [--sharded-tenants 2 --auto-tenants 2] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --mode fusion \\
         --listen 0 --expect-uploads 3 [--journal-dir DIR] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --mode relay \\
@@ -48,8 +48,7 @@ Run as
         [--listen 0] [--device cpu]
 
 ``--compilation-cache`` is not defined: it names a JAX compilation cache.
-``--auto-threshold`` is the port's: the reference's auto tenants read its
-measured crossover table, of which the port has none. Before its report, a
+Before its report, a
 ``--listen`` process prints ``[serve_wire] launches {json}``, its launches
 of each CUDA kernel.
 """
@@ -646,10 +645,7 @@ def make_parser() -> argparse.ArgumentParser:
                          "(8 shards on --device)")
     ap.add_argument("--auto-tenants", type=int, default=2,
                     help="place the next M tenants by server/select.py "
-                         "(dense unless --auto-threshold <= --dim)")
-    ap.add_argument("--auto-threshold", type=float, default=None, metavar="D",
-                    help="the dimension at or above which auto tenants place "
-                         "sharded (default: no table, so dense)")
+                         "(dense: no crossover table)")
     ap.add_argument("--sketched-tenants", type=int, default=0,
                     help="make the N tenants before the rff ones §IV-F "
                          "sketched: m-space uploads (K3), m-space solves, "
@@ -794,7 +790,7 @@ def main(argv=None) -> None:
             dim=args.dim, tenants=args.tenants, num_clients=args.clients,
             samples_per_client=args.samples, queries=args.queries,
             sharded_tenants=args.sharded_tenants,
-            auto_tenants=args.auto_tenants, threshold=args.auto_threshold,
+            auto_tenants=args.auto_tenants,
             sketched_tenants=args.sketched_tenants,
             rff_tenants=args.rff_tenants, feature_dim=args.feature_dim,
             lengthscale=args.lengthscale, stream_deltas=args.stream_deltas,

@@ -25,8 +25,7 @@ materializes the fused Gram in one piece on the solve path:
     every shard holding rows and columns at or below the panel takes its
     trailing update ``G_ij - L_ik L_jk^T`` as one local GEMM (K2,
     ``_syrk``: m = rl, n = cl, k = bs). Triangular solves run block by block
-    with one bs-float reduction a step; a float32 solve is refined once
-    with a float64 residual, as ``DenseBackend``'s is.
+    with one bs-float reduction a step, unrefined as the reference's are.
   * **CG** — where padding would more than double ``d``, ``method="auto"``
     takes matrix-free Jacobi-preconditioned conjugate gradients on the
     blocks.
@@ -56,7 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.fusion import cholesky_or_nan
-from repro_torch.core.sufficient_stats import SuffStats, compute_stats
+from repro_torch.core.sufficient_stats import SuffStats, distributed_stats
 from repro_torch.kernels import gram as gram_kernel
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref
@@ -304,42 +303,21 @@ class ShardedBackend:
                          participation=None, noise_fn=None) -> None:
         """Fold mesh rows in: shard-local statistics, one reduction.
 
-        ``A``'s rows are split evenly over the row (client) shards; each
-        computes its local ``(G_k, h_k)`` (kernel K1 on the card), applies
-        ``noise_fn(k, G_k, h_k)`` (Algorithm 2) and the Thm-8 weight
-        ``participation[k]``, and the sum over shards, added in flat shard
-        order, lands scattered in the block layout. The count is the
-        participation-weighted row count, rounded.
+        ``core.distributed_stats`` over the row (client) axes: each row
+        shard computes its local ``(G_k, h_k)`` (kernel K1 on the card),
+        applies ``noise_fn(k, G_k, h_k)`` (Algorithm 2) and the Thm-8 weight
+        ``participation[k]``, and the sum, added in flat shard order, is
+        fused into the blocks. On this single-controller mesh the
+        reference's reduce-scatter is the same sum cut into blocks, so the
+        bits are its. The count is the participation-weighted row count,
+        rounded.
         """
         if A.shape[-1] != self._dim:
             raise ValueError(f"A has dim {A.shape[-1]}, backend {self._dim}")
-        k_all = self._nrows
-        if A.shape[0] % k_all:
-            raise ValueError(f"{A.shape[0]} rows do not split over {k_all} "
-                             "row shards")
-        part = (torch.ones(k_all, dtype=torch.float32) if participation is None
-                else torch.as_tensor(participation, dtype=torch.float32))
-        rows = A.shape[0] // k_all
-        grams, moments, counts = [], [], []
-        for k in range(k_all):
-            dev = self._dev[(k, 0)]
-            s = compute_stats(A[k * rows:(k + 1) * rows].to(dev),
-                              b[k * rows:(k + 1) * rows].to(dev))
-            if noise_fn is not None:
-                g_t, h_t = noise_fn(k, s.gram, s.moment)
-                s = SuffStats(g_t, h_t, s.count)
-            s = s.scale(part[k].to(dev))
-            grams.append(self._pad_gram(s.gram))
-            moments.append(self._pad_vec(s.moment))
-            counts.append(s.count.to(torch.float32))
-        strips = mesh_lib.psum_scatter(grams, self.device)     # (rl, dp) each
-        self._G = ShardedTensor(self.mesh, self.spec, self._G.shape, {
-            (ri, ci): blk + strips[ri][:, ci * self._cl:(ci + 1) * self._cl].to(blk.device)
-            for (ri, ci), blk in self._G.blocks.items()})
-        self._h = self._h + mesh_lib.psum(moments, self.device)
-        dc = mesh_lib.psum(counts, self.device)
-        self._count = self._count + torch.round(dc).to(torch.int32)
-        self._diag = None
+        s = distributed_stats(A, b, self.mesh, client_axes=self._row_axes,
+                              participation=participation, noise_fn=noise_fn)
+        self.fuse(SuffStats(s.gram, s.moment,
+                            torch.round(s.count.to(torch.float32))))
 
     # -- factorization + solves ----------------------------------------------
 
@@ -361,15 +339,7 @@ class ShardedBackend:
               ) -> torch.Tensor:
         if factor.kind == "cg":
             return self._cg_solve(factor.sigma)
-        L = factor.L
-        w = self._tri_solve(L, self._h)
-        if self._dtype != torch.float64:
-            # one refinement step off the same factor, residual in float64
-            w64 = w.double()
-            r = (self._h.double() - self._matvec(w64, torch.float64)
-                 - factor.sigma * w64)
-            w = w + self._tri_solve(L, r.to(self._dtype))
-        return w[:self._dim]
+        return self._tri_solve(factor.L, self._h)[:self._dim]
 
     def solve_batch(self, sigmas: Sequence[float]
                     ) -> tuple[list[ShardedFactor], torch.Tensor]:
@@ -440,8 +410,10 @@ class ShardedBackend:
                 if ci == qk:
                     Ll[(ri, ci)][:, lc0:lc0 + bs] = mine
                 # Lcol is zero above row c0: a shard whose rows or columns
-                # all lie above the panel takes an exactly-zero update
-                if (ri + 1) * rl <= c0 or (ci + 1) * cl <= c0:
+                # all lie above the panel takes an exactly-zero update, and
+                # one wholly above the diagonal is never read again
+                if ((ri + 1) * rl <= c0 or (ci + 1) * cl <= c0
+                        or (ri + 1) * rl <= ci * cl):
                     continue
                 lc = Lcol[ci * cl:(ci + 1) * cl]
                 Gl[(ri, ci)] = kernel_ops.gemm_nt(g, mine, lc, alpha=-1.0)
@@ -529,17 +501,16 @@ class ShardedBackend:
                 diag[k].T, (y[c0:c0 + bs] - s)[:, None], upper=True)[:, 0]
         return x
 
-    def _matvec(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """G @ x in ``dtype`` over the blocks: per shard a local matvec,
-        summed over the column shards, gathered over the row shards."""
+    def _matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """G @ x over the blocks: per shard a local matvec, summed over the
+        column shards, gathered over the row shards."""
         rl, cl = self._rl, self._cl
         rows = []
         for ri in range(self._nrows):
             parts = []
             for ci in range(self._ncols):
                 blk = self._G.blocks[(ri, ci)]
-                parts.append(blk.to(dtype)
-                             @ x[ci * cl:(ci + 1) * cl].to(blk.device, dtype))
+                parts.append(blk @ x[ci * cl:(ci + 1) * cl].to(blk.device))
             rows.append(mesh_lib.psum(parts, self.device))
         return mesh_lib.all_gather(rows, self.device)
 
@@ -564,7 +535,7 @@ class ShardedBackend:
         M = self._gram_diag() + sigma
 
         def mv(x):
-            return self._matvec(x, self._dtype) + sigma * x
+            return self._matvec(x) + sigma * x
 
         tiny = torch.finfo(h.dtype).tiny
         thresh = float(self.cg_tol ** 2 * torch.dot(h, h)) + tiny

@@ -1115,6 +1115,11 @@ def test_sharded_engine_on_card_matches_cpu_path(card, d, bs):
         eng.drop(2)
         w2 = eng.solve(0.1)
         launches = gram.launch_counts()
+        # the factor the updates left behind, held itself
+        L = torch.tril(eng.factor(0.1).L.full()).double()
+        Gs = eng.backend.gram.full().double()
+        Gs.diagonal().add_(0.1)
+        assert float(torch.linalg.norm(L @ L.T - Gs) / torch.linalg.norm(Gs)) <= 1e-5
         out[dev] = (w0, w1, w2, eng.stats, k2_factor, launches,
                     eng.cold_factorizations)
     for i in range(3):

@@ -97,15 +97,14 @@ def test_unported_flags_are_rejected(monkeypatch, capsys, flags, item):
     real = serve.serve_fusion
     monkeypatch.setattr(serve, "serve_fusion",
                         lambda **kw: seen.update(kw) or real(**kw))
-    monkeypatch.setattr(sys, "argv", ARGV + flags + ["--auto-threshold", "32"])
+    monkeypatch.setattr(sys, "argv", ARGV + flags)
     serve.main()
     out = capsys.readouterr().out
     sharded, auto = (1, 2) if flags[0] == "--sharded-tenants" else (2, 1)
     assert (seen["sharded_tenants"], seen["auto_tenants"]) == (sharded, auto)
-    assert seen["threshold"] == 32.0
-    # at d 32 with a threshold of 32 the auto tenants place sharded too
-    n = min(sharded + auto, 2)
-    assert f"placements {{'sharded': {n}, 'dense': {4 - n}}}" in out, out
+    assert "threshold" not in seen
+    # no crossover table: the auto tenants place dense, as the reference's
+    assert f"placements {{'sharded': {sharded}, 'dense': {4 - sharded}}}" in out, out
     errs = [float(v) for v in re.findall(r"max\|dw\|=([0-9.eE+-]+)", out)]
     assert errs and all(e < 1e-4 for e in errs), out
 

@@ -553,6 +553,66 @@ class TestPortContracts:
         ref = _f64_solve(eng.stats, 0.01)
         assert float((w.double() - ref).abs().max() / ref.abs().max()) <= tol
 
+    @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                           (torch.float64, 1e-14)])
+    def test_updated_factor_is_the_factor_of_its_gram(self, mesh, dtype, tol):
+        """The factor that streamed rows, a drop and a restore leave behind,
+        held itself (not a solve off it): tril(L) tril(L)^T equals the live
+        padded G + sigma I."""
+        A, b, _ = _problem(n=320, d=50)
+        A, b = _port(A, b)
+        A, b = A.to(dtype), b.to(dtype)
+        eng = FusionEngine.from_clients(
+            {k: tcore.compute_stats(A[k * 80:(k + 1) * 80], b[k * 80:(k + 1) * 80])
+             for k in range(4)},
+            backend=ShardedBackend(50, mesh, dtype=dtype, block_size=8),
+            max_update_rank=200)
+        sigma = 0.1
+
+        def residual():
+            L = torch.tril(eng.factor(sigma).L.full()).double()
+            Gs = eng.backend.gram.full().double()
+            Gs = Gs + sigma * torch.eye(Gs.shape[0], dtype=Gs.dtype)
+            return float(torch.linalg.norm(L @ L.T - Gs) / torch.linalg.norm(Gs))
+
+        assert residual() <= tol
+        cold0 = eng.cold_factorizations
+        eng.ingest_rows(A[:7], b[:7], client_id=9)
+        assert residual() <= tol
+        eng.drop(2)
+        assert residual() <= tol
+        eng.restore(2)
+        assert residual() <= tol
+        assert eng.cold_factorizations == cold0 and eng.incremental_updates == 3
+
+    @pytest.mark.parametrize("dim,bs", [(50, 8), (100, None), (300, 32)])
+    def test_factor_skips_blocks_above_the_diagonal(self, mesh, monkeypatch,
+                                                    dim, bs):
+        """A cold factor's K2 calls: a SYRK on each shard holding rows and
+        columns at or below the panel and not wholly above the diagonal, a
+        TRSM for every panel but the last."""
+        from repro_torch.server import distributed
+
+        be = ShardedBackend(dim, mesh, block_size=bs)
+        calls = []
+        real = distributed.kernel_ops.gemm_nt
+        monkeypatch.setattr(distributed.kernel_ops, "gemm_nt",
+                            lambda *a, **kw: calls.append(1) or real(*a, **kw))
+        A, b = _port(*_problem(n=4 * dim, d=dim)[:2])
+        be.fuse(tcore.compute_stats(A, b))
+        f = be.factor(0.1)
+        rl, cl, w = be._rl, be._cl, be.block_size
+        syrk = sum(1 for k in range(be._nb) for ri in range(be._nrows)
+                   for ci in range(be._ncols)
+                   if (ri + 1) * rl > k * w and (ci + 1) * cl > k * w
+                   and (ri + 1) * rl > ci * cl)
+        assert len(calls) == syrk + be._nb - 1
+        G = be.gram.full().double()
+        L = f.L.full().double()
+        eye = torch.eye(G.shape[0], dtype=G.dtype)
+        assert float(torch.linalg.norm(L @ L.T - G - 0.1 * eye)
+                     / torch.linalg.norm(G)) <= 1e-6
+
     @pytest.mark.parametrize("bs,r", [(64, 1), (64, 8), (128, 16), (96, 40)])
     @pytest.mark.parametrize("sign", [1.0, -1.0])
     def test_composed_panel_transform_matches_plain(self, bs, r, sign):
