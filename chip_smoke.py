@@ -79,15 +79,16 @@ kernels' launch counts set to 0 just before it and read just after:
   mesh of 8 shards all on the card, at the main path's data: block size
   256, so 16 block columns of 1024 x 2048 blocks; ``run_one_shot(mesh=)``
   against the dense weights and float64; an engine of the 8 clients (the
-  4-sigma ``solve_batch``, each factor 68 SYRK and 15 TRSM launches of K2;
+  4-sigma ``solve_batch``, each factor 56 SYRK and 15 TRSM launches of K2;
   256 streamed rows at rank 64 and a 64-row client ingested, dropped and
   restored, all through the tiles' factor update, P and K2, with no
   refactorization); a CG solve; ``ingest_distributed`` of all rows with a
   mesh client masked (4 K1); ``serve_fusion`` with 2 sharded and 2 auto
   tenants on one mesh; ``distributed_stats`` with the DP noise hook at d
   1024, each mesh client's statistics its K1 statistics plus its noise
-  bits; K2 at the three sharded tile shapes against ``addmm`` and the
-  tile's composed P against the plain loop (``sharded_serving``);
+  bits; K2 at the four sharded tile shapes (SYRK, TRSM, trailing update,
+  the tile's composition) against ``addmm``, by wrapper and device time,
+  and the tile's composed P against the plain loop (``sharded_serving``);
 - gemma3-27b serving at full width (d_model 5376, 32 heads over 16 KV heads,
   d_ff 21504, vocab 262144, bf16), depth cut to 2 stages + the 2-layer SWA
   tail (14 layers: 12 sliding-window, 2 full), random weights from a seed:
@@ -221,7 +222,7 @@ PROBE_SEED, PROBE_KAPPA = 1, 1e3
 # solve; ingest_distributed of all rows with mesh client 1 masked out;
 # serve_fusion with 2 sharded and 2 auto tenants (threshold d, so the auto
 # ones place sharded) of 4 clients x 4096 rows; distributed_stats with the
-# DP noise hook at d 1024 (8192 rows a mesh client); K2 at the three
+# DP noise hook at d 1024 (8192 rows a mesh client); K2 at the four
 # sharded tile shapes against addmm, and the tile's composed P against the
 # plain loop. Sharded solves are unrefined, as the reference's; besides the
 # solves, every factor the phase leaves cached (cold, streamed, after the
@@ -361,6 +362,46 @@ def k2_bare(K, L: torch.Tensor, X: torch.Tensor, T: torch.Tensor, c0: int = 0):
     return lambda: call(*args)
 
 
+def k2_general_bare(K, C: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                    alpha: float):
+    """One bare launch of K2's general entry, O = C + alpha A B^T into a
+    preallocated O, at the tile edge the wrapper would pick."""
+    (m, n), k = C.shape, A.shape[1]
+    O = torch.empty_like(C)
+    call = bare_entry(K, "gemm_nt")
+    args = (C.data_ptr(), A.data_ptr(), B.data_ptr(), O.data_ptr(), m, n, k, alpha,
+            K._FLOAT_DTYPES[C.dtype], K.gemm_tile(m, n, C.dtype))
+    return lambda: call(*args)
+
+
+def p_work(bw: int, r: int) -> tuple[float, float]:
+    """P's operations (6 a rotation) and bytes (L11 read and written, X1
+    and T) on a bw-wide panel against r update rows, float32."""
+    rotations = bw * (bw - 1) // 2 * r + bw * r + (bw + r) * bw * r
+    return 6.0 * rotations, 4.0 * (2 * bw * bw + r * bw + (bw + r) ** 2)
+
+
+def tile_transform_bound(bs: int, r: int, sub: int, peaks) -> tuple[float, str]:
+    """The least time of ``composed_panel_transform`` on a bs-wide tile: the
+    sum of its launches' bounds, since each waits for the last. Per
+    sub-panel, P at FP32; K2's panel entry on the tile's rows below it at
+    FP32 (its CUDA-core route); from the second on, the composing K2 (bs +
+    r, sub + r, sub + r) at 3xTF32. ``by``: what sets most of the sum."""
+    w = sub + r
+    parts = []
+    for c0 in range(0, bs, sub):
+        parts.append(bound(*p_work(sub, r), peaks))
+        below = bs - c0 - sub
+        if below > 0:
+            parts.append(bound(2.0 * below * w * w, 4.0 * (2 * below * w + w * w), peaks))
+        if c0 > 0:
+            parts.append(bound(2.0 * (bs + r) * w * w,
+                               4.0 * (2 * (bs + r) * w + (bs + r) * w + w * w),
+                               peaks, rate="3xtf32"))
+    by = {b: sum(ms for ms, x in parts if x == b) for b in ("operations", "bytes")}
+    return sum(ms for ms, _ in parts), max(by, key=by.get)
+
+
 def rel_err(x: torch.Tensor, ref: torch.Tensor) -> float:
     """max |x - ref| / max |ref|, in float64."""
     x, ref = x.double(), ref.double()
@@ -441,7 +482,10 @@ def device_phase() -> dict:
     build_s = _build.build_all()
     regs = {name: ptxas_report(log) for name, log in _build.build_logs().items()}
     hmma = {name: tensor_core_ops(str(_build._build_dir() / f"lib{name}.so"))
-            for name in ("swa_flash", "feature_gram", "gram_moment")}
+            for name in ("swa_flash", "feature_gram", "gram_moment", "gemm_nt")}
+    if "cuobjdump" not in hmma["gemm_nt"]:
+        check(hmma["gemm_nt"].get("HMMA.1688.F32.TF32", 0) > 0,
+              f"float32 gemm_nt is not on the tensor cores: {hmma['gemm_nt']}")
     return {"phase": "device", "nvidia_smi": smi(),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "build_s": build_s, "ptxas": regs, "sass_hmma": hmma,
@@ -587,6 +631,8 @@ def kernel_phase(peaks) -> tuple[dict, dict]:
     k2.update(device_ms=burst_ms(k2_bare(K, Lf, Xf, Tq), 200),
               addmm_device_ms=burst_ms(lambda: torch.addmm(C, Z, Tq, out=Zo), 200),
               general_ms=cuda_ms(lambda: K.gemm_nt_cuda(C, Am, Bm, alpha=1.0)),
+              general_device_ms=burst_ms(k2_general_bare(K, C, Am, Bm, 1.0), 200),
+              general_tile=K.gemm_tile(m, nn, torch.float32),
               in_place=K.panel_in_place(nn, torch.float32))
     bms, by = bound(2 * m * nn * k, 4 * (2 * m * nn + nn * k), peaks)
     rows["gemm_nt"] = dict(
@@ -636,10 +682,7 @@ def kernel_phase(peaks) -> tuple[dict, dict]:
                 "r1024_up_T_rel", "r1024_down_L_rel", "r1024_down_T_rel"):
         check(k3[key] <= 1e-4, f"P {key} = {k3[key]} > 1e-4")
     check(k3["f64_rel"] <= 1e-12, f"P float64 error {k3['f64_rel']} > 1e-12")
-    r = COALESCE_RANK
-    rotations = bw * (bw - 1) // 2 * r + bw * r + (bw + r) * bw * r
-    bms, by = bound(6 * rotations, 4 * (2 * bw * bw + r * bw + (bw + r) ** 2),
-                    peaks)
+    bms, by = bound(*p_work(bw, COALESCE_RANK), peaks)
     rows["panel_transform"] = dict(
         name="panel_transform", route="cuda",
         source="src/repro_torch/csrc/panel_transform.cu",
@@ -647,7 +690,7 @@ def kernel_phase(peaks) -> tuple[dict, dict]:
         max_abs_err=max(k3["up_max_abs_err"], k3["down_max_abs_err"]),
         ms=ms, device_ms=k3["device_ms"], plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=None)
-    detail["panel_transform"] = {**k3, "shape": [bw, r], "tolerance": "rel 1e-4 (f32), 1e-12 (f64)"}
+    detail["panel_transform"] = {**k3, "shape": [bw, COALESCE_RANK], "tolerance": "rel 1e-4 (f32), 1e-12 (f64)"}
     del M, L11, X1
 
     for kind in ("sketch", "rff"):
@@ -1845,7 +1888,7 @@ def sharded_serving_phase(ds, peaks) -> dict:
     from repro_torch.launch.serve import serve_fusion
     from repro_torch.server import CoalescerPolicy, FusionEngine, ShardedBackend
     from repro_torch.server.cholesky import panel_transform_ref
-    from repro_torch.server.distributed import composed_panel_transform
+    from repro_torch.server.distributed import SUB_PANEL, composed_panel_transform
 
     def sync():
         torch.cuda.synchronize()
@@ -2062,13 +2105,17 @@ def sharded_serving_phase(ds, peaks) -> dict:
               f"sharded factor {name}: ||LL^T - (G + sigma I)|| / ||G + sigma I|| "
               f"= {err} > {SHARD_FACTOR_TOL}")
 
-    # 9. K2 at the three sharded tile shapes against gemm_nt_ref and addmm;
-    #    the tile's composed P against the plain loop. Not counted above.
+    # 9. K2 at the four sharded tile shapes against gemm_nt_ref and addmm,
+    #    by wrapper and by device time (200 bare launches into preallocated
+    #    outputs); the tile's composed P against the plain loop. Not counted
+    #    above.
     lay = ShardedBackend(DIM, mesh)
     bs, rl, cl = lay.block_size, lay._rl, lay._cl
     del lay
+    sub = SUB_PANEL + SHARD_RANK          # a sub-panel's columns and the update's
     shapes = {"syrk": (rl, cl, bs), "trsm": (DIM - bs, bs, bs),
-              "update": (rl, bs + SHARD_RANK, bs + SHARD_RANK)}
+              "update": (rl, bs + SHARD_RANK, bs + SHARD_RANK),
+              "compose": (bs + SHARD_RANK, sub, sub)}
     gk = torch.Generator("cuda").manual_seed(11)
     k2_rows = {}
     for tag, (m, n, k) in shapes.items():
@@ -2079,14 +2126,24 @@ def sharded_serving_phase(ds, peaks) -> dict:
         want = ref.gemm_nt_ref(C, Am, Bm, alpha=-1.0)
         err = rel_err(got, want)
         check(err <= 1e-5, f"K2 at the sharded {tag} shape: {err} > 1e-5")
-        bms, by = bound(2.0 * m * n * k, 4.0 * (2 * m * n + m * k + n * k), peaks)
+        ops, nbytes = 2.0 * m * n * k, 4.0 * (2 * m * n + m * k + n * k)
+        bms, by = bound(ops, nbytes, peaks, rate="3xtf32")
+        Oa = torch.empty_like(C)
+        tile = K.gemm_tile(m, n, torch.float32)
         k2_rows[tag] = {
             "shape": [m, n, k], "rel_err": err,
             "max_abs_err": float((got - want).abs().max()),
+            "route": "3xtf32 mma.sync", "tile": tile,
+            "ctas": -(-m // tile) * -(-n // tile),
             "ms": cuda_ms(lambda: K.gemm_nt_cuda(C, Am, Bm, alpha=-1.0)),
+            "device_ms": burst_ms(k2_general_bare(K, C, Am, Bm, -1.0), 200),
             "plain_ms": cuda_ms(lambda: ref.gemm_nt_ref(C, Am, Bm, alpha=-1.0)),
             "library_ms": cuda_ms(lambda: torch.addmm(C, Am, Bm.T, alpha=-1.0)),
-            "bound_ms": bms, "bound_by": by}
+            "library_device_ms": burst_ms(
+                lambda: torch.addmm(C, Am, Bm.T, alpha=-1.0, out=Oa), 200),
+            "bound_ms": bms, "bound_by": by,
+            "bound_ms_fp32": bound(ops, nbytes, peaks)[0]}
+        del C, Am, Bm, got, want, Oa
     report["k2_sharded_shapes"] = {"card": smi(), **k2_rows}
     Wt = torch.randn(bs, 2 * bs, generator=gk, device="cuda")
     Lt = torch.linalg.cholesky(Wt @ Wt.T / bs + torch.eye(bs, device="cuda")).contiguous()
@@ -2098,10 +2155,12 @@ def sharded_serving_phase(ds, peaks) -> dict:
     p_plain_s = time.perf_counter() - t0
     p_err = max(rel_err(torch.tril(La), torch.tril(Lb)), rel_err(Ta, Tb))
     check(p_err <= 1e-4, f"composed P of a {bs}-wide tile: {p_err} > 1e-4")
+    t_bms, t_by = tile_transform_bound(bs, SHARD_RANK, SUB_PANEL, peaks)
     report["tile_transform"] = {
         "bs": bs, "r": SHARD_RANK, "rel_err": p_err,
         "ms": cuda_ms(lambda: composed_panel_transform(Lt, Xt, sign=1.0)),
-        "plain_s": p_plain_s, "tolerance": "rel 1e-4 (f32), not bitwise"}
+        "plain_s": p_plain_s, "bound_ms": t_bms, "bound_by": t_by,
+        "tolerance": "rel 1e-4 (f32), not bitwise"}
     del La, Ta, Lb, Tb, Lt, Xt, Wt
     peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.empty_cache()

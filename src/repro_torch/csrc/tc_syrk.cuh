@@ -1,6 +1,7 @@
-// The 3xTF32 tensor-core pieces shared by K1 (gram_moment.cu) and the
-// chunk route of K3/K4 (feature_gram.cu): the cp.async ring, the TF32 split
-// and mma.sync helpers, and one SYRK kernel, G (+)= T^T T and h (+)= T^T b.
+// The 3xTF32 tensor-core pieces shared by K1 (gram_moment.cu), the chunk
+// route of K3/K4 (feature_gram.cu) and K2's float32 general entry
+// (gemm_nt.cu): the cp.async ring, the TF32 split and mma.sync helpers, and
+// one SYRK kernel, G (+)= T^T T and h (+)= T^T b.
 //
 // SYRK (`syrk_kernel`): one CTA per upper BT x BT tile (I <= J) of G.
 //   * BT = 128: 8 warps as 2 x 4 blocks of 64 x 32 (the featurize GEMM's
@@ -135,10 +136,11 @@ __device__ __forceinline__ void load_tile(float* dst, int lds, const __half* src
 
 // acc += A B over one BK-deep tile, for this warp's (16 MT) x (8 NT) block
 // at (wm0, wn0) of the CTA tile. A(i, k) is As[i * lda + k], or As[k * lda
-// + i] when kATrans; B(k, j) is Bs[k * ldb + j]. The tile's products are
-// summed from zero in the tensor cores (3 BK / 8 mma per output fragment)
-// and added to acc by a round-to-nearest FADD.
-template <int MT, int NT, bool kATrans, int BK>
+// + i] when kATrans; B(k, j) is Bs[k * ldb + j], or Bs[j * ldb + k] when
+// kBRows (B held as its (n, k) rows). The tile's products are summed from
+// zero in the tensor cores (3 BK / 8 mma per output fragment) and added to
+// acc by a round-to-nearest FADD.
+template <int MT, int NT, bool kATrans, int BK, bool kBRows = false>
 __device__ __forceinline__ void mma_ktile(float (&acc)[MT][NT][4], const float* As, int lda,
                                           const float* Bs, int ldb, int wm0, int wn0,
                                           int lane) {
@@ -156,8 +158,9 @@ __device__ __forceinline__ void mma_ktile(float (&acc)[MT][NT][4], const float* 
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const int j = wn0 + nt * 8 + g;
-      split_tf32(Bs[(k + t) * ldb + j], bb[nt][0], bsm[nt][0]);
-      split_tf32(Bs[(k + t + 4) * ldb + j], bb[nt][1], bsm[nt][1]);
+      const float* b = kBRows ? Bs + j * ldb + k + t : Bs + (k + t) * ldb + j;
+      split_tf32(b[0], bb[nt][0], bsm[nt][0]);
+      split_tf32(b[kBRows ? 4 : 4 * ldb], bb[nt][1], bsm[nt][1]);
     }
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {

@@ -9,6 +9,7 @@ by one where it launches its kernel and nowhere else.
 
   K1 ``gram_moment_cuda``     — (A^T A, A^T b); replaces ``gram_moment_pallas``
   K2 ``gemm_nt_cuda``         — C + alpha A B^T; replaces ``gemm_nt_pallas``
+                                (float32 on the tensor cores, :func:`gemm_tile`)
      ``panel_gemm_cuda``      — its panel entry: [L21 | X2^T] @ T in place
   P  ``panel_transform_cuda`` — one panel of the blocked Cholesky update
      ``blocked_update_cuda``  — every panel of one update, P then K2 in place
@@ -44,7 +45,7 @@ _FLOAT_DTYPES = {torch.float32: 0, torch.float64: 1}
 
 _SIGNATURES = {
     "gram_moment": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
-    "gemm_nt": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _DBL, _INT, _VP],
+    "gemm_nt": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _DBL, _INT, _INT, _VP],
     "gemm_nt_panel": [_VP, _INT, _VP, _INT, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
     "panel_transform": [_VP, _INT, _VP, _INT, _VP, _VP, _VP, _INT, _INT, _DBL,
                         _INT, _VP],
@@ -69,6 +70,7 @@ _SKETCH_CHUNK_ROWS = 4096  # rows of the chunk route's T workspace (K3, K4)
 _SYRK_WIDE = 128           # the SYRK's tile edges (csrc/tc_syrk.cuh)
 _SYRK_NARROW = 32
 _SYRK_MIN_FILL = 0.75      # least share of the wide tiles' waves kept busy
+_GEMM_TILES = (128, 64)    # K2's float32 output tile edges (csrc/gemm_nt.cu), widest first
 
 
 def syrk_tile(m: int) -> int:
@@ -86,6 +88,29 @@ def syrk_tile(m: int) -> int:
     ctas = tiles * (tiles + 1) // 2
     waves = -(-ctas // _FEATURE_SMS)
     return _SYRK_WIDE if ctas >= _SYRK_MIN_FILL * waves * _FEATURE_SMS else _SYRK_NARROW
+
+
+def gemm_tile(m: int, n: int, dtype: torch.dtype) -> int:
+    """K2's route for an (m, n) output of ``gemm_nt``: 0 for the CUDA-core
+    tile loop (float64), else the edge of the float32 tensor-core route's
+    square output tiles, 128 or 64.
+
+    A CTA's time grows with its tile's area, and the CTAs of a launch run
+    on ``_FEATURE_SMS`` SMs, so the busiest SM computes ceil(CTAs / 132)
+    tiles' worth: waves x area. The edge with the least of that wins, the
+    wider on a tie (each operand row is then read by fewer CTAs). At the
+    sharded backend's shapes: the SYRK (1024, 2048) runs 128 CTAs of 128
+    (512 of 64 tie); the TRSM (3840, 256) 240 of 64, the trailing update
+    (1024, 320) 80 of 64, the composition (320, 96) 10 of 64. Depends only
+    on the shape and dtype; the bits do not depend on the edge.
+    """
+    if dtype == torch.float64:
+        return 0
+
+    def busiest(t: int) -> int:
+        ctas = -(-m // t) * -(-n // t)
+        return -(-ctas // _FEATURE_SMS) * t * t
+    return min(_GEMM_TILES, key=busiest)
 
 
 _GRAM_SYRK_MIN_ROWS = 2    # fewer rows: K1 keeps its CUDA-core kernel
@@ -187,7 +212,11 @@ def _gram_moment(A: torch.Tensor, b: torch.Tensor, tile: int
 
 def gemm_nt_cuda(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *,
                  alpha: float = -1.0) -> torch.Tensor:
-    """K2: C + alpha * A @ B^T. C: (m, n), A: (m, k), B: (n, k); f32 or f64."""
+    """K2: C + alpha * A @ B^T. C: (m, n), A: (m, k), B: (n, k); f32 or f64.
+
+    Float32 runs the 3xTF32 tensor-core tile GEMM at the tile edge
+    :func:`gemm_tile` picks, float64 the CUDA-core tile loop. Bitwise
+    deterministic."""
     device = _check("gemm_nt", {"C": C, "A": A, "B": B}, _FLOAT_DTYPES)
     if not (C.ndim == A.ndim == B.ndim == 2) or A.shape[0] != C.shape[0] \
             or B.shape[0] != C.shape[1] or A.shape[1] != B.shape[1]:
@@ -195,14 +224,21 @@ def gemm_nt_cuda(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *,
                          f"{tuple(C.shape)}, {tuple(A.shape)}, {tuple(B.shape)}")
     if not C.dtype == A.dtype == B.dtype:
         raise TypeError(f"gemm_nt: mixed dtypes {C.dtype}, {A.dtype}, {B.dtype}")
+    out = _gemm_nt(C, A, B, alpha, gemm_tile(*C.shape, C.dtype), device)
+    gemm_nt_cuda.launches += out.numel() > 0      # m = 0 or n = 0 launches nothing
+    return out
+
+
+def _gemm_nt(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor, alpha: float,
+             tile: int, device: torch.device) -> torch.Tensor:
+    """K2's launch with its route given (``tile``: see :func:`gemm_tile`);
+    the wrapper's arguments already checked."""
     m, n = C.shape
-    k = A.shape[1]
     out = torch.empty_like(C)
-    if m == 0 or n == 0:
-        return out
-    _launch("gemm_nt", device, C.data_ptr(), A.data_ptr(), B.data_ptr(),
-            out.data_ptr(), m, n, k, float(alpha), _FLOAT_DTYPES[C.dtype])
-    gemm_nt_cuda.launches += 1
+    if m > 0 and n > 0:
+        _launch("gemm_nt", device, C.data_ptr(), A.data_ptr(), B.data_ptr(),
+                out.data_ptr(), m, n, A.shape[1], float(alpha),
+                _FLOAT_DTYPES[C.dtype], tile)
     return out
 
 

@@ -106,13 +106,95 @@ def test_gram_moment_unaligned_input(card):
 
 @pytest.mark.parametrize("m,n,k,dtype", [(100, 37, 13, torch.float32),
                                          (4064, 96, 96, torch.float32),
+                                         (1024, 2048, 256, torch.float32),
+                                         (3840, 256, 256, torch.float32),
+                                         (1024, 320, 320, torch.float32),
+                                         (320, 96, 96, torch.float32),
                                          (65, 64, 1, torch.float64)])
 def test_gemm_nt_matches_plain(card, m, n, k, dtype):
+    """Float32 on the tensor cores at the dense panel's shape and the
+    sharded block Cholesky's four (SYRK, TRSM, trailing update, the tile's
+    composition), float64 on the CUDA cores."""
     C, A, B = (_randn(s, dtype, seed=i).to(card)
                for i, s in enumerate(((m, n), (m, k), (n, k))))
     out = gram.gemm_nt_cuda(C, A, B, alpha=-0.5)
     tol = 1e-13 if dtype == torch.float64 else 1e-5
     assert _rel(out, ref.gemm_nt_ref(C, A, B, alpha=-0.5)) <= tol
+
+
+def _gemm_operands(card, m, n, k, seed=0):
+    return tuple(_randn(s, seed=seed + i).to(card)
+                 for i, s in enumerate(((m, n), (m, k), (n, k))))
+
+
+def test_gemm_nt_repeats_bitwise(card):
+    """Two launches at the SYRK's shape give the same bits (no split over k,
+    no atomics), and each counts once."""
+    C, A, B = _gemm_operands(card, 1024, 2048, 256)
+    before = gram.gemm_nt_cuda.launches
+    O1 = gram.gemm_nt_cuda(C, A, B, alpha=-1.0)
+    O2 = gram.gemm_nt_cuda(C, A, B, alpha=-1.0)
+    torch.cuda.synchronize()
+    assert gram.gemm_nt_cuda.launches == before + 2
+    assert torch.equal(O1, O2)
+    assert _rel(O1, ref.gemm_nt_ref(C, A, B, alpha=-1.0)) <= 1e-5
+
+
+@pytest.mark.parametrize("m,n,k", [(1024, 320, 320), (100, 37, 13), (320, 96, 96)])
+def test_gemm_nt_either_tile_edge_same_bits(card, m, n, k):
+    """Both float32 tile edges give the same bits: each element is one
+    thread's sum over the same k-tiles in the same order."""
+    C, A, B = _gemm_operands(card, m, n, k, seed=3)
+    O64 = gram._gemm_nt(C, A, B, 1.0, 64, card)
+    O128 = gram._gemm_nt(C, A, B, 1.0, 128, card)
+    assert torch.equal(O64, O128)
+    assert _rel(O64, ref.gemm_nt_ref(C, A, B, alpha=1.0)) <= 1e-5
+
+
+@pytest.mark.parametrize("m,n,k", [(300, 36, 13), (3840, 256, 256)])
+def test_gemm_nt_unaligned_rows(card, m, n, k):
+    """Operands 4 bytes off 16-byte alignment take the 4-byte copies and the
+    scalar epilogue: within 1e-5 of plain, and at k % 4 == 0 the bits of the
+    same operands at aligned addresses."""
+    C, A, B = _gemm_operands(card, m, n, k, seed=5)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=card)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+    Cu, Au, Bu = map(shifted, (C, A, B))
+    assert all(t.data_ptr() % 16 == 4 for t in (Cu, Au, Bu))
+    O = gram.gemm_nt_cuda(Cu, Au, Bu, alpha=-1.0)
+    assert _rel(O, ref.gemm_nt_ref(C, A, B, alpha=-1.0)) <= 1e-5
+    if k % 4 == 0:
+        assert torch.equal(O, gram.gemm_nt_cuda(C, A, B, alpha=-1.0))
+
+
+def test_gemm_nt_float32_on_the_tensor_cores(card):
+    """The built library holds the TF32 tensor-core instruction that
+    ``mma.sync.m16n8k8`` compiles to."""
+    import os
+    import subprocess
+
+    from repro_torch.kernels import _build
+    _build.build_all()
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        pytest.skip(f"no cuobjdump at {tool}")
+    sass = subprocess.run([tool, "-sass", str(_build._build_dir() / "libgemm_nt.so")],
+                          capture_output=True, text=True, check=True).stdout
+    assert "HMMA.1688.F32.TF32" in sass
+
+
+def test_gemm_nt_refuses_a_bad_route(card):
+    """Float32 takes tile edges 64 and 128 only, float64 only the CUDA-core
+    loop (0)."""
+    C, A, B = _gemm_operands(card, 65, 64, 8)
+    for tile in (0, 32, 96):
+        with pytest.raises(RuntimeError, match="bad argument"):
+            gram._gemm_nt(C, A, B, 1.0, tile, card)
+    with pytest.raises(RuntimeError, match="bad argument"):
+        gram._gemm_nt(C.double(), A.double(), B.double(), 1.0, 64, card)
 
 
 @pytest.mark.parametrize("bw,r", [(1, 1), (7, 3), (32, 64), (32, 300), (5, 200),

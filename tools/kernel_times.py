@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's kernels on one card at the paths' shapes.
 
-    python3 tools/kernel_times.py [--src DIR] [--tag NAME] [--only write|gram]
+    python3 tools/kernel_times.py [--src DIR] [--tag NAME] [--only write|gram|sharded]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is imported
 (default: this checkout's), so that two checkouts can be compared on one
@@ -23,6 +23,15 @@ through the kernel wrappers of ``repro_torch.kernels.gram``:
   K2 beside ``torch.addmm`` on the same operands; and one whole rank-64
   update of a d 4096 factor through ``chol_update_blocked`` (event and
   host time). The bare launches are ``chip_smoke.py``'s.
+- the sharded backend (``--only sharded`` runs just these), float32: K2's
+  general entry ``gemm_nt_cuda`` at the block Cholesky's four tile shapes
+  (the SYRK 1024 x 2048 x 256, the TRSM 3840 x 256 x 256, the trailing
+  update 1024 x 320 x 320, the tile composition 320 x 96 x 96; alpha -1),
+  by wrapper and device time (200 bare launches into a preallocated
+  output), beside ``torch.addmm`` by wrapper and device time (``out=``);
+  then on a (4, 2) mesh of 8 shards of the card at d 4096 (bs 256), one
+  cold ``ShardedBackend`` factor and one rank-64 factor update (event and
+  host time).
 
 Prints one JSON line: the tag, the card's name and power limit, and the
 milliseconds of each case. Exits non-zero without a CUDA card.
@@ -34,13 +43,15 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from chip_smoke import burst_ms, cuda_ms, k2_bare, p_bare  # noqa: E402
+from chip_smoke import (bare_entry, burst_ms, cuda_ms, k2_bare,  # noqa: E402
+                        k2_general_bare, p_bare)
 
 
 def panel_inputs(bw: int, r: int, g):
@@ -49,26 +60,30 @@ def panel_inputs(bw: int, r: int, g):
     return L11.contiguous(), torch.randn(r, bw, generator=g, device="cuda")
 
 
+def host_ms(fn, reps: int = 10) -> float:
+    """Host clock over ``reps`` calls in a row after one warm-up call,
+    synchronised, per call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
 def update_times(g) -> dict:
     """One rank-64 update of a d 4096 float32 factor through
     ``chol_update_blocked`` (128 panels, the copies of L and U included):
     the CUDA-event median of 10, and the host clock over 10 in a row."""
-    import time
-
     from repro_torch.server import cholesky
     d, r = 4096, 64
     M = torch.randn(2 * d, d, generator=g, device="cuda") / (2 * d) ** 0.5
     L = torch.linalg.cholesky(M.T @ M + 0.1 * torch.eye(d, device="cuda")).contiguous()
     U = 0.1 * torch.randn(r, d, generator=g, device="cuda")
     del M
-    out = {"event_ms": cuda_ms(lambda: cholesky.chol_update_blocked(L, U))}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(10):
-        cholesky.chol_update_blocked(L, U)
-    torch.cuda.synchronize()
-    out["host_ms"] = (time.perf_counter() - t0) * 100
-    return out
+    return {"event_ms": cuda_ms(lambda: cholesky.chol_update_blocked(L, U)),
+            "host_ms": host_ms(lambda: cholesky.chol_update_blocked(L, U))}
 
 
 def write_path(K, g) -> dict:
@@ -98,11 +113,69 @@ def write_path(K, g) -> dict:
     return out
 
 
+def k2_general(K, C, A, B, alpha: float):
+    """``chip_smoke.k2_general_bare``; a checkout from before the tile
+    argument (no ``gemm_tile``) launches without it."""
+    if hasattr(K, "gemm_tile"):
+        return k2_general_bare(K, C, A, B, alpha)
+    (m, n), k = C.shape, A.shape[1]
+    O = torch.empty_like(C)
+    call = bare_entry(K, "gemm_nt")
+    args = (C.data_ptr(), A.data_ptr(), B.data_ptr(), O.data_ptr(), m, n, k, alpha,
+            K._FLOAT_DTYPES[C.dtype])
+    return lambda: call(*args)
+
+
+def sharded(K, g) -> dict:
+    """K2 at the sharded block Cholesky's tile shapes against addmm, then a
+    cold factor and a rank-64 update of a d 4096 ShardedBackend on a (4, 2)
+    mesh of the card."""
+    from repro_torch.core import SuffStats
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.server import ShardedBackend
+    from repro_torch.server.distributed import SUB_PANEL
+
+    d, r, sigma = 4096, 64, 0.01
+    mesh = mesh_lib.make_device_mesh(8, device="cuda")
+    be = ShardedBackend(d, mesh)
+    bs, rl, cl = be.block_size, be._rl, be._cl
+    shapes = {"syrk": (rl, cl, bs), "trsm": (d - bs, bs, bs),
+              "update": (rl, bs + r, bs + r), "compose": (bs + r, SUB_PANEL + r, SUB_PANEL + r)}
+    out = {}
+    for tag, (m, n, k) in shapes.items():
+        C = torch.randn(m, n, generator=g, device="cuda")
+        A = torch.randn(m, k, generator=g, device="cuda")
+        B = torch.randn(n, k, generator=g, device="cuda")
+        O = torch.empty_like(C)
+        out[f"k2_{tag}"] = {
+            "shape": [m, n, k],
+            "tile": K.gemm_tile(m, n, C.dtype) if hasattr(K, "gemm_tile") else 64,
+            "wrapper_ms": cuda_ms(lambda: K.gemm_nt_cuda(C, A, B, alpha=-1.0)),
+            "device_ms": burst_ms(k2_general(K, C, A, B, -1.0), 200),
+            "addmm_ms": cuda_ms(lambda: torch.addmm(C, A, B.T, alpha=-1.0)),
+            "addmm_device_ms": burst_ms(
+                lambda: torch.addmm(C, A, B.T, alpha=-1.0, out=O), 200)}
+    M = torch.randn(2 * d, d, generator=g, device="cuda") / (2 * d) ** 0.5
+    be.set_stats(SuffStats(M.T @ M, torch.randn(d, generator=g, device="cuda"),
+                           torch.tensor(2 * d, device="cuda")))
+    del M
+    launches0 = K.gemm_nt_cuda.launches
+    factor = be.factor(sigma)
+    torch.cuda.synchronize()
+    out["factor_k2_launches"] = K.gemm_nt_cuda.launches - launches0
+    out["factor_d4096"] = {"event_ms": cuda_ms(lambda: be.factor(sigma)),
+                           "host_ms": host_ms(lambda: be.factor(sigma))}
+    U = 0.1 * torch.randn(r, d, generator=g, device="cuda")
+    out["update_d4096_r64"] = {"event_ms": cuda_ms(lambda: be.update(factor, U, 1.0)),
+                               "host_ms": host_ms(lambda: be.update(factor, U, 1.0))}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--tag", default="")
-    ap.add_argument("--only", choices=("write", "gram"), default=None)
+    ap.add_argument("--only", choices=("write", "gram", "sharded"), default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
@@ -117,7 +190,7 @@ def main() -> int:
         return torch.randn(shape, generator=g, device="cuda")
 
     ms = {}
-    if args.only != "write":
+    if args.only in (None, "gram"):
         A, b = randn(16384, 4096), randn(16384)
         ms["k1_16384x4096"] = cuda_ms(lambda: K.gram_moment_cuda(A, b))
         for d in (4096, 1024):          # one streamed row: ~0.1 ms, so 100 calls
@@ -130,8 +203,10 @@ def main() -> int:
         c = 2 * np.pi * torch.rand(4096, generator=g, device="cuda")
         ms["k4_16384x128_D4096"] = cuda_ms(lambda: K.rff_gram_cuda(X, b, W, c))
         del X, W
-    if args.only != "gram":
+    if args.only in (None, "write"):
         ms["write_path"] = write_path(K, g)
+    if args.only in (None, "sharded"):
+        ms["sharded"] = sharded(K, g)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
