@@ -96,7 +96,22 @@ kernels' launch counts set to 0 just before it and read just after:
   kernel K5), then 32 greedy tokens decoded; then a one-shot linear probe
   of that model's frozen per-token features (4 clients of 2 x 1024 tokens,
   K5 in every layer), the fused head within 1e-3 of a float64 centralized
-  solve, then again on a (4, 2) mesh of the card, 2 prompts a mesh client.
+  solve, then again on a (4, 2) mesh of the card, 2 prompts a mesh client;
+- the attention-only model zoo at full width, one model on the card at a
+  time after gemma3's is freed, random bf16 weights from a seed, each
+  config of the registry with only its depth cut: mixtral-8x22b (4 of 56
+  layers; 8 experts top-2, window 4096) on 2 prompts of 8192 tokens, 32
+  tokens, served twice with bitwise equal tokens, each layer's dropped
+  share at capacity 1.25 and a profiler split of one prefill (K5, the
+  expert ``bmm``s, routing, dispatch and combine, the rest);
+  phi3.5-moe-42b-a6.6b (4 of 32; 16 experts), qwen2-72b (8 of 80),
+  yi-9b (all 48) and minitron-8b (all 32) on one prompt of 4096 tokens,
+  8 tokens; each with its parameter count, K5 once a layer per prefill
+  and never in decode, and decode consistency (the MoE configs at the
+  dropless capacity E / k, again in float32 if a bf16 routing tie flips
+  the last token's experts). K5 is also held to its plain version at the
+  zoo's new shapes: mixtral's (B 2, S 8192, H 48 over 8, window 4096) and
+  qwen2's (B 1, S 4096, H 64 over 8, causal).
 
 Results are checked against float64 references, and the model against the
 plain attention inside it (decode) and K5's plain version. It prints one JSON line
@@ -196,6 +211,21 @@ RELAY_SERVE_TIMEOUT = 900           # a server that the phase ends by signal
 MODEL_ARCH, MODEL_STAGES = "gemma3-27b", 2
 MODEL_BATCH, MODEL_PROMPT, MODEL_GEN = 4, 4096, 32
 MODEL_SEED = 0
+
+# The attention-only model zoo (the zoo_serving phase), after the gemma3
+# model is freed: each config from the registry with only num_stages
+# replaced (every pattern has one layer), random bf16 weights from
+# ZOO_SEED. Per arch: layers on the card, prompts, prompt length, generated
+# tokens. Mixtral's prompts are twice its 4096-token window, so it masks.
+ZOO_RUNS = (("mixtral-8x22b", 4, 2, 8192, 32),
+            ("phi3.5-moe-42b-a6.6b", 4, 1, 4096, 8),
+            ("qwen2-72b", 8, 1, 4096, 8),
+            ("yi-9b", 48, 1, 4096, 8),
+            ("minitron-8b", 32, 1, 4096, 8))
+ZOO_SEED = 0
+# K5 at the zoo's new shapes in the kernel phase: B, S, H, H_kv, hd, window.
+SWA_ZOO_SHAPES = {"mixtral": (2, 8192, 48, 8, 128, 4096),
+                  "qwen2": (1, 4096, 64, 8, 128, None)}
 
 # Algorithm 2 and the paper's baselines (the private_federation phase), on
 # the main path's data: DP one-shot (eps 1, delta 1e-5, key 7) on 4 of its
@@ -834,10 +864,65 @@ def swa_pairs(S: int, window, causal: bool) -> int:
     return int((hi - lo + 1).sum())
 
 
+def swa_case(g, peaks, B: int, S: int, H: int, Hkv: int, hd: int, window) -> dict:
+    """K5 in bf16 at one shape and window against its plain version: within
+    one bf16 ulp, repeated bitwise; its time, the plain version's, SDPA's
+    (``is_causal``, or the band as a boolean mask, over repeated KV heads)
+    and the bound."""
+    from repro_torch.kernels import gram as K
+    from repro_torch.kernels import ref
+
+    q, k, v = [torch.randn(shape, generator=g, device="cuda").bfloat16()
+               for shape in ((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd))]
+    kg, vg = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2) for t in (k, v))
+    qt = q.transpose(1, 2)
+    if window is None:
+        mask = None
+    else:
+        rel = torch.arange(S, device="cuda")[:, None] - torch.arange(S, device="cuda")[None, :]
+        mask = (rel >= 0) & (rel < window)
+
+    def library():
+        if mask is None:
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kg, vg, is_causal=True)
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kg, vg, attn_mask=mask)
+
+    o = K.swa_flash_cuda(q, k, v, window=window, causal=True)
+    o2 = K.swa_flash_cuda(q, k, v, window=window, causal=True)
+    p = ref.swa_attention_ref(q, k, v, window=window, causal=True)
+    torch.cuda.synchronize()
+    err = float((o.float() - p.float()).abs().max())
+    ulps = bf16_ulps(o, p)
+    tag = f"B {B}, S {S}, H {H}/{Hkv}, window {window}"
+    check(torch.equal(o, o2), f"K5 ({tag}) is not bitwise deterministic")
+    check(ulps <= 1, f"K5 ({tag}): |kernel - plain| is {ulps} x (2^-7 |plain| + 1e-4)"
+          f" (max abs {err})")
+    lib_err = float((library().transpose(1, 2).float() - p.float()).abs().max())
+    del o, o2, p
+    ms = cuda_ms(lambda: K.swa_flash_cuda(q, k, v, window=window, causal=True))
+    plain_ms = cuda_ms(lambda: ref.swa_attention_ref(q, k, v, window=window, causal=True))
+    lib_ms = cuda_ms(library)
+    pairs = swa_pairs(S, window, True)
+    ops = 4 * hd * pairs * B * H
+    bms, by = bound(ops, 2 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd), peaks,
+                    rate="bf16")
+    return {"shape": [B, S, H, Hkv, hd], "window": window, "max_abs_err": err,
+            "worst_bf16_ulps": ulps, "bitwise_repeat": True,
+            "kept_pairs_per_head": pairs, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_max_abs_err": lib_err,
+            "vs_library": ms / lib_ms, "bound_ms": bms,
+            "bound_by": by, "tflops": ops / ms / 1e9,
+            # mma work: Q K^T, and P V twice (P_hi and P_lo)
+            "mma_tflops": 1.5 * ops / ms / 1e9}
+
+
 def swa_kernel_row(g, peaks) -> tuple[dict, dict]:
-    """K5 at the model path's shape (B 4, S 4096, H 32 over 16 KV heads,
+    """K5 at the gemma3 path's shape (B 4, S 4096, H 32 over 16 KV heads,
     hd 128, bf16), with the SWA layers' window 1024 and the full layers'
-    none, plus ragged float32 cases, against the plain version."""
+    none, plus ragged float32 cases, then at the zoo's new shapes
+    (``SWA_ZOO_SHAPES``), each against the plain version."""
     from repro_torch import configs
     from repro_torch.kernels import gram as K
     from repro_torch.kernels import ref
@@ -846,80 +931,40 @@ def swa_kernel_row(g, peaks) -> tuple[dict, dict]:
     B, S, H, Hkv, hd = (MODEL_BATCH, MODEL_PROMPT, cfg.num_heads,
                         cfg.num_kv_heads, cfg.head_dim)
 
-    def inputs(b, s, dtype):
-        return [torch.randn(shape, generator=g, device="cuda").to(dtype)
-                for shape in ((b, s, H, hd), (b, s, Hkv, hd), (b, s, Hkv, hd))]
-
     # bf16 output of float32 sums in two orders: within one bf16 ulp of the
     # plain value, element by element (bf16_ulps <= 1); float32 at 3e-5.
     det = {"shape": [B, S, H, Hkv, hd], "dtype": "bfloat16",
            "tolerance": "|o - p| <= 2^-7 |p| + 1e-4 (bf16), atol 3e-5 (f32)"}
-    q, k, v = inputs(B, S, torch.bfloat16)
-    kg, vg = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2) for t in (k, v))
-    qt = q.transpose(1, 2)
     row = None
     for tag, window in (("swa", cfg.window), ("full", None)):
-        o = K.swa_flash_cuda(q, k, v, window=window, causal=True)
-        o2 = K.swa_flash_cuda(q, k, v, window=window, causal=True)
-        p = ref.swa_attention_ref(q, k, v, window=window, causal=True)
-        torch.cuda.synchronize()
-        err = float((o.float() - p.float()).abs().max())
-        ulps = bf16_ulps(o, p)
-        check(torch.equal(o, o2), f"K5 {tag} is not bitwise deterministic")
-        check(ulps <= 1, f"K5 {tag}: |kernel - plain| is {ulps} x (2^-7 |plain| + 1e-4)"
-              f" (max abs {err})")
-        if window is None:
-            mask = None
-        else:
-            rel = torch.arange(S, device="cuda")[:, None] - torch.arange(S, device="cuda")[None, :]
-            mask = (rel >= 0) & (rel < window)
-
-        def library():
-            if mask is None:
-                return torch.nn.functional.scaled_dot_product_attention(
-                    qt, kg, vg, is_causal=True)
-            return torch.nn.functional.scaled_dot_product_attention(
-                qt, kg, vg, attn_mask=mask)
-
-        lib_err = float((library().transpose(1, 2).float() - p.float()).abs().max())
-        ms = cuda_ms(lambda: K.swa_flash_cuda(q, k, v, window=window, causal=True))
-        plain_ms = cuda_ms(lambda: ref.swa_attention_ref(q, k, v, window=window, causal=True))
-        lib_ms = cuda_ms(library)
-        pairs = swa_pairs(S, window, True)
-        ops = 4 * hd * pairs * B * H
-        bms, by = bound(ops, 2 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd), peaks,
-                        rate="bf16")
-        det[tag] = {"window": window, "max_abs_err": err, "worst_bf16_ulps": ulps,
-                    "bitwise_repeat": True,
-                    "kept_pairs_per_head": pairs, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": lib_ms, "library_max_abs_err": lib_err,
-                    "vs_library": ms / lib_ms, "bound_ms": bms, "bound_by": by,
-                    "tflops": ops / ms / 1e9,
-                    # mma work: Q K^T, and P V twice (P_hi and P_lo)
-                    "mma_tflops": 1.5 * ops / ms / 1e9,
-                    **quoted_earlier(EARLIER_MS["swa_flash"][tag], ms)}
+        case = swa_case(g, peaks, B, S, H, Hkv, hd, window)
+        det[tag] = {**case, **quoted_earlier(EARLIER_MS["swa_flash"][tag], case["ms"])}
         if row is None:     # the row reports the SWA layers' case, 12 of 14 launches
             row = dict(name="swa_flash", route="cuda", source="src/repro_torch/csrc/swa_flash.cu",
-                       replaces="src/repro/kernels/swa_flash.py:87", max_abs_err=err,
-                       ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                       library_ms=lib_ms)
-        del o, o2, p
+                       replaces="src/repro/kernels/swa_flash.py:87",
+                       **{key: case[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                                     "bound_ms", "bound_by", "library_ms")})
     # the same shape in float32, against plain at 3e-5
     for tag, window in (("swa", cfg.window), ("full", None)):
-        qf, kf, vf = (t.float() for t in (q, k, v))
+        qf, kf, vf = [torch.randn(shape, generator=g, device="cuda")
+                      for shape in ((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd))]
         err = float((K.swa_flash_cuda(qf, kf, vf, window=window, causal=True)
                      - ref.swa_attention_ref(qf, kf, vf, window=window, causal=True)).abs().max())
         det[f"{tag}_f32_max_abs_err"] = err
         check(err <= 3e-5, f"K5 {tag} float32 at the path's shape: {err} > 3e-5")
         del qf, kf, vf
-    del q, k, v, kg, vg, qt
     # the ragged edge: S 1000 (not a multiple of 64), non-causal, float32
-    q, k, v = inputs(1, 1000, torch.float32)
+    q, k, v = [torch.randn(shape, generator=g, device="cuda")
+               for shape in ((1, 1000, H, hd), (1, 1000, Hkv, hd), (1, 1000, Hkv, hd))]
     for window in (None, 48):
         err = float((K.swa_flash_cuda(q, k, v, window=window, causal=False)
                      - ref.swa_attention_ref(q, k, v, window=window, causal=False)).abs().max())
         det[f"ragged_f32_noncausal_w{window}_max_abs_err"] = err
         check(err <= 3e-5, f"K5 ragged non-causal window {window}: {err} > 3e-5")
+    del q, k, v
+    for name, shape in SWA_ZOO_SHAPES.items():
+        det[name] = swa_case(g, peaks, *shape)
+    torch.cuda.empty_cache()
     return row, det
 
 
@@ -3481,6 +3526,224 @@ def private_probe_phase(lm) -> dict:
             "mesh_launches": mesh_launches, "seconds": time.perf_counter() - t_all}
 
 
+# -- phase 10: the attention-only model zoo at full width ----------------------
+
+MOE_LABELS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+
+
+def moe_prefill_split(fn) -> dict:
+    """Run ``fn`` (one prefill) once under ``torch.profiler`` and split its
+    device time: K5 (by kernel name), the four ``record_function`` ranges
+    of ``models/moe.py`` (each kernel credited to the range enclosing the
+    op that launched it), and the rest (projections, norms, RoPE, the
+    head). ``annotation_ms`` are the ranges' own spans on the device, where
+    the profiler records them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+
+    def span(e) -> float:
+        return (e.time_range.end - e.time_range.start) / 1e3
+
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in device if e.name not in MOE_LABELS]
+    annotation = dict.fromkeys(MOE_LABELS, 0.0)
+    for e in device:
+        if e.name in MOE_LABELS:
+            annotation[e.name] += span(e)
+    total = sum(span(e) for e in kernels)
+    k5 = sum(span(e) for e in kernels if "swa_flash" in e.name)
+    parts = dict.fromkeys(MOE_LABELS, 0.0)
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        p = e
+        while p is not None and p.name not in parts:
+            p = p.cpu_parent
+        if p is not None:
+            parts[p.name] += sum(kn.duration for kn in e.kernels
+                                 if "swa_flash" not in kn.name) / 1e3
+    return {"wall_ms": wall_ms, "device_ms": total, "device_idle_share": 1 - total / wall_ms,
+            "launches": len(kernels), "k5_ms": k5,
+            "experts_bmm_ms": parts["moe.experts"], "routing_ms": parts["moe.route"],
+            "dispatch_combine_ms": parts["moe.dispatch"] + parts["moe.combine"],
+            "rest_ms": total - k5 - sum(parts.values()),
+            "annotation_ms": annotation}
+
+
+def zoo_consistency(lm, prompts) -> dict:
+    """The model phase's decode consistency: a prefill of S - 1 tokens and
+    one decode step against the S-token prefill's last logits, within
+    3e-2 x max(scale, 1) (the reference's check), K5 once a layer in each
+    prefill and never in decode. For an MoE, also the last token's experts
+    in each layer by both paths, and the smallest gap between its k-th
+    and (k + 1)-th router probabilities in either."""
+    from repro_torch.kernels import gram as K
+    from repro_torch.models import model as M
+
+    def k5() -> int:
+        return K.launch_counts()["swa_flash"]
+
+    cfg, n_layers = lm.cfg, lm.cfg.num_layers
+    B, S = prompts.shape
+    moes = [layer.moe for layer in lm.all_layers() if layer.spec.mlp == "moe"]
+    before = k5()
+    t0 = time.perf_counter()
+    _, cache = M.prefill_step(lm, {"tokens": prompts[:, :-1]}, max_len=S)
+    check(k5() - before == n_layers, f"{cfg.name}: K5 launches of the {S - 1}-token prefill")
+    lg, _ = M.decode_step(lm, cache, {"tokens": prompts[:, -1:]})
+    check(k5() - before == n_layers, f"{cfg.name}: K5 launched in a decode step")
+    del cache
+    decoded = [m.routing for m in moes]
+    full, _ = M.prefill_step(lm, {"tokens": prompts})
+    torch.cuda.synchronize()
+    check(k5() - before == 2 * n_layers, f"{cfg.name}: K5 launches of the {S}-token prefill")
+    prefilled = [m.routing for m in moes]
+    lg, full = lg[:, 0].float(), full[:, -1].float()
+    check(bool(torch.isfinite(lg).all() and torch.isfinite(full).all()),
+          f"{cfg.name}: logits not finite")
+    scale = float(full.abs().max())
+    out = {"dtype": cfg.dtype, "max_abs": float((lg - full).abs().max()),
+           "tol": 3e-2 * max(scale, 1.0), "logit_scale": scale,
+           "seconds": time.perf_counter() - t0}
+    if moes:
+        k = cfg.top_k
+
+        def gap(probs) -> float:
+            top = torch.sort(probs, dim=-1, descending=True).values
+            return float((top[:, k - 1] - top[:, k]).min())
+
+        last = [r["probs"].view(B, S, -1)[:, -1] for r in prefilled]
+        out["capacity_factor"] = cfg.capacity_factor
+        out["decode_experts"] = [r["expert_idx"].tolist() for r in decoded]
+        out["prefill_experts"] = [r["expert_idx"].view(B, S, k)[:, -1].tolist()
+                                  for r in prefilled]
+        out["experts_agree"] = out["decode_experts"] == out["prefill_experts"]
+        out["min_router_gap"] = min(min(gap(r["probs"]) for r in decoded),
+                                    min(gap(p) for p in last))
+    return out
+
+
+def zoo_run(arch: str, stages: int, batch: int, prompt_len: int, gen: int) -> dict:
+    """One config of the zoo at full width, cut to ``stages`` layers: the
+    parameter count, a served run (prefill, then ``gen`` greedy tokens)
+    with K5 once a layer, decode consistency, times and peak memory. An
+    MoE also serves twice (bitwise equal tokens), reports each layer's
+    dropped share of (token, choice) pairs at its capacity factor 1.25 and
+    a profiler split of one prefill; its decode consistency runs at the
+    dropless capacity E / k, and again in float32 if a bf16 routing tie
+    flipped an expert of the last token."""
+    from repro_torch import configs
+    from repro_torch.kernels import gram as K
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+
+    def sync():
+        torch.cuda.synchronize()
+
+    full_cfg = configs.get(arch)
+    cfg = dataclasses.replace(full_cfg, num_stages=stages)
+    n_layers = cfg.num_layers
+    steps = {}
+    t_all = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(ZOO_SEED),
+                       device="cuda")
+    sync()
+    steps["init_params_s"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    check(n_params == cfg.param_count(),
+          f"{arch}: {n_params} parameters, the config counts {cfg.param_count()}")
+    weight_gb = sum(p.numel() * p.element_size() for p in lm.parameters()) / 1e9
+    rng = np.random.default_rng(ZOO_SEED)            # the reference's prompts
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).cuda()
+
+    K.reset_launch_counts()
+    tokens, times = generate(lm, prompts, gen)
+    launches = K.launch_counts()
+    check(launches["swa_flash"] == n_layers,
+          f"{arch}: K5 launched {launches['swa_flash']} times in one prefill + "
+          f"{gen - 1} decode steps, want {n_layers} (one a layer, none in decode)")
+    check(all(n == 0 for name, n in launches.items() if name != "swa_flash"),
+          f"{arch}: launches {launches}")
+    check(tuple(tokens.shape) == (batch, gen) and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.vocab_size, f"{arch}: generated tokens out of range")
+    steps["prefill_s"], steps["decode_s"] = times["prefill_s"], times["decode_s"]
+    steps["decode_tok_per_s"] = batch * (gen - 1) / times["decode_s"]
+    served_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    out = {"arch": cfg.name, "reduced": f"depth: {n_layers} of {full_cfg.num_layers} layers",
+           "params": n_params, "active_params": cfg.active_param_count(),
+           "weight_gb": weight_gb, "batch": batch, "prompt_len": prompt_len,
+           "gen_tokens": gen, "window": cfg.window if cfg.sub_quadratic else None,
+           "launches": launches, "sample_tokens": tokens[0, :8].tolist()}
+
+    if cfg.num_experts:
+        before = K.launch_counts()["swa_flash"]
+        tokens2, times2 = generate(lm, prompts, gen)
+        check(K.launch_counts()["swa_flash"] - before == n_layers,
+              f"{arch}: K5 launches of the second run")
+        check(torch.equal(tokens, tokens2), f"{arch}: two runs generated different tokens")
+        steps["prefill_2_s"], steps["decode_2_s"] = times2["prefill_s"], times2["decode_s"]
+        T = batch * prompt_len
+        out["capacity"] = {"factor": cfg.capacity_factor, "tokens": T,
+                           "slots_per_expert": moe.capacity(cfg, T)}
+        out["prefill_split"] = moe_prefill_split(
+            lambda: M.prefill_step(lm, {"tokens": prompts}))
+        out["dropped_share_per_layer"] = [
+            1 - float(layer.moe.routing["keep"].float().mean()) for layer in lm.all_layers()]
+        lm.cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+    cons = zoo_consistency(lm, prompts)
+    if cfg.num_experts and not cons["experts_agree"]:
+        # a bf16 routing tie flipped: the same check with the model in float32
+        lm.float()
+        lm.cfg = dataclasses.replace(lm.cfg, dtype="float32")
+        gc.collect()
+        torch.cuda.empty_cache()
+        cons["float32"] = zoo_consistency(lm, prompts)
+        cons = {**cons, "checked": "float32"}
+        final = cons["float32"]
+    else:
+        final = cons
+    check(final["max_abs"] <= final["tol"], f"{arch}: decode consistency {cons}")
+    out["consistency"] = cons
+    steps["total_s"] = time.perf_counter() - t_all
+    out.update(steps_s=steps, served_peak_gib=served_peak_gb,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del lm, tokens, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_serving_phase() -> dict:
+    """The five attention-only configs of the zoo (``ZOO_RUNS``), one model
+    on the card at a time."""
+    from repro_torch.kernels import gram as K
+
+    t0 = time.perf_counter()
+    runs = [zoo_run(*run) for run in ZOO_RUNS]
+    return {"phase": "zoo_serving", "dtype": "bfloat16",
+            "consistency_note": "the MoE configs' decode consistency runs at the dropless "
+                                "capacity E / k (a prefill of S - 1 and one of S drop "
+                                "different pairs at 1.25); the served runs keep 1.25",
+            "runs": runs,
+            "launches": {name: sum(r["launches"][name] for r in runs)
+                         for name in K.launch_counts()},
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3517,6 +3780,8 @@ def main() -> int:
     del lm
     torch.cuda.empty_cache()
     emit(probe)
+    zoo = zoo_serving_phase()
+    emit(zoo)
     for kname, row in rows.items():
         run = (features if kname in ("sketch_gram", "rff_gram")
                else serving if kname == "swa_flash" else path)
@@ -3527,8 +3792,10 @@ def main() -> int:
                                    + probe["launches"][kname])
         row["sharded_launches"] = (sharded_line["launches"][kname]
                                    + probe["mesh_launches"][kname])
+        row["zoo_launches"] = zoo["launches"][kname]
     order = ("name", "route", "source", "replaces", "launches", "wire_launches",
-             "relay_launches", "private_launches", "sharded_launches", "max_abs_err",
+             "relay_launches", "private_launches", "sharded_launches", "zoo_launches",
+             "max_abs_err",
              "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in order if k in row} for row in rows.values()]})
     print(smi(), flush=True)

@@ -5,13 +5,28 @@ layers it has ported (``PORTED``). The others raise ``NotImplementedError``
 naming ROADMAP item 16, which holds the rest of the model zoo. ``RIDGE``
 is the paper's own ridge configuration (§V-A defaults).
 """
-from repro_torch.configs import gemma3_27b, ridge
+from repro_torch.configs import (
+    gemma3_27b,
+    minitron_8b,
+    mixtral_8x22b,
+    phi35_moe,
+    qwen2_72b,
+    ridge,
+    yi_9b,
+)
 from repro_torch.models.config import ArchConfig
 
 ARCH_IDS = ("gemma3-27b", "qwen2-72b", "yi-9b", "phi3.5-moe-42b-a6.6b",
             "jamba-1.5-large-398b", "mixtral-8x22b", "hubert-xlarge",
             "rwkv6-1.6b", "minitron-8b", "pixtral-12b")
-_MODULES = {"gemma3-27b": gemma3_27b}
+_MODULES = {
+    "gemma3-27b": gemma3_27b,
+    "qwen2-72b": qwen2_72b,
+    "yi-9b": yi_9b,
+    "phi3.5-moe-42b-a6.6b": phi35_moe,
+    "mixtral-8x22b": mixtral_8x22b,
+    "minitron-8b": minitron_8b,
+}
 PORTED = tuple(_MODULES)
 RIDGE = ridge.CONFIG
 

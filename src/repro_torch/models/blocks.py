@@ -1,32 +1,36 @@
-"""Per-layer blocks: pre-norm attention + pre-norm MLP, with residuals.
+"""Per-layer blocks: pre-norm attention + pre-norm MLP or MoE, with residuals.
 
 The counterparts of the reference's ``models/blocks.py`` for the attention
-kinds ``full``/``swa``/``full_bidir`` with a ``dense`` MLP. Where the
-reference stacks stages along a leading axis and scans over it, the port
-keeps a list of per-stage module lists and loops in Python. Mamba, RWKV and
-MoE layers wait for ROADMAP item 16.
+kinds ``full``/``swa``/``full_bidir`` with a ``dense`` (SwiGLU) or ``moe``
+MLP. An MoE layer runs the capacity-bounded ``moe.moe_block`` in prefill
+and in decode (at T = B), as the reference's does. Where the reference
+stacks stages along a leading axis and scans over it, the port keeps a
+list of per-stage module lists and loops in Python. Mamba and RWKV layers
+and encoder-only models wait for ROADMAP item 16.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 from repro_torch.models.config import ArchConfig, LayerSpec
 
 ATTN_KINDS = ("full", "swa", "full_bidir")
 
 
 def _check_spec(cfg: ArchConfig, spec: LayerSpec) -> None:
-    if spec.attn not in ATTN_KINDS or spec.mlp != "dense" or cfg.encoder_only:
+    if spec.attn not in ATTN_KINDS or spec.mlp not in ("dense", "moe") \
+            or cfg.encoder_only:
         raise NotImplementedError(
             f"layer {spec} of {cfg.name} is not ported yet (ROADMAP item 16); "
             f"the port has attention kinds {ATTN_KINDS} with a gated dense MLP "
-            "(an encoder-only model's ungated MLP waits too)")
+            "or an MoE (an encoder-only model's ungated MLP waits too)")
 
 
 class Layer(nn.Module):
-    """norm1 -> attention -> residual, norm2 -> MLP -> residual."""
+    """norm1 -> attention -> residual, norm2 -> MLP (``mlp``) or MoE
+    (``moe``) -> residual."""
 
     def __init__(self, cfg: ArchConfig, spec: LayerSpec, *, dtype, device):
         super().__init__()
@@ -35,19 +39,28 @@ class Layer(nn.Module):
         self.norm1 = layers.RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
         self.norm2 = layers.RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
         self.attn = attention.Attention(cfg, dtype=dtype, device=device)
-        self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, dtype=dtype, device=device)
+        if spec.mlp == "moe":
+            self.moe = moe.MoE(cfg, dtype=dtype, device=device)
+        else:
+            self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, dtype=dtype, device=device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.norm1.reset_parameters()
         self.norm2.reset_parameters()
         self.attn.reset_parameters(generator)
-        self.mlp.reset_parameters(generator)
+        (self.moe if self.spec.mlp == "moe" else self.mlp).reset_parameters(generator)
+
+    def feed_forward(self, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+        """norm2 -> MLP or MoE, without the residual."""
+        if self.spec.mlp == "moe":
+            return moe.moe_block(self.moe, self.norm2(x), cfg)
+        return self.mlp(self.norm2(x))
 
 
 def apply_layer(layer: Layer, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     x = x + attention.attention_fwd(layer.attn, layer.norm1(x), cfg,
                                     kind=layer.spec.attn)
-    return x + layer.mlp(layer.norm2(x))
+    return x + layer.feed_forward(x, cfg)
 
 
 def init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
@@ -64,7 +77,7 @@ def decode_layer(layer: Layer, x: torch.Tensor, cache: dict, pos: int,
     h, cache = attention.attention_decode(layer.attn, layer.norm1(x), cache,
                                           pos, cfg, kind=layer.spec.attn)
     x = x + h
-    return x + layer.mlp(layer.norm2(x)), cache
+    return x + layer.feed_forward(x, cfg), cache
 
 
 def prefill_layer(layer: Layer, x: torch.Tensor, cfg: ArchConfig, *,
@@ -75,4 +88,4 @@ def prefill_layer(layer: Layer, x: torch.Tensor, cfg: ArchConfig, *,
     h, cache = attention.prefill_cache(layer.attn, layer.norm1(x), cfg,
                                        kind=layer.spec.attn, max_len=max_len)
     x = x + h
-    return x + layer.mlp(layer.norm2(x)), cache
+    return x + layer.feed_forward(x, cfg), cache

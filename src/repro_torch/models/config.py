@@ -4,9 +4,10 @@ reference's ``models/config.py``, field for field).
 One ``ArchConfig`` describes any of the reference's architectures (dense
 GQA, MoE, hybrid Mamba+attention, RWKV6, audio encoder, VLM decoder). Layers
 are organised as ``num_stages`` repetitions of a fixed ``stage_pattern``
-(plus a ``tail_pattern`` remainder). The port builds and runs the dense
+(plus a ``tail_pattern`` remainder). The port builds and runs the
 attention families (``full``/``swa``/``full_bidir`` layers with a ``dense``
-MLP, token input); the analytic ``param_count`` covers every family.
+or ``moe`` MLP, token input); the analytic ``param_count`` covers every
+family.
 """
 from __future__ import annotations
 

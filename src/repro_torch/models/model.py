@@ -12,8 +12,10 @@ input mode:
                      sequence; SWA layers: a ring buffer).
 
 The module carries its config, so the functions take the model where the
-reference takes ``(params, cfg)``. Every attention layer's full-sequence
-pass runs kernel K5 on CUDA tensors. The cache is a dict
+reference takes ``(params, cfg)``. Layers are attention with a dense
+SwiGLU MLP or an MoE (``models/moe.py``, capacity-bounded in prefill and
+decode alike). Every attention layer's full-sequence pass runs kernel K5
+on CUDA tensors. The cache is a dict
 ``{"layers": [one cache per layer, in execution order], "pos": int}``;
 ``decode_step`` writes into it in place and returns it. Training
 (``loss_fn``, ``make_train_step``) and the ``embeddings`` /

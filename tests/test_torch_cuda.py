@@ -529,6 +529,30 @@ def test_swa_flash_matches_plain(card, hd, S, window, causal, dtype, group):
         assert bool((diff <= p.float().abs() * 2.0 ** -7 + 1e-4).all())
 
 
+@pytest.mark.parametrize("H,Hkv", [(48, 8), (64, 8)])
+@pytest.mark.parametrize("window", [4096, None])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_flash_zoo_heads_and_window(card, H, Hkv, window, dtype):
+    """K5 at mixtral's 48 and qwen2's 64 query heads over 8 KV heads (GQA
+    6 and 8), hd 128, with mixtral's window 4096 at S 4200: the window
+    masks the first 104 queries' oldest keys, and S is not a multiple of
+    64. Held to the plain version as ``test_swa_flash_matches_plain``."""
+    q, k, v = _swa_inputs(1, 4200, H, Hkv, 128, dtype, seed=H)
+    o = gram.swa_flash_cuda(q, k, v, window=window)
+    o2 = gram.swa_flash_cuda(q, k, v, window=window)
+    p = ref.swa_attention_ref(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2)
+    diff = (o.float() - p.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 3e-5
+    else:
+        assert bool((diff <= p.float().abs() * 2.0 ** -7 + 1e-4).all())
+    if window is not None:        # the window changes the result
+        full = ref.swa_attention_ref(q, k, v, window=None)
+        assert not torch.equal(p, full)
+
+
 def test_swa_attention_dispatch_by_device(card):
     q, k, v = _swa_inputs(1, 100, 2, 1, 64, torch.float32)
     before = gram.swa_flash_cuda.launches
@@ -587,6 +611,50 @@ def test_reduced_gemma_on_card_matches_cpu_path(card):
     tg, _ = generate(gpu, toks.to(card), 6)
     tc, _ = generate(cpu, toks, 6)
     assert torch.equal(tg.cpu(), tc)
+
+
+@pytest.mark.parametrize("arch,cf", [("phi3.5-moe-42b-a6.6b", 8.0),
+                                     ("mixtral-8x22b", 8.0), ("mixtral-8x22b", 0.25)])
+def test_moe_block_on_card_matches_cpu(card, arch, cf):
+    """The MoE block (router, top-k, ranks, dispatch, the expert ``bmm``s,
+    combine) in float32 on the card against the CPU: the same experts and
+    kept pairs, outputs within 1e-5 of their largest magnitude, and the
+    card's run repeated bitwise."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(configs.get_reduced(arch), capacity_factor=cf)
+    cpu = moe.MoE(cfg, dtype=torch.float32, device="cpu")
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    gpu = moe.MoE(cfg, dtype=torch.float32, device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    x = _randn((2, 64, cfg.d_model), seed=1)
+    yc, auxc = moe.moe_block(cpu, x, cfg, return_aux=True)
+    yg, auxg = moe.moe_block(gpu, x.to(card), cfg, return_aux=True)
+    yg2 = moe.moe_block(gpu, x.to(card), cfg)
+    assert torch.equal(yg, yg2)
+    for key in ("expert_idx", "keep"):
+        assert torch.equal(gpu.routing[key].cpu(), cpu.routing[key])
+    assert bool(cpu.routing["keep"].all()) == (cf == 8.0)
+    torch.testing.assert_close(yg.cpu(), yc, rtol=0, atol=1e-5 * float(yc.abs().max()))
+    assert abs(float(auxg) - float(auxc)) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_top_k_ties_on_card(card, dtype):
+    """The stable sort on CUDA keeps ``jax.lax.top_k``'s order: among equal
+    probabilities the lower expert index first, as on the CPU."""
+    from repro_torch.models import moe
+
+    probs = torch.from_numpy(np.random.default_rng(0).integers(0, 3, (4096, 16))
+                             .astype(np.float32) / 3).to(dtype)
+    for k in (1, 2, 4):
+        vals, idx = moe.top_k(probs.to(card), k)
+        cvals, cidx = moe.top_k(probs, k)
+        assert torch.equal(idx.cpu(), cidx) and torch.equal(vals.cpu(), cvals)
+        # equal values come in index order
+        ties = vals[:, 1:] == vals[:, :-1]
+        assert bool((idx[:, 1:] > idx[:, :-1])[ties].all())
 
 
 # -- the serving pool on the card (server/batch.py, server/pool.py) ------------

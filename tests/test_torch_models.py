@@ -70,9 +70,11 @@ def _tokens(S=PROMPT, B=BATCH, seed=0, vocab=512):
 
 
 class TestConfigs:
+    @pytest.mark.parametrize("arch", configs.PORTED)
     @pytest.mark.parametrize("get", ["get", "get_reduced"])
-    def test_gemma_configs_equal_field_by_field(self, get):
-        j, t = getattr(jconfigs, get)(ARCH), getattr(configs, get)(ARCH)
+    def test_gemma_configs_equal_field_by_field(self, get, arch):
+        """Every ported config, full and reduced (gemma3 first)."""
+        j, t = getattr(jconfigs, get)(arch), getattr(configs, get)(arch)
         assert dataclasses.asdict(j) == dataclasses.asdict(t)
         assert j.param_count() == t.param_count()
         assert j.active_param_count() == t.active_param_count()
@@ -106,9 +108,17 @@ class TestConfigs:
     def test_unported_layers_raise(self):
         _, tcfg = _cfgs()
         for spec in (config.LayerSpec("mamba"), config.LayerSpec("rwkv"),
-                     config.LayerSpec("swa", "moe")):
+                     config.LayerSpec("mamba", "moe")):
             with pytest.raises(NotImplementedError, match="item 16"):
                 blocks.Layer(tcfg, spec, dtype=torch.float32, device="cpu")
+        # an MoE layer builds (slice 16b): its experts in place of the MLP
+        moe_cfg = dataclasses.replace(tcfg, num_experts=4, top_k=2)
+        layer = blocks.Layer(moe_cfg, config.LayerSpec("swa", "moe"),
+                             dtype=torch.float32, device="cpu")
+        assert hasattr(layer, "moe") and not hasattr(layer, "mlp")
+        assert tuple(layer.moe.gate.shape) == (4, tcfg.d_model, tcfg.d_ff)
+        assert sum(p.numel() for p in layer.parameters()) == config._layer_params(
+            moe_cfg, config.LayerSpec("swa", "moe"), active_only=False)
         with pytest.raises(NotImplementedError, match="item 16"):
             blocks.Layer(dataclasses.replace(tcfg, encoder_only=True, causal=False),
                          config.LayerSpec("full_bidir"), dtype=torch.float32, device="cpu")
@@ -393,10 +403,11 @@ class TestServe:
         assert seen["reduced"] is reduced and seen["device"] == "cpu"
         assert "[serve]" in capsys.readouterr().out
 
-    def test_cli_runs_on_the_cpu(self, monkeypatch, capsys):
-        monkeypatch.setattr(sys, "argv", ["serve", "--mode", "model", "--arch", ARCH,
+    @pytest.mark.parametrize("arch", configs.PORTED)
+    def test_cli_runs_on_the_cpu(self, arch, monkeypatch, capsys):
+        monkeypatch.setattr(sys, "argv", ["serve", "--mode", "model", "--arch", arch,
                                           "--device", "cpu", "--batch", "1",
                                           "--prompt-len", "8", "--gen-tokens", "3"])
         serve.main()
         out = capsys.readouterr().out
-        assert "gemma3-27b-reduced" in out and "sample continuation" in out
+        assert configs.get_reduced(arch).name in out and "sample continuation" in out
