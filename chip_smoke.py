@@ -109,9 +109,11 @@ kernels' launch counts set to 0 just before it and read just after:
   8 tokens; each with its parameter count, K5 once a layer per prefill
   and never in decode, and decode consistency (the MoE configs at the
   dropless capacity E / k, again in float32 if a bf16 routing tie flips
-  the last token's experts). K5 is also held to its plain version at the
-  zoo's new shapes: mixtral's (B 2, S 8192, H 48 over 8, window 4096) and
-  qwen2's (B 1, S 4096, H 64 over 8, causal).
+  the last token's experts). K5 is also held to its plain version at
+  every prefill shape of the zoo: mixtral's (B 2, S 8192, H 48 over 8,
+  window 4096), qwen2's (B 1, S 4096, H 64 over 8, causal), phi3.5-moe's
+  and minitron's (H 32 over 8) and yi's (H 32 over 4); the zoo phase
+  fails on a config whose shape is not among them.
 
 Results are checked against float64 references, and the model against the
 plain attention inside it (decode) and K5's plain version. It prints one JSON line
@@ -223,9 +225,12 @@ ZOO_RUNS = (("mixtral-8x22b", 4, 2, 8192, 32),
             ("yi-9b", 48, 1, 4096, 8),
             ("minitron-8b", 32, 1, 4096, 8))
 ZOO_SEED = 0
-# K5 at the zoo's new shapes in the kernel phase: B, S, H, H_kv, hd, window.
+# K5 at every zoo shape that zoo_serving's prefills give it, in the kernel
+# phase: B, S, H, H_kv, hd, window. phi3.5-moe and minitron share one.
 SWA_ZOO_SHAPES = {"mixtral": (2, 8192, 48, 8, 128, 4096),
-                  "qwen2": (1, 4096, 64, 8, 128, None)}
+                  "qwen2": (1, 4096, 64, 8, 128, None),
+                  "phi35_minitron": (1, 4096, 32, 8, 128, None),
+                  "yi": (1, 4096, 32, 4, 128, None)}
 
 # Algorithm 2 and the paper's baselines (the private_federation phase), on
 # the main path's data: DP one-shot (eps 1, delta 1e-5, key 7) on 4 of its
@@ -867,10 +872,12 @@ def swa_pairs(S: int, window, causal: bool) -> int:
 def swa_case(g, peaks, B: int, S: int, H: int, Hkv: int, hd: int, window) -> dict:
     """K5 in bf16 at one shape and window against its plain version: within
     one bf16 ulp, repeated bitwise; its time, the plain version's, SDPA's
-    (``is_causal``, or the band as a boolean mask, over repeated KV heads)
-    and the bound."""
+    (``is_causal``, or the band as a boolean mask, over repeated KV heads),
+    the bound, and the seconds the case took."""
     from repro_torch.kernels import gram as K
     from repro_torch.kernels import ref
+
+    t0 = time.perf_counter()
 
     q, k, v = [torch.randn(shape, generator=g, device="cuda").bfloat16()
                for shape in ((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd))]
@@ -915,14 +922,14 @@ def swa_case(g, peaks, B: int, S: int, H: int, Hkv: int, hd: int, window) -> dic
             "vs_library": ms / lib_ms, "bound_ms": bms,
             "bound_by": by, "tflops": ops / ms / 1e9,
             # mma work: Q K^T, and P V twice (P_hi and P_lo)
-            "mma_tflops": 1.5 * ops / ms / 1e9}
+            "mma_tflops": 1.5 * ops / ms / 1e9, "seconds": time.perf_counter() - t0}
 
 
 def swa_kernel_row(g, peaks) -> tuple[dict, dict]:
     """K5 at the gemma3 path's shape (B 4, S 4096, H 32 over 16 KV heads,
     hd 128, bf16), with the SWA layers' window 1024 and the full layers'
-    none, plus ragged float32 cases, then at the zoo's new shapes
-    (``SWA_ZOO_SHAPES``), each against the plain version."""
+    none, plus ragged float32 cases, then at every prefill shape of the
+    zoo (``SWA_ZOO_SHAPES``), each against the plain version."""
     from repro_torch import configs
     from repro_torch.kernels import gram as K
     from repro_torch.kernels import ref
@@ -3276,80 +3283,30 @@ def model_serving_phase() -> tuple:
     from repro_torch import configs
     from repro_torch.kernels import gram as K
     from repro_torch.kernels import ref
-    from repro_torch.launch.serve import generate
     from repro_torch.models import attention, blocks
     from repro_torch.models import model as M
-
-    def sync():
-        torch.cuda.synchronize()
-
-    def k5() -> int:
-        return K.launch_counts()["swa_flash"]
 
     cfg = dataclasses.replace(configs.get(MODEL_ARCH), num_stages=MODEL_STAGES)
     n_layers = cfg.num_layers
     specs = [s.attn for s in cfg.stage_pattern * cfg.num_stages + cfg.tail_pattern]
-    steps, errs = {}, {}
+    errs = {}
     t_all = time.perf_counter()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    lm = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(MODEL_SEED),
-                       device="cuda")
-    sync()
-    steps["init_params_s"] = time.perf_counter() - t0
-    weight_gb = sum(p.numel() * p.element_size() for p in lm.parameters()) / 1e9
-    check(sum(p.numel() for p in lm.parameters()) == cfg.param_count(),
-          "parameter count differs from the config's")
-    rng = np.random.default_rng(MODEL_SEED)          # the reference's prompts
-    prompts = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (MODEL_BATCH, MODEL_PROMPT)).astype(np.int32)).cuda()
+    lm, prompts, steps, weight_gb = seeded_model(cfg, MODEL_SEED, MODEL_BATCH, MODEL_PROMPT)
 
-    # the main path: prefill 4 x 4096, then 31 decode steps (32 tokens)
-    K.reset_launch_counts()
-    tokens, times = generate(lm, prompts, MODEL_GEN)
-    launches = K.launch_counts()
-    check(launches["swa_flash"] == n_layers,
-          f"K5 launched {launches['swa_flash']} times in one prefill + "
-          f"{MODEL_GEN - 1} decode steps, want {n_layers} (one per layer, none in decode)")
-    steps["prefill_s"], steps["decode_s"] = times["prefill_s"], times["decode_s"]
-    steps["decode_tok_per_s"] = MODEL_BATCH * (MODEL_GEN - 1) / times["decode_s"]
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-
-    # a second run: the same tokens, steady-state times
-    before = k5()
-    tokens2, times2 = generate(lm, prompts, MODEL_GEN)
-    check(k5() - before == n_layers, "K5 launches of the second run")
-    check(torch.equal(tokens, tokens2), "two runs generated different tokens")
-    steps["prefill_2_s"], steps["decode_2_s"] = times2["prefill_s"], times2["decode_s"]
-    steps["decode_2_tok_per_s"] = MODEL_BATCH * (MODEL_GEN - 1) / times2["decode_s"]
-    check(tokens.shape == (MODEL_BATCH, MODEL_GEN) and int(tokens.min()) >= 0
-          and int(tokens.max()) < cfg.vocab_size, "generated tokens out of range")
+    # the main path: prefill 4 x 4096, then 31 decode steps (32 tokens),
+    # twice: the same tokens, steady-state times
+    tokens, launches, peak_gb, served = serve_checked(lm, prompts, MODEL_GEN, runs=2)
+    steps.update(served)
 
     # decode consistency (tests/test_models.py's check): prefill of 4095
     # tokens + one decode step against the 4096-token prefill's last logits.
     # Decode attention is plain torch and prefill is K5, so this holds K5
-    # against plain math inside the model; 3e-2 x max(scale, 1) is the
-    # reference's tolerance.
-    before = k5()
-    t0 = time.perf_counter()
-    _, cache = M.prefill_step(lm, {"tokens": prompts[:, :-1]}, max_len=MODEL_PROMPT)
-    check(k5() - before == n_layers, "K5 launches of the 4095-token prefill")
-    lg, _ = M.decode_step(lm, cache, {"tokens": prompts[:, -1:]})
-    check(k5() - before == n_layers, "K5 launched in a decode step")
-    full, _ = M.prefill_step(lm, {"tokens": prompts})
-    sync()
-    steps["consistency_s"] = time.perf_counter() - t0
-    check(k5() - before == 2 * n_layers, "K5 launches of the 4096-token prefill")
-    del cache
-    lg, full = lg[:, 0].float(), full[:, -1].float()
-    check(bool(torch.isfinite(lg).all() and torch.isfinite(full).all()), "logits not finite")
-    scale = float(full.abs().max())
-    errs["decode_vs_prefill_max_abs"] = float((lg - full).abs().max())
-    errs["decode_vs_prefill_tol"] = 3e-2 * max(scale, 1.0)
-    errs["logit_scale"] = scale
-    check(errs["decode_vs_prefill_max_abs"] <= errs["decode_vs_prefill_tol"],
-          f"decode consistency: {errs}")
+    # against plain math inside the model.
+    cons = decode_consistency(lm, prompts)
+    check(cons["max_abs"] <= cons["tol"], f"decode consistency: {cons}")
+    steps["consistency_s"] = cons["seconds"]
+    errs.update(decode_vs_prefill_max_abs=cons["max_abs"],
+                decode_vs_prefill_tol=cons["tol"], logit_scale=cons["logit_scale"])
 
     # where the time goes: one prefill, then 4 decode steps, each profiled
     profiles = {}
@@ -3389,7 +3346,7 @@ def model_serving_phase() -> tuple:
         if seen == {"swa", "full"}:
             break
         x = blocks.apply_layer(layer, x, cfg)
-    sync()
+    torch.cuda.synchronize()
     steps["layer_checks_s"] = time.perf_counter() - t0
     del x
     torch.cuda.empty_cache()
@@ -3578,13 +3535,74 @@ def moe_prefill_split(fn) -> dict:
             "annotation_ms": annotation}
 
 
-def zoo_consistency(lm, prompts) -> dict:
-    """The model phase's decode consistency: a prefill of S - 1 tokens and
-    one decode step against the S-token prefill's last logits, within
-    3e-2 x max(scale, 1) (the reference's check), K5 once a layer in each
-    prefill and never in decode. For an MoE, also the last token's experts
-    in each layer by both paths, and the smallest gap between its k-th
-    and (k + 1)-th router probabilities in either."""
+def seeded_model(cfg, seed: int, batch: int, prompt_len: int) -> tuple:
+    """``cfg``'s model on the card with weights from ``seed``, its parameter
+    count checked against the config's, and (batch, prompt_len) prompts
+    drawn as the reference draws them. Returns the model, the prompts,
+    the init seconds and the weights' GB."""
+    from repro_torch.models import model as M
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(seed),
+                       device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    check(n_params == cfg.param_count(),
+          f"{cfg.name}: {n_params} parameters, the config counts {cfg.param_count()}")
+    weight_gb = sum(p.numel() * p.element_size() for p in lm.parameters()) / 1e9
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).cuda()
+    return lm, prompts, {"init_params_s": init_s}, weight_gb
+
+
+def serve_checked(lm, prompts, gen: int, runs: int) -> tuple:
+    """``runs`` served runs of ``prompts`` through ``generate`` (a prefill,
+    then ``gen - 1`` greedy decode steps): K5 once a layer in each run and
+    no other kernel, tokens in range, every run's tokens bitwise the
+    first's. Returns the first run's tokens, launch counts and peak GiB,
+    and each run's times (``prefill_s``, ``prefill_2_s``, ...)."""
+    from repro_torch.kernels import gram as K
+    from repro_torch.launch.serve import generate
+
+    cfg, n_layers = lm.cfg, lm.cfg.num_layers
+    batch = prompts.shape[0]
+    steps = {}
+    K.reset_launch_counts()
+    tokens, times = generate(lm, prompts, gen)
+    launches = K.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(launches["swa_flash"] == n_layers
+          and all(n == 0 for name, n in launches.items() if name != "swa_flash"),
+          f"{cfg.name}: launches {launches} in one prefill + {gen - 1} decode steps, "
+          f"want K5 {n_layers} times (one a layer, none in decode) and nothing else")
+    check(tuple(tokens.shape) == (batch, gen) and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.vocab_size, f"{cfg.name}: generated tokens out of range")
+    for run in range(1, runs + 1):
+        if run > 1:
+            before = K.launch_counts()["swa_flash"]
+            again, times = generate(lm, prompts, gen)
+            check(K.launch_counts()["swa_flash"] - before == n_layers,
+                  f"{cfg.name}: K5 launches of run {run}")
+            check(torch.equal(tokens, again), f"{cfg.name}: two runs generated different tokens")
+        tag = "" if run == 1 else f"_{run}"
+        steps[f"prefill{tag}_s"], steps[f"decode{tag}_s"] = times["prefill_s"], times["decode_s"]
+        steps[f"decode{tag}_tok_per_s"] = batch * (gen - 1) / times["decode_s"]
+    return tokens, launches, peak_gib, steps
+
+
+def decode_consistency(lm, prompts) -> dict:
+    """A prefill of S - 1 tokens and one decode step against the S-token
+    prefill's last logits (``tests/test_models.py``'s check; the caller
+    holds ``max_abs`` to ``tol`` = 3e-2 x max(scale, 1), the reference's
+    tolerance), K5 once a layer in each prefill and never in decode. For
+    an MoE, also the last token's experts in each layer by both paths, and
+    the smallest gap between its k-th and (k + 1)-th router probabilities
+    in either."""
     from repro_torch.kernels import gram as K
     from repro_torch.models import model as M
 
@@ -3641,61 +3659,28 @@ def zoo_run(arch: str, stages: int, batch: int, prompt_len: int, gen: int) -> di
     dropless capacity E / k, and again in float32 if a bf16 routing tie
     flipped an expert of the last token."""
     from repro_torch import configs
-    from repro_torch.kernels import gram as K
-    from repro_torch.launch.serve import generate
     from repro_torch.models import model as M
     from repro_torch.models import moe
-
-    def sync():
-        torch.cuda.synchronize()
 
     full_cfg = configs.get(arch)
     cfg = dataclasses.replace(full_cfg, num_stages=stages)
     n_layers = cfg.num_layers
-    steps = {}
+    window = cfg.window if cfg.sub_quadratic else None
+    check((batch, prompt_len, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, window)
+          in SWA_ZOO_SHAPES.values(),
+          f"{arch}: the kernel phase does not hold K5 at this prefill's shape")
     t_all = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    lm = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(ZOO_SEED),
-                       device="cuda")
-    sync()
-    steps["init_params_s"] = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in lm.parameters())
-    check(n_params == cfg.param_count(),
-          f"{arch}: {n_params} parameters, the config counts {cfg.param_count()}")
-    weight_gb = sum(p.numel() * p.element_size() for p in lm.parameters()) / 1e9
-    rng = np.random.default_rng(ZOO_SEED)            # the reference's prompts
-    prompts = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).cuda()
-
-    K.reset_launch_counts()
-    tokens, times = generate(lm, prompts, gen)
-    launches = K.launch_counts()
-    check(launches["swa_flash"] == n_layers,
-          f"{arch}: K5 launched {launches['swa_flash']} times in one prefill + "
-          f"{gen - 1} decode steps, want {n_layers} (one a layer, none in decode)")
-    check(all(n == 0 for name, n in launches.items() if name != "swa_flash"),
-          f"{arch}: launches {launches}")
-    check(tuple(tokens.shape) == (batch, gen) and int(tokens.min()) >= 0
-          and int(tokens.max()) < cfg.vocab_size, f"{arch}: generated tokens out of range")
-    steps["prefill_s"], steps["decode_s"] = times["prefill_s"], times["decode_s"]
-    steps["decode_tok_per_s"] = batch * (gen - 1) / times["decode_s"]
-    served_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    lm, prompts, steps, weight_gb = seeded_model(cfg, ZOO_SEED, batch, prompt_len)
+    tokens, launches, served_peak_gb, served = serve_checked(
+        lm, prompts, gen, runs=2 if cfg.num_experts else 1)
+    steps.update(served)
     out = {"arch": cfg.name, "reduced": f"depth: {n_layers} of {full_cfg.num_layers} layers",
-           "params": n_params, "active_params": cfg.active_param_count(),
+           "params": cfg.param_count(), "active_params": cfg.active_param_count(),
            "weight_gb": weight_gb, "batch": batch, "prompt_len": prompt_len,
-           "gen_tokens": gen, "window": cfg.window if cfg.sub_quadratic else None,
+           "gen_tokens": gen, "window": window,
            "launches": launches, "sample_tokens": tokens[0, :8].tolist()}
 
     if cfg.num_experts:
-        before = K.launch_counts()["swa_flash"]
-        tokens2, times2 = generate(lm, prompts, gen)
-        check(K.launch_counts()["swa_flash"] - before == n_layers,
-              f"{arch}: K5 launches of the second run")
-        check(torch.equal(tokens, tokens2), f"{arch}: two runs generated different tokens")
-        steps["prefill_2_s"], steps["decode_2_s"] = times2["prefill_s"], times2["decode_s"]
         T = batch * prompt_len
         out["capacity"] = {"factor": cfg.capacity_factor, "tokens": T,
                            "slots_per_expert": moe.capacity(cfg, T)}
@@ -3704,14 +3689,14 @@ def zoo_run(arch: str, stages: int, batch: int, prompt_len: int, gen: int) -> di
         out["dropped_share_per_layer"] = [
             1 - float(layer.moe.routing["keep"].float().mean()) for layer in lm.all_layers()]
         lm.cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
-    cons = zoo_consistency(lm, prompts)
+    cons = decode_consistency(lm, prompts)
     if cfg.num_experts and not cons["experts_agree"]:
         # a bf16 routing tie flipped: the same check with the model in float32
         lm.float()
         lm.cfg = dataclasses.replace(lm.cfg, dtype="float32")
         gc.collect()
         torch.cuda.empty_cache()
-        cons["float32"] = zoo_consistency(lm, prompts)
+        cons["float32"] = decode_consistency(lm, prompts)
         cons = {**cons, "checked": "float32"}
         final = cons["float32"]
     else:

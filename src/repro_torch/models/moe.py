@@ -36,7 +36,12 @@ class MoE(nn.Module):
 
     ``routing`` holds what the last :func:`moe_block` call assigned: the
     router probabilities (T, E) in float32, the expert indices (T, k) and
-    the kept mask (T, k), tokens in b-major order.
+    the kept mask (T, k), tokens in b-major order. It is the block's one
+    observation point, read by the tests and by the card smoke's dropped
+    shares and routing-flip check, prefill and decode alike: it holds the
+    tensors the block computes anyway (no copy, no host sync) until the
+    next call replaces them. The block's four ``record_function`` ranges
+    are the labels of the smoke's profiler split.
     """
 
     def __init__(self, cfg: ArchConfig, *, dtype, device):

@@ -529,14 +529,16 @@ def test_swa_flash_matches_plain(card, hd, S, window, causal, dtype, group):
         assert bool((diff <= p.float().abs() * 2.0 ** -7 + 1e-4).all())
 
 
-@pytest.mark.parametrize("H,Hkv", [(48, 8), (64, 8)])
+@pytest.mark.parametrize("H,Hkv", [(48, 8), (64, 8), (32, 8), (32, 4)])
 @pytest.mark.parametrize("window", [4096, None])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_swa_flash_zoo_heads_and_window(card, H, Hkv, window, dtype):
-    """K5 at mixtral's 48 and qwen2's 64 query heads over 8 KV heads (GQA
-    6 and 8), hd 128, with mixtral's window 4096 at S 4200: the window
-    masks the first 104 queries' oldest keys, and S is not a multiple of
-    64. Held to the plain version as ``test_swa_flash_matches_plain``."""
+    """K5 at the zoo's heads, hd 128: mixtral's 48 and qwen2's 64 query
+    heads over 8 KV heads (GQA 6 and 8), phi3.5-moe's and minitron's 32
+    over 8 and yi's 32 over 4 (GQA 4 and 8), with mixtral's window 4096 at
+    S 4200: the window masks the first 104 queries' oldest keys, and S is
+    not a multiple of 64. Held to the plain version as
+    ``test_swa_flash_matches_plain``."""
     q, k, v = _swa_inputs(1, 4200, H, Hkv, 128, dtype, seed=H)
     o = gram.swa_flash_cuda(q, k, v, window=window)
     o2 = gram.swa_flash_cuda(q, k, v, window=window)
