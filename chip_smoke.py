@@ -106,14 +106,20 @@ kernels' launch counts set to 0 just before it and read just after:
   expert ``bmm``s, routing, dispatch and combine, the rest);
   phi3.5-moe-42b-a6.6b (4 of 32; 16 experts), qwen2-72b (8 of 80),
   yi-9b (all 48) and minitron-8b (all 32) on one prompt of 4096 tokens,
-  8 tokens; each with its parameter count, K5 once a layer per prefill
-  and never in decode, and decode consistency (the MoE configs at the
-  dropless capacity E / k, again in float32 if a bf16 routing tie flips
-  the last token's experts). K5 is also held to its plain version at
-  every prefill shape of the zoo: mixtral's (B 2, S 8192, H 48 over 8,
-  window 4096), qwen2's (B 1, S 4096, H 64 over 8, causal), phi3.5-moe's
-  and minitron's (H 32 over 8) and yi's (H 32 over 4); the zoo phase
-  fails on a config whose shape is not among them.
+  and pixtral-12b (all 40) on 256 random patch embeddings before 3840
+  tokens, 8 tokens; each with its parameter count, K5 once a layer per
+  prefill and never in decode, and decode consistency (the MoE configs at
+  the dropless capacity E / k, again in float32 if a bf16 routing tie
+  flips the last token's experts); then hubert-xlarge (all 48 layers,
+  encoder-only, head_dim 80, non-causal) on 4 clips of 1500 random frame
+  embeddings: one ``encode_step`` with K5 once a layer and nothing else,
+  bitwise repeated, against a float32 copy of the model, and a changed
+  last frame moving frame 0's logits. K5 is also held to its plain version
+  at every prefill shape of the zoo: mixtral's (B 2, S 8192, H 48 over 8,
+  window 4096), qwen2's (B 1, S 4096, H 64 over 8, causal), phi3.5-moe's,
+  minitron's and pixtral's (H 32 over 8), yi's (H 32 over 4) and hubert's
+  (B 4, S 1500, H 16 over 16, hd 80, non-causal; also in float32); the
+  zoo phase fails on a config whose shape is not among them.
 
 Results are checked against float64 references, and the model against the
 plain attention inside it (decode) and K5's plain version. It prints one JSON line
@@ -214,23 +220,30 @@ MODEL_ARCH, MODEL_STAGES = "gemma3-27b", 2
 MODEL_BATCH, MODEL_PROMPT, MODEL_GEN = 4, 4096, 32
 MODEL_SEED = 0
 
-# The attention-only model zoo (the zoo_serving phase), after the gemma3
-# model is freed: each config from the registry with only num_stages
-# replaced (every pattern has one layer), random bf16 weights from
-# ZOO_SEED. Per arch: layers on the card, prompts, prompt length, generated
-# tokens. Mixtral's prompts are twice its 4096-token window, so it masks.
+# The model zoo (the zoo_serving phase), after the gemma3 model is freed:
+# each config from the registry with only num_stages replaced (every
+# pattern has one layer), random bf16 weights from ZOO_SEED. Per arch:
+# layers on the card, prompts, prompt length (text tokens; pixtral's 256
+# patches come before them), generated tokens. Mixtral's prompts are twice
+# its 4096-token window, so it masks.
 ZOO_RUNS = (("mixtral-8x22b", 4, 2, 8192, 32),
             ("phi3.5-moe-42b-a6.6b", 4, 1, 4096, 8),
             ("qwen2-72b", 8, 1, 4096, 8),
             ("yi-9b", 48, 1, 4096, 8),
-            ("minitron-8b", 32, 1, 4096, 8))
+            ("minitron-8b", 32, 1, 4096, 8),
+            ("pixtral-12b", 40, 1, 3840, 8))
+# The encoder (hubert-xlarge, whole): clips, frames (30 s at HuBERT's 50 Hz
+# frame rate, arXiv:2106.07447).
+ENCODE_ARCH, ENCODE_BATCH, ENCODE_FRAMES = "hubert-xlarge", 4, 1500
 ZOO_SEED = 0
-# K5 at every zoo shape that zoo_serving's prefills give it, in the kernel
-# phase: B, S, H, H_kv, hd, window. phi3.5-moe and minitron share one.
-SWA_ZOO_SHAPES = {"mixtral": (2, 8192, 48, 8, 128, 4096),
-                  "qwen2": (1, 4096, 64, 8, 128, None),
-                  "phi35_minitron": (1, 4096, 32, 8, 128, None),
-                  "yi": (1, 4096, 32, 4, 128, None)}
+# K5 at every zoo shape that zoo_serving's prefills and encode give it, in
+# the kernel phase: B, S, H, H_kv, hd, window, causal. phi3.5-moe,
+# minitron and pixtral (256 patches + 3840 tokens) share one.
+SWA_ZOO_SHAPES = {"mixtral": (2, 8192, 48, 8, 128, 4096, True),
+                  "qwen2": (1, 4096, 64, 8, 128, None, True),
+                  "phi35_minitron": (1, 4096, 32, 8, 128, None, True),
+                  "yi": (1, 4096, 32, 4, 128, None, True),
+                  "hubert": (4, 1500, 16, 16, 80, None, False)}
 
 # Algorithm 2 and the paper's baselines (the private_federation phase), on
 # the main path's data: DP one-shot (eps 1, delta 1e-5, key 7) on 4 of its
@@ -869,11 +882,13 @@ def swa_pairs(S: int, window, causal: bool) -> int:
     return int((hi - lo + 1).sum())
 
 
-def swa_case(g, peaks, B: int, S: int, H: int, Hkv: int, hd: int, window) -> dict:
-    """K5 in bf16 at one shape and window against its plain version: within
-    one bf16 ulp, repeated bitwise; its time, the plain version's, SDPA's
-    (``is_causal``, or the band as a boolean mask, over repeated KV heads),
-    the bound, and the seconds the case took."""
+def swa_case(g, peaks, B: int, S: int, H: int, Hkv: int, hd: int, window,
+             causal: bool = True) -> dict:
+    """K5 in bf16 at one shape, window and causality against its plain
+    version: within one bf16 ulp, repeated bitwise; its time, the plain
+    version's, SDPA's (``is_causal``, no mask when non-causal, or the band
+    as a boolean mask, over repeated KV heads), the bound, and the seconds
+    the case took."""
     from repro_torch.kernels import gram as K
     from repro_torch.kernels import ref
 
@@ -887,35 +902,36 @@ def swa_case(g, peaks, B: int, S: int, H: int, Hkv: int, hd: int, window) -> dic
         mask = None
     else:
         rel = torch.arange(S, device="cuda")[:, None] - torch.arange(S, device="cuda")[None, :]
-        mask = (rel >= 0) & (rel < window)
+        mask = (rel < window) & (rel >= 0) if causal else rel < window
 
     def library():
         if mask is None:
             return torch.nn.functional.scaled_dot_product_attention(
-                qt, kg, vg, is_causal=True)
+                qt, kg, vg, is_causal=causal)
         return torch.nn.functional.scaled_dot_product_attention(
             qt, kg, vg, attn_mask=mask)
 
-    o = K.swa_flash_cuda(q, k, v, window=window, causal=True)
-    o2 = K.swa_flash_cuda(q, k, v, window=window, causal=True)
-    p = ref.swa_attention_ref(q, k, v, window=window, causal=True)
+    o = K.swa_flash_cuda(q, k, v, window=window, causal=causal)
+    o2 = K.swa_flash_cuda(q, k, v, window=window, causal=causal)
+    p = ref.swa_attention_ref(q, k, v, window=window, causal=causal)
     torch.cuda.synchronize()
     err = float((o.float() - p.float()).abs().max())
     ulps = bf16_ulps(o, p)
-    tag = f"B {B}, S {S}, H {H}/{Hkv}, window {window}"
+    tag = f"B {B}, S {S}, H {H}/{Hkv}, hd {hd}, window {window}, causal {causal}"
     check(torch.equal(o, o2), f"K5 ({tag}) is not bitwise deterministic")
     check(ulps <= 1, f"K5 ({tag}): |kernel - plain| is {ulps} x (2^-7 |plain| + 1e-4)"
           f" (max abs {err})")
     lib_err = float((library().transpose(1, 2).float() - p.float()).abs().max())
     del o, o2, p
-    ms = cuda_ms(lambda: K.swa_flash_cuda(q, k, v, window=window, causal=True))
-    plain_ms = cuda_ms(lambda: ref.swa_attention_ref(q, k, v, window=window, causal=True))
+    ms = cuda_ms(lambda: K.swa_flash_cuda(q, k, v, window=window, causal=causal))
+    plain_ms = cuda_ms(lambda: ref.swa_attention_ref(q, k, v, window=window, causal=causal))
     lib_ms = cuda_ms(library)
-    pairs = swa_pairs(S, window, True)
+    pairs = swa_pairs(S, window, causal)
     ops = 4 * hd * pairs * B * H
     bms, by = bound(ops, 2 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd), peaks,
                     rate="bf16")
-    return {"shape": [B, S, H, Hkv, hd], "window": window, "max_abs_err": err,
+    return {"shape": [B, S, H, Hkv, hd], "window": window, "causal": causal,
+            "max_abs_err": err,
             "worst_bf16_ulps": ulps, "bitwise_repeat": True,
             "kept_pairs_per_head": pairs, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "library_max_abs_err": lib_err,
@@ -928,8 +944,9 @@ def swa_case(g, peaks, B: int, S: int, H: int, Hkv: int, hd: int, window) -> dic
 def swa_kernel_row(g, peaks) -> tuple[dict, dict]:
     """K5 at the gemma3 path's shape (B 4, S 4096, H 32 over 16 KV heads,
     hd 128, bf16), with the SWA layers' window 1024 and the full layers'
-    none, plus ragged float32 cases, then at every prefill shape of the
-    zoo (``SWA_ZOO_SHAPES``), each against the plain version."""
+    none, plus ragged float32 cases, then at every prefill and encode
+    shape of the zoo (``SWA_ZOO_SHAPES``), each against the plain version;
+    hubert's (hd 80, non-causal) also in float32."""
     from repro_torch import configs
     from repro_torch.kernels import gram as K
     from repro_torch.kernels import ref
@@ -971,6 +988,18 @@ def swa_kernel_row(g, peaks) -> tuple[dict, dict]:
     del q, k, v
     for name, shape in SWA_ZOO_SHAPES.items():
         det[name] = swa_case(g, peaks, *shape)
+    # hubert's shape in float32 (the route a float32 copy of the encoder
+    # runs), against plain at 3e-5, and its time
+    B, S, H, Hkv, hd, window, causal = SWA_ZOO_SHAPES["hubert"]
+    q, k, v = [torch.randn(shape, generator=g, device="cuda")
+               for shape in ((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd))]
+    err = float((K.swa_flash_cuda(q, k, v, window=window, causal=causal)
+                 - ref.swa_attention_ref(q, k, v, window=window, causal=causal)).abs().max())
+    det["hubert_f32_max_abs_err"] = err
+    check(err <= 3e-5, f"K5 float32 at hubert's shape (hd 80, non-causal): {err} > 3e-5")
+    det["hubert_f32_ms"] = cuda_ms(lambda: K.swa_flash_cuda(q, k, v, window=window,
+                                                            causal=causal))
+    del q, k, v
     torch.cuda.empty_cache()
     return row, det
 
@@ -3291,18 +3320,19 @@ def model_serving_phase() -> tuple:
     specs = [s.attn for s in cfg.stage_pattern * cfg.num_stages + cfg.tail_pattern]
     errs = {}
     t_all = time.perf_counter()
-    lm, prompts, steps, weight_gb = seeded_model(cfg, MODEL_SEED, MODEL_BATCH, MODEL_PROMPT)
+    lm, inputs, steps, weight_gb = seeded_model(cfg, MODEL_SEED, MODEL_BATCH, MODEL_PROMPT)
+    prompts = inputs["tokens"]
 
     # the main path: prefill 4 x 4096, then 31 decode steps (32 tokens),
     # twice: the same tokens, steady-state times
-    tokens, launches, peak_gb, served = serve_checked(lm, prompts, MODEL_GEN, runs=2)
+    tokens, launches, peak_gb, served = serve_checked(lm, inputs, MODEL_GEN, runs=2)
     steps.update(served)
 
     # decode consistency (tests/test_models.py's check): prefill of 4095
     # tokens + one decode step against the 4096-token prefill's last logits.
     # Decode attention is plain torch and prefill is K5, so this holds K5
     # against plain math inside the model.
-    cons = decode_consistency(lm, prompts)
+    cons = decode_consistency(lm, inputs)
     check(cons["max_abs"] <= cons["tol"], f"decode consistency: {cons}")
     steps["consistency_s"] = cons["seconds"]
     errs.update(decode_vs_prefill_max_abs=cons["max_abs"],
@@ -3537,9 +3567,13 @@ def moe_prefill_split(fn) -> dict:
 
 def seeded_model(cfg, seed: int, batch: int, prompt_len: int) -> tuple:
     """``cfg``'s model on the card with weights from ``seed``, its parameter
-    count checked against the config's, and (batch, prompt_len) prompts
-    drawn as the reference draws them. Returns the model, the prompts,
-    the init seconds and the weights' GB."""
+    count checked against the config's, and its inputs drawn from
+    ``np.random.default_rng(seed)``: (batch, prompt_len) prompts, then a
+    VLM's (batch, num_prefix, d_model) patches, as ``launch.serve.serve``
+    (and the reference's) draws them; an encoder's (batch, prompt_len,
+    d_model) float32 frames instead. Returns the model, the inputs
+    (``{"tokens", "patches"?}`` or ``{"embeddings"}``), the init seconds
+    and the weights' GB."""
     from repro_torch.models import model as M
 
     gc.collect()
@@ -3555,25 +3589,34 @@ def seeded_model(cfg, seed: int, batch: int, prompt_len: int) -> tuple:
           f"{cfg.name}: {n_params} parameters, the config counts {cfg.param_count()}")
     weight_gb = sum(p.numel() * p.element_size() for p in lm.parameters()) / 1e9
     rng = np.random.default_rng(seed)
-    prompts = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).cuda()
-    return lm, prompts, {"init_params_s": init_s}, weight_gb
+    if cfg.input_mode == "embeddings":
+        frames = rng.standard_normal((batch, prompt_len, cfg.d_model), dtype=np.float32)
+        return lm, {"embeddings": torch.from_numpy(frames).cuda()}, \
+            {"init_params_s": init_s}, weight_gb
+    inputs = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).cuda()}
+    if cfg.input_mode == "prefix_embeddings":
+        inputs["patches"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.num_prefix, cfg.d_model), dtype=np.float32)).cuda()
+    return lm, inputs, {"init_params_s": init_s}, weight_gb
 
 
-def serve_checked(lm, prompts, gen: int, runs: int) -> tuple:
-    """``runs`` served runs of ``prompts`` through ``generate`` (a prefill,
-    then ``gen - 1`` greedy decode steps): K5 once a layer in each run and
-    no other kernel, tokens in range, every run's tokens bitwise the
-    first's. Returns the first run's tokens, launch counts and peak GiB,
-    and each run's times (``prefill_s``, ``prefill_2_s``, ...)."""
+def serve_checked(lm, inputs, gen: int, runs: int) -> tuple:
+    """``runs`` served runs of ``inputs`` (prompts, and a VLM's patches)
+    through ``generate`` (a prefill, then ``gen - 1`` greedy decode steps):
+    K5 once a layer in each run and no other kernel, tokens in range, every
+    run's tokens bitwise the first's. Returns the first run's tokens,
+    launch counts and peak GiB, and each run's times (``prefill_s``,
+    ``prefill_2_s``, ...)."""
     from repro_torch.kernels import gram as K
     from repro_torch.launch.serve import generate
 
     cfg, n_layers = lm.cfg, lm.cfg.num_layers
+    prompts, patches = inputs["tokens"], inputs.get("patches")
     batch = prompts.shape[0]
     steps = {}
     K.reset_launch_counts()
-    tokens, times = generate(lm, prompts, gen)
+    tokens, times = generate(lm, prompts, gen, patches=patches)
     launches = K.launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(launches["swa_flash"] == n_layers
@@ -3585,7 +3628,7 @@ def serve_checked(lm, prompts, gen: int, runs: int) -> tuple:
     for run in range(1, runs + 1):
         if run > 1:
             before = K.launch_counts()["swa_flash"]
-            again, times = generate(lm, prompts, gen)
+            again, times = generate(lm, prompts, gen, patches=patches)
             check(K.launch_counts()["swa_flash"] - before == n_layers,
                   f"{cfg.name}: K5 launches of run {run}")
             check(torch.equal(tokens, again), f"{cfg.name}: two runs generated different tokens")
@@ -3595,14 +3638,14 @@ def serve_checked(lm, prompts, gen: int, runs: int) -> tuple:
     return tokens, launches, peak_gib, steps
 
 
-def decode_consistency(lm, prompts) -> dict:
+def decode_consistency(lm, inputs) -> dict:
     """A prefill of S - 1 tokens and one decode step against the S-token
     prefill's last logits (``tests/test_models.py``'s check; the caller
     holds ``max_abs`` to ``tol`` = 3e-2 x max(scale, 1), the reference's
-    tolerance), K5 once a layer in each prefill and never in decode. For
-    an MoE, also the last token's experts in each layer by both paths, and
-    the smallest gap between its k-th and (k + 1)-th router probabilities
-    in either."""
+    tolerance), a VLM's patches before the tokens in both prefills, K5
+    once a layer in each prefill and never in decode. For an MoE, also the
+    last token's experts in each layer by both paths, and the smallest gap
+    between its k-th and (k + 1)-th router probabilities in either."""
     from repro_torch.kernels import gram as K
     from repro_torch.models import model as M
 
@@ -3610,19 +3653,21 @@ def decode_consistency(lm, prompts) -> dict:
         return K.launch_counts()["swa_flash"]
 
     cfg, n_layers = lm.cfg, lm.cfg.num_layers
-    B, S = prompts.shape
+    prompts = inputs["tokens"]
+    B = prompts.shape[0]
+    S = prompts.shape[1] + (inputs["patches"].shape[1] if "patches" in inputs else 0)
     moes = [layer.moe for layer in lm.all_layers() if layer.spec.mlp == "moe"]
     before = k5()
     t0 = time.perf_counter()
-    _, cache = M.prefill_step(lm, {"tokens": prompts[:, :-1]}, max_len=S)
-    check(k5() - before == n_layers, f"{cfg.name}: K5 launches of the {S - 1}-token prefill")
+    _, cache = M.prefill_step(lm, {**inputs, "tokens": prompts[:, :-1]}, max_len=S)
+    check(k5() - before == n_layers, f"{cfg.name}: K5 launches of the {S - 1}-position prefill")
     lg, _ = M.decode_step(lm, cache, {"tokens": prompts[:, -1:]})
     check(k5() - before == n_layers, f"{cfg.name}: K5 launched in a decode step")
     del cache
     decoded = [m.routing for m in moes]
-    full, _ = M.prefill_step(lm, {"tokens": prompts})
+    full, _ = M.prefill_step(lm, inputs)
     torch.cuda.synchronize()
-    check(k5() - before == 2 * n_layers, f"{cfg.name}: K5 launches of the {S}-token prefill")
+    check(k5() - before == 2 * n_layers, f"{cfg.name}: K5 launches of the {S}-position prefill")
     prefilled = [m.routing for m in moes]
     lg, full = lg[:, 0].float(), full[:, -1].float()
     check(bool(torch.isfinite(lg).all() and torch.isfinite(full).all()),
@@ -3651,8 +3696,9 @@ def decode_consistency(lm, prompts) -> dict:
 
 def zoo_run(arch: str, stages: int, batch: int, prompt_len: int, gen: int) -> dict:
     """One config of the zoo at full width, cut to ``stages`` layers: the
-    parameter count, a served run (prefill, then ``gen`` greedy tokens)
-    with K5 once a layer, decode consistency, times and peak memory. An
+    parameter count, a served run (prefill, then ``gen`` greedy tokens;
+    a VLM's prefill puts its patches before the prompt) with K5 once a
+    layer, decode consistency, times and peak memory. An
     MoE also serves twice (bitwise equal tokens), reports each layer's
     dropped share of (token, choice) pairs at its capacity factor 1.25 and
     a profiler split of one prefill; its decode consistency runs at the
@@ -3666,37 +3712,36 @@ def zoo_run(arch: str, stages: int, batch: int, prompt_len: int, gen: int) -> di
     cfg = dataclasses.replace(full_cfg, num_stages=stages)
     n_layers = cfg.num_layers
     window = cfg.window if cfg.sub_quadratic else None
-    check((batch, prompt_len, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, window)
-          in SWA_ZOO_SHAPES.values(),
+    check((batch, cfg.num_prefix + prompt_len, cfg.num_heads, cfg.num_kv_heads,
+           cfg.head_dim, window, cfg.causal) in SWA_ZOO_SHAPES.values(),
           f"{arch}: the kernel phase does not hold K5 at this prefill's shape")
     t_all = time.perf_counter()
-    lm, prompts, steps, weight_gb = seeded_model(cfg, ZOO_SEED, batch, prompt_len)
+    lm, inputs, steps, weight_gb = seeded_model(cfg, ZOO_SEED, batch, prompt_len)
     tokens, launches, served_peak_gb, served = serve_checked(
-        lm, prompts, gen, runs=2 if cfg.num_experts else 1)
+        lm, inputs, gen, runs=2 if cfg.num_experts else 1)
     steps.update(served)
     out = {"arch": cfg.name, "reduced": f"depth: {n_layers} of {full_cfg.num_layers} layers",
            "params": cfg.param_count(), "active_params": cfg.active_param_count(),
-           "weight_gb": weight_gb, "batch": batch, "prompt_len": prompt_len,
-           "gen_tokens": gen, "window": window,
+           "weight_gb": weight_gb, "batch": batch, "prefix": cfg.num_prefix,
+           "prompt_len": prompt_len, "gen_tokens": gen, "window": window,
            "launches": launches, "sample_tokens": tokens[0, :8].tolist()}
 
     if cfg.num_experts:
         T = batch * prompt_len
         out["capacity"] = {"factor": cfg.capacity_factor, "tokens": T,
                            "slots_per_expert": moe.capacity(cfg, T)}
-        out["prefill_split"] = moe_prefill_split(
-            lambda: M.prefill_step(lm, {"tokens": prompts}))
+        out["prefill_split"] = moe_prefill_split(lambda: M.prefill_step(lm, inputs))
         out["dropped_share_per_layer"] = [
             1 - float(layer.moe.routing["keep"].float().mean()) for layer in lm.all_layers()]
         lm.cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
-    cons = decode_consistency(lm, prompts)
+    cons = decode_consistency(lm, inputs)
     if cfg.num_experts and not cons["experts_agree"]:
         # a bf16 routing tie flipped: the same check with the model in float32
         lm.float()
         lm.cfg = dataclasses.replace(lm.cfg, dtype="float32")
         gc.collect()
         torch.cuda.empty_cache()
-        cons["float32"] = decode_consistency(lm, prompts)
+        cons["float32"] = decode_consistency(lm, inputs)
         cons = {**cons, "checked": "float32"}
         final = cons["float32"]
     else:
@@ -3706,19 +3751,95 @@ def zoo_run(arch: str, stages: int, batch: int, prompt_len: int, gen: int) -> di
     steps["total_s"] = time.perf_counter() - t_all
     out.update(steps_s=steps, served_peak_gib=served_peak_gb,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    del lm, tokens, prompts
+    del lm, tokens, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def encode_run(arch: str, batch: int, frames: int) -> dict:
+    """An encoder-only config whole, at full width: the parameter count,
+    one ``encode_step`` of (batch, frames) seeded frame embeddings with K5
+    once a layer and no other kernel, finite logits of (batch, frames,
+    vocab), a second encode bitwise equal, a changed last frame moving
+    frame 0's logits (the attention is bidirectional: under a causal mask
+    it would not), and the bf16 logits against a float32 copy of the
+    model (``lm.float()``, K5's float32 route) within 3e-2 x max(scale, 1),
+    the reference's decode-consistency tolerance."""
+    from repro_torch import configs
+    from repro_torch.kernels import gram as K
+    from repro_torch.models import model as M
+
+    cfg = configs.get(arch)
+    n_layers = cfg.num_layers
+    check((batch, frames, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, None, cfg.causal)
+          in SWA_ZOO_SHAPES.values(),
+          f"{arch}: the kernel phase does not hold K5 at this encode's shape")
+    t_all = time.perf_counter()
+    lm, inputs, steps, weight_gb = seeded_model(cfg, ZOO_SEED, batch, frames)
+
+    def encode(batch_in, key):
+        t0 = time.perf_counter()
+        out = M.encode_step(lm, batch_in)
+        torch.cuda.synchronize()
+        steps[key] = time.perf_counter() - t0
+        return out
+
+    K.reset_launch_counts()
+    logits = encode(inputs, "encode_s")
+    launches = K.launch_counts()
+    check(launches["swa_flash"] == n_layers
+          and all(n == 0 for name, n in launches.items() if name != "swa_flash"),
+          f"{cfg.name}: launches {launches} in one encode, want K5 {n_layers} times "
+          "(one a layer) and nothing else")
+    check(tuple(logits.shape) == (batch, frames, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{cfg.name}: logits {tuple(logits.shape)} not finite of (B, S, vocab)")
+    served_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(torch.equal(logits, encode(inputs, "encode_2_s")),
+          f"{cfg.name}: two encodes gave different logits")
+    changed = inputs["embeddings"].clone()
+    changed[:, -1] = torch.from_numpy(np.random.default_rng(ZOO_SEED + 1).standard_normal(
+        (batch, cfg.d_model), dtype=np.float32)).cuda()
+    moved = encode({"embeddings": changed}, "encode_changed_s")
+    frame0_moved = float((moved[:, 0].float() - logits[:, 0].float()).abs().max())
+    check(frame0_moved > 0, f"{cfg.name}: a changed last frame left frame 0's logits "
+          "as they were: the attention is not bidirectional")
+    del moved, changed
+    # the same encode by a float32 copy of the model: K5's float32 route
+    lm.float()
+    lm.cfg = dataclasses.replace(cfg, dtype="float32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref32 = encode(inputs, "encode_f32_s")
+    scale = float(ref32.abs().max())
+    err = float((logits.float() - ref32).abs().max())
+    tol = 3e-2 * max(scale, 1.0)
+    check(err <= tol, f"{cfg.name}: bf16 logits {err} from the float32 model's, tol {tol}")
+    check(K.launch_counts()["swa_flash"] == 4 * n_layers,
+          f"{cfg.name}: K5 launches of four encodes")
+    steps["total_s"] = time.perf_counter() - t_all
+    out = {"arch": cfg.name, "reduced": "none: all layers, full width",
+           "params": cfg.param_count(), "weight_gb": weight_gb, "batch": batch,
+           "frames": frames, "head_dim": cfg.head_dim, "causal": cfg.causal,
+           "launches": launches, "frame0_moved_max_abs": frame0_moved,
+           "vs_float32": {"max_abs": err, "tol": tol, "logit_scale": scale},
+           "steps_s": steps, "served_peak_gib": served_peak_gib,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del lm, logits, ref32, inputs
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
 def zoo_serving_phase() -> dict:
-    """The five attention-only configs of the zoo (``ZOO_RUNS``), one model
-    on the card at a time."""
+    """The decoder configs of the zoo (``ZOO_RUNS``), then the encoder
+    (``ENCODE_ARCH``), one model on the card at a time."""
     from repro_torch.kernels import gram as K
 
     t0 = time.perf_counter()
     runs = [zoo_run(*run) for run in ZOO_RUNS]
+    runs.append(encode_run(ENCODE_ARCH, ENCODE_BATCH, ENCODE_FRAMES))
     return {"phase": "zoo_serving", "dtype": "bfloat16",
             "consistency_note": "the MoE configs' decode consistency runs at the dropless "
                                 "capacity E / k (a prefill of S - 1 and one of S drop "

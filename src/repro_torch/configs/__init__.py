@@ -7,9 +7,11 @@ is the paper's own ridge configuration (§V-A defaults).
 """
 from repro_torch.configs import (
     gemma3_27b,
+    hubert_xlarge,
     minitron_8b,
     mixtral_8x22b,
     phi35_moe,
+    pixtral_12b,
     qwen2_72b,
     ridge,
     yi_9b,
@@ -26,6 +28,8 @@ _MODULES = {
     "phi3.5-moe-42b-a6.6b": phi35_moe,
     "mixtral-8x22b": mixtral_8x22b,
     "minitron-8b": minitron_8b,
+    "hubert-xlarge": hubert_xlarge,
+    "pixtral-12b": pixtral_12b,
 }
 PORTED = tuple(_MODULES)
 RIDGE = ridge.CONFIG

@@ -223,29 +223,37 @@ def model_params_from(params, cfg: ArchConfig, *, device="cuda") -> BackboneLM:
 
     ``params["stages"][i]`` holds pattern position i of every stage along a
     leading ``num_stages`` axis; stage s's layer takes index s of it. Tail,
-    embedding, head and final norm are copied as they are. Weights keep the
-    (in, out) orientation, so nothing is transposed; shapes and dtypes must
-    match the config's exactly.
+    embedding (or an ``embeddings``-mode model's top-level ``mask_embed``),
+    head and final norm are copied as they are; an encoder's MLP has no
+    ``gate``. Weights keep the (in, out) orientation, so nothing is
+    transposed; shapes and dtypes must match the config's exactly.
     """
     model = BackboneLM(cfg, device=device)
+
+    def copy(name: str, p: torch.Tensor, arr) -> None:
+        arr = np.asarray(arr)
+        if arr.shape != tuple(p.shape) or arr.dtype.name != cfg.dtype:
+            raise ValueError(f"{name}: reference array {arr.dtype} {arr.shape}, "
+                             f"model wants {cfg.dtype} {tuple(p.shape)}")
+        with torch.no_grad():
+            p.copy_(tensor_from_numpy(arr, device=device))
 
     def fill(module, tree, index=None) -> None:
         for name, p in module.named_parameters():
             arr = tree
             for key in name.split("."):
                 arr = arr[key]
-            arr = np.asarray(arr) if index is None else np.asarray(arr)[index]
-            if arr.shape != tuple(p.shape) or arr.dtype.name != cfg.dtype:
-                raise ValueError(f"{name}: reference array {arr.dtype} {arr.shape}, "
-                                 f"model wants {cfg.dtype} {tuple(p.shape)}")
-            with torch.no_grad():
-                p.copy_(tensor_from_numpy(arr, device=device))
+            copy(name, p, arr if index is None else np.asarray(arr)[index])
 
     for s, stage in enumerate(model.stages):
         for i, layer in enumerate(stage):
             fill(layer, params["stages"][i], s)
     for i, layer in enumerate(model.tail):
         fill(layer, params["tail"][i])
-    for name in ("embed", "head", "final_norm"):
+    for name in ("head", "final_norm"):
         fill(getattr(model, name), params[name])
+    if cfg.input_mode == "embeddings":
+        copy("mask_embed", model.mask_embed, params["mask_embed"])
+    else:
+        fill(model.embed, params["embed"])
     return model

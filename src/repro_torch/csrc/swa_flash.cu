@@ -33,13 +33,18 @@
 //     into the same float32 accumulator, so P @ V keeps about float32
 //     accuracy (one bf16 rounding of p would add 2^-9 relative error per
 //     weight) for 1.5x the P @ V mma work: 3 mma per 2 of a bf16-only P.
-//     Rows of 272 bytes (hd 128; 144 at hd 64) keep `ldmatrix` off bank
-//     conflicts without a swizzle. What bounds it is the mma.sync instruction
-//     rate (no `wgmma`, no TMA, no warp specialisation yet) and the 1.5x.
+//     Rows of hd + 8 elements (272 bytes at hd 128, 176 at hd 80, 144 at
+//     hd 64; 68, 44, 36 words) put the 8 rows of each `ldmatrix` phase on 8
+//     distinct 4-bank groups, so no bank conflict needs a swizzle. What
+//     bounds it is the mma.sync instruction rate (no `wgmma`, no TMA, no
+//     warp specialisation yet) and the 1.5x.
 //   * float32 (a test and parity dtype): `swa_flash_f32_kernel`, every
 //     score and P @ V product as an FP32 FMA on the CUDA cores; 256 threads
 //     as 16 x 16, each owning 4 query rows x 4 keys of the score tile and
-//     the same 4 rows x hd/16 columns of the output; P through shared memory.
+//     the same 4 rows x hd/16 columns of the output (tx, tx + 16, ...); P
+//     through shared memory.
+//
+// hd is 64, 80 (hubert-xlarge) or 128; every loop over hd steps by 16.
 //
 // The common schedule:
 //   * One CTA per (64-row query block, head, batch); the heaviest query
@@ -369,7 +374,7 @@ swa_flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.z;
   const int hk = h / (H / Hkv);
   const int tid = threadIdx.x;
-  const int tx = tid % 16;          // keys tx*4.., output columns g*64 + tx*4..
+  const int tx = tid % 16;          // keys tx*4.., output columns tx, tx + 16, ..
   const int ty = tid / 16;          // query rows ty*4..
   const int64_t q_row = static_cast<int64_t>(H) * HD;
   const int64_t kv_row = static_cast<int64_t>(Hkv) * HD;
@@ -482,7 +487,8 @@ swa_flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    // acc += P @ V for rows ty*4 + i, columns g*64 + tx*4 + jj
+    // acc += P @ V for rows ty*4 + i, columns c*16 + tx (a half-warp reads
+    // 16 consecutive floats of a V row: no bank conflict at any HD)
 #pragma unroll 2
     for (int kk = 0; kk < kBK; kk += 4) {
       float pr[4][4];
@@ -494,14 +500,10 @@ swa_flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
 #pragma unroll
-        for (int g = 0; g < HD / 64; ++g) {
-          const float4 vv = *reinterpret_cast<const float4*>(Vs + (kk + u) * HD + g * 64 + tx * 4);
-          const float vc[4] = {vv.x, vv.y, vv.z, vv.w};
+        for (int c = 0; c < kCols; ++c) {
+          const float vv = Vs[(kk + u) * HD + c * 16 + tx];
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj)
-              acc[i][g * 4 + jj] = fmaf(pr[i][u], vc[jj], acc[i][g * 4 + jj]);
+          for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pr[i][u], vv, acc[i][c]);
         }
       }
     }
@@ -514,10 +516,7 @@ swa_flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / fmaxf(l_i[i], 1e-30f);
     float* orow = ob + qpos * q_row;
 #pragma unroll
-    for (int g = 0; g < HD / 64; ++g)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        orow[g * 64 + tx * 4 + jj] = acc[i][g * 4 + jj] * inv;
+    for (int c = 0; c < kCols; ++c) orow[c * 16 + tx] = acc[i][c] * inv;
   }
 }
 
@@ -553,7 +552,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
 }  // namespace
 
 // q, o: (B, S, H, hd); k, v: (B, S, Hkv, hd); contiguous, 16-byte aligned,
-// one dtype: 0 float32, 2 bfloat16. hd is 64 or 128. window <= 0 means none.
+// one dtype: 0 float32, 2 bfloat16. hd is 64, 80 or 128. window <= 0 means none.
 // Returns the cudaError_t of the launch (0 on success), -1 for a bad argument.
 extern "C" int swa_flash(const void* q, const void* k, const void* v, void* o,
                          int B, int S, int H, int Hkv, int hd, int window,
@@ -564,8 +563,10 @@ extern "C" int swa_flash(const void* q, const void* k, const void* v, void* o,
   const int key = dtype * 1000 + hd;
   switch (key) {
     case 64: return launch_f32<64>(q, k, v, o, B, S, H, Hkv, window, causal, scale, s);
+    case 80: return launch_f32<80>(q, k, v, o, B, S, H, Hkv, window, causal, scale, s);
     case 128: return launch_f32<128>(q, k, v, o, B, S, H, Hkv, window, causal, scale, s);
     case 2064: return launch_bf16<64>(q, k, v, o, B, S, H, Hkv, window, causal, scale, s);
+    case 2080: return launch_bf16<80>(q, k, v, o, B, S, H, Hkv, window, causal, scale, s);
     case 2128: return launch_bf16<128>(q, k, v, o, B, S, H, Hkv, window, causal, scale, s);
     default: return -1;
   }

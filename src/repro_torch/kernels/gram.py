@@ -511,7 +511,7 @@ def rff_gram_cuda(X: torch.Tensor, b: torch.Tensor, W: torch.Tensor,
 
 
 _SWA_DTYPES = {torch.float32: 0, torch.bfloat16: 2}
-_SWA_HEAD_DIMS = (64, 128)
+_SWA_HEAD_DIMS = (64, 80, 128)
 
 
 def swa_flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -520,8 +520,8 @@ def swa_flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``swa_flash_pallas``, KV blocks outside the mask skipped.
 
     q: (B, S, H, hd); k, v: (B, S, H_kv, hd) with H % H_kv == 0 (query head
-    h reads KV head h // (H / H_kv)); one dtype, float32 or bfloat16; hd 64
-    or 128; contiguous. ``window`` None or >= 1. Returns (B, S, H, hd) in
+    h reads KV head h // (H / H_kv)); one dtype, float32 or bfloat16; hd 64,
+    80 or 128; contiguous. ``window`` None or >= 1. Returns (B, S, H, hd) in
     q's dtype. Ragged S is masked in the kernel. Bitwise deterministic.
     """
     device = _check("swa_flash", {"q": q, "k": k, "v": v}, _SWA_DTYPES)

@@ -1,10 +1,12 @@
 """Serving loops.
 
 Modes:
-  * ``model``  — prefill a batch of prompts, then decode new tokens (the
-    reference's ``launch/serve.py --mode model``). Every attention layer's
-    prefill runs kernel K5 on the card; decode is plain PyTorch against the
-    KV cache.
+  * ``model``  — prefill a batch of prompts (a VLM's after its random
+    patch prefix), then decode new tokens (the reference's
+    ``launch/serve.py --mode model``). Every attention layer's prefill runs
+    kernel K5 on the card; decode is plain PyTorch against the KV cache. An
+    encoder-only arch (hubert-xlarge) raises, as the reference's does: it
+    has no decode step, and its ``models.model.encode_step`` no CLI.
   * ``fusion`` — ridge serving on one ``server.EnginePool``, in process
     (the reference's ``serve_fusion``): every tenant is an independent
     fusion problem admitted from Thm-4 packed payloads (K1, or K3 / K4 for
@@ -79,20 +81,24 @@ def _next_token(logits: torch.Tensor, greedy: bool,
 
 
 def generate(model: model_lib.BackboneLM, prompts: torch.Tensor,
-             gen_tokens: int, *, greedy: bool = True,
-             generator: torch.Generator | None = None
+             gen_tokens: int, *, patches: torch.Tensor | None = None,
+             greedy: bool = True, generator: torch.Generator | None = None
              ) -> tuple[torch.Tensor, dict]:
-    """Prefill ``prompts`` (B, S), then decode until ``gen_tokens`` tokens
-    per row exist (the first comes from the prefill's logits).
+    """Prefill ``prompts`` (B, S), after a VLM's ``patches`` (B, P, d) when
+    given, then decode until ``gen_tokens`` tokens per row exist (the first
+    comes from the prefill's logits).
 
     Returns the tokens (B, gen_tokens) and the seconds of the prefill and
     of the decode loop, each ending in a device synchronisation. Sampling
     (``greedy=False``) draws from ``generator``, on the logits' device.
     """
     B, S = prompts.shape
+    batch = {"tokens": prompts}
+    if patches is not None:
+        batch["patches"] = patches
+        S += patches.shape[1]
     t0 = time.perf_counter()
-    logits, cache = model_lib.prefill_step(model, {"tokens": prompts},
-                                           max_len=S + gen_tokens)
+    logits, cache = model_lib.prefill_step(model, batch, max_len=S + gen_tokens)
     tok = _next_token(logits[:, -1], greedy, generator)
     ops.synchronize(prompts)
     t_prefill = time.perf_counter() - t0
@@ -110,10 +116,13 @@ def generate(model: model_lib.BackboneLM, prompts: torch.Tensor,
 def serve(arch: str, *, reduced: bool = True, batch: int = 4,
           prompt_len: int = 32, gen_tokens: int = 32, seed: int = 0,
           greedy: bool = True, device="cuda") -> dict:
-    """Initialise ``arch`` from ``seed``, serve ``batch`` random prompts.
+    """Initialise ``arch`` from ``seed``, serve ``batch`` random prompts
+    (after ``num_prefix`` random patch embeddings for a VLM).
 
-    The prompts are the reference's (``np.random.default_rng(seed)``), bit
-    for bit; the weights are drawn from a ``torch.Generator`` and differ.
+    The prompts and patches are the reference's
+    (``np.random.default_rng(seed)``), bit for bit; the weights are drawn
+    from a ``torch.Generator`` and differ. An encoder-only model raises
+    ``ValueError``: it has no decode step.
     """
     cfg = configs.get_reduced(arch) if reduced else configs.get(arch)
     if cfg.encoder_only:
@@ -124,9 +133,13 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     rng = np.random.default_rng(seed)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(device)
+    patches = None
+    if cfg.input_mode == "prefix_embeddings":
+        patches = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.num_prefix, cfg.d_model), dtype=np.float32)).to(device)
     sampler = None if greedy else torch.Generator(device).manual_seed(seed + 1)
-    tokens, times = generate(model, prompts, gen_tokens, greedy=greedy,
-                             generator=sampler)
+    tokens, times = generate(model, prompts, gen_tokens, patches=patches,
+                             greedy=greedy, generator=sampler)
     return {
         "arch": cfg.name,
         "prefill_s": times["prefill_s"],

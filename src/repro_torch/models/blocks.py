@@ -1,12 +1,14 @@
 """Per-layer blocks: pre-norm attention + pre-norm MLP or MoE, with residuals.
 
 The counterparts of the reference's ``models/blocks.py`` for the attention
-kinds ``full``/``swa``/``full_bidir`` with a ``dense`` (SwiGLU) or ``moe``
-MLP. An MoE layer runs the capacity-bounded ``moe.moe_block`` in prefill
-and in decode (at T = B), as the reference's does. Where the reference
-stacks stages along a leading axis and scans over it, the port keeps a
-list of per-stage module lists and loops in Python. Mamba and RWKV layers
-and encoder-only models wait for ROADMAP item 16.
+kinds ``full``/``swa``/``full_bidir`` with a ``dense`` or ``moe`` MLP. The
+dense MLP is SwiGLU, or ungated GELU in an encoder-only model (hubert), as
+the reference's is. An MoE layer runs the capacity-bounded
+``moe.moe_block`` in prefill and in decode (at T = B), as the reference's
+does. ``full_bidir`` layers have no cache: prefill and decode raise, as the
+reference's do. Where the reference stacks stages along a leading axis and
+scans over it, the port keeps a list of per-stage module lists and loops in
+Python. Mamba and RWKV layers wait for ROADMAP item 16.
 """
 from __future__ import annotations
 
@@ -20,12 +22,10 @@ ATTN_KINDS = ("full", "swa", "full_bidir")
 
 
 def _check_spec(cfg: ArchConfig, spec: LayerSpec) -> None:
-    if spec.attn not in ATTN_KINDS or spec.mlp not in ("dense", "moe") \
-            or cfg.encoder_only:
+    if spec.attn not in ATTN_KINDS or spec.mlp not in ("dense", "moe"):
         raise NotImplementedError(
             f"layer {spec} of {cfg.name} is not ported yet (ROADMAP item 16); "
-            f"the port has attention kinds {ATTN_KINDS} with a gated dense MLP "
-            "or an MoE (an encoder-only model's ungated MLP waits too)")
+            f"the port has attention kinds {ATTN_KINDS} with a dense MLP or an MoE")
 
 
 class Layer(nn.Module):
@@ -42,7 +42,8 @@ class Layer(nn.Module):
         if spec.mlp == "moe":
             self.moe = moe.MoE(cfg, dtype=dtype, device=device)
         else:
-            self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, dtype=dtype, device=device)
+            self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, dtype=dtype, device=device,
+                                  gated=not cfg.encoder_only)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.norm1.reset_parameters()

@@ -6,8 +6,11 @@ GQA, MoE, hybrid Mamba+attention, RWKV6, audio encoder, VLM decoder). Layers
 are organised as ``num_stages`` repetitions of a fixed ``stage_pattern``
 (plus a ``tail_pattern`` remainder). The port builds and runs the
 attention families (``full``/``swa``/``full_bidir`` layers with a ``dense``
-or ``moe`` MLP, token input); the analytic ``param_count`` covers every
-family.
+or ``moe`` MLP, in all three input modes); the analytic ``param_count``
+covers every family. It counts what ``init_params`` builds: an encoder's
+ungated MLP (2 d d_ff) and an ``embeddings``-mode model's ``mask_embed`` (d,
+no token embedding), where the reference's count takes every dense MLP as
+gated and every model as embedding tokens (hubert-xlarge: 315,216,640 high).
 """
 from __future__ import annotations
 
@@ -138,7 +141,8 @@ def _layer_params(cfg: ArchConfig, spec: LayerSpec, active_only: bool) -> int:
         p += d                          # norm1
         return p
     if spec.mlp == "dense":
-        p += 3 * d * cfg.d_ff + d       # SwiGLU (gate, up, down) + norm
+        # SwiGLU (gate, up, down), or an encoder's ungated GELU (up, down); + norm
+        p += (2 if cfg.encoder_only else 3) * d * cfg.d_ff + d
     elif spec.mlp == "moe":
         e = cfg.top_k if active_only else cfg.num_experts
         p += e * 3 * d * cfg.d_ff + d * cfg.num_experts + d  # experts + router
@@ -148,7 +152,8 @@ def _layer_params(cfg: ArchConfig, spec: LayerSpec, active_only: bool) -> int:
 def _param_count(cfg: ArchConfig, active_only: bool = False) -> int:
     per_stage = sum(_layer_params(cfg, s, active_only) for s in cfg.stage_pattern)
     tail = sum(_layer_params(cfg, s, active_only) for s in cfg.tail_pattern)
-    emb = cfg.vocab_size * cfg.d_model
+    # token embedding, or an embeddings-mode model's mask_embed alone
+    emb = cfg.d_model if cfg.input_mode == "embeddings" else cfg.vocab_size * cfg.d_model
     head = cfg.d_model * cfg.vocab_size
     final_norm = cfg.d_model
     return per_stage * cfg.num_stages + tail + emb + head + final_norm

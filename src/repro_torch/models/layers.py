@@ -1,4 +1,4 @@
-"""Shared layers: RMSNorm, RoPE, the SwiGLU MLP, embedding and LM head.
+"""Shared layers: RMSNorm, RoPE, the SwiGLU / GELU MLP, embedding and LM head.
 
 The counterparts of the reference's ``models/layers.py``. Weights keep the
 reference's (in, out) orientation, so a projection is ``x @ W`` and a JAX
@@ -75,20 +75,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 class MLP(nn.Module):
-    """SwiGLU: ``(silu(x @ gate) * (x @ up)) @ down``."""
+    """SwiGLU ``(silu(x @ gate) * (x @ up)) @ down``, or with ``gated=False``
+    (an encoder's MLP) ``gelu(x @ up) @ down`` with the tanh approximation,
+    ``jax.nn.gelu``'s default."""
 
-    def __init__(self, d_model: int, d_ff: int, *, dtype, device):
+    def __init__(self, d_model: int, d_ff: int, *, dtype, device, gated: bool = True):
         super().__init__()
         self.up = weight((d_model, d_ff), dtype, device)
         self.down = weight((d_ff, d_model), dtype, device)
-        self.gate = weight((d_model, d_ff), dtype, device)
+        self.gate = weight((d_model, d_ff), dtype, device) if gated else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for w in (self.up, self.gate, self.down):
-            dense_init_(w, generator)
+            if w is not None:
+                dense_init_(w, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (F.silu(x @ self.gate) * (x @ self.up)) @ self.down
+        up = x @ self.up
+        if self.gate is None:
+            return F.gelu(up, approximate="tanh") @ self.down
+        return (F.silu(x @ self.gate) * up) @ self.down
 
 
 class Embedding(nn.Module):

@@ -1,25 +1,35 @@
 """BackboneLM: top-level model assembly and the serving step functions.
 
-The counterparts of the reference's ``models/model.py`` for the ``tokens``
-input mode:
+The counterparts of the reference's ``models/model.py`` for its three
+input modes:
+
+  tokens            — decoder LMs: ``batch["tokens"]`` (B, S);
+  embeddings        — the audio encoder (hubert): precomputed frame
+                      embeddings ``batch["embeddings"]`` (B, S, d), frames
+                      where the optional boolean ``batch["mask"]`` (B, S) is
+                      set replaced by the learned ``mask_embed``;
+  prefix_embeddings — the VLM (pixtral): ``batch["patches"]`` (B, P, d)
+                      before the embedded ``batch["tokens"]``.
+
+and its serving steps:
 
   init_params      — a ``BackboneLM`` with the reference's initial
                      distributions, drawn from a ``torch.Generator``;
   forward          — full-sequence logits;
   prefill_step     — full-sequence forward returning last-position logits
-                     and the decode cache;
+                     and the decode cache (a VLM's prefix included);
   decode_step      — one token against the cache (full layers: the whole
-                     sequence; SWA layers: a ring buffer).
+                     sequence; SWA layers: a ring buffer); tokens only;
+  encode_step      — an encoder's full-sequence logits (no cache, no decode).
 
 The module carries its config, so the functions take the model where the
-reference takes ``(params, cfg)``. Layers are attention with a dense
-SwiGLU MLP or an MoE (``models/moe.py``, capacity-bounded in prefill and
-decode alike). Every attention layer's full-sequence pass runs kernel K5
-on CUDA tensors. The cache is a dict
-``{"layers": [one cache per layer, in execution order], "pos": int}``;
-``decode_step`` writes into it in place and returns it. Training
-(``loss_fn``, ``make_train_step``) and the ``embeddings`` /
-``prefix_embeddings`` input modes wait for ROADMAP item 16.
+reference takes ``(params, cfg)``. Layers are attention with a dense MLP
+(SwiGLU; ungated GELU in an encoder) or an MoE (``models/moe.py``,
+capacity-bounded in prefill and decode alike). Every attention layer's
+full-sequence pass runs kernel K5 on CUDA tensors, causal or not. The cache
+is a dict ``{"layers": [one cache per layer, in execution order], "pos":
+int}``; ``decode_step`` writes into it in place and returns it. Training
+(``loss_fn``, ``make_train_step``) waits for ROADMAP item 16.
 """
 from __future__ import annotations
 
@@ -31,19 +41,20 @@ from repro_torch.models.config import ArchConfig
 
 
 class BackboneLM(nn.Module):
-    """Embedding -> ``num_stages`` x ``stage_pattern`` -> ``tail_pattern``
-    -> final RMSNorm -> LM head. Parameters are allocated, not initialised:
+    """Input embeddings -> ``num_stages`` x ``stage_pattern`` ->
+    ``tail_pattern`` -> final RMSNorm -> LM head. Parameters are allocated, not initialised:
     :func:`init_params` draws them, ``convert.model_params_from`` copies
     them from a reference parameter tree."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda"):
         super().__init__()
-        if cfg.input_mode != "tokens":
-            raise NotImplementedError(
-                f"input mode {cfg.input_mode!r} is not ported yet (ROADMAP item 16)")
         self.cfg = cfg
         dt = layers.dtype_of(cfg.dtype)
-        self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, dtype=dt, device=device)
+        if cfg.input_mode == "embeddings":
+            self.mask_embed = layers.weight((cfg.d_model,), dt, device)
+        else:
+            self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, dtype=dt,
+                                          device=device)
         self.stages = nn.ModuleList(
             nn.ModuleList(blocks.Layer(cfg, spec, dtype=dt, device=device)
                           for spec in cfg.stage_pattern)
@@ -65,16 +76,36 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
     model = BackboneLM(cfg, device=device)
     for layer in model.all_layers():
         layer.reset_parameters(generator)
-    model.embed.reset_parameters(generator)
+    if cfg.input_mode == "embeddings":
+        model.mask_embed.normal_(generator=generator).mul_(0.02)
+    else:
+        model.embed.reset_parameters(generator)
     model.final_norm.reset_parameters()
     model.head.reset_parameters(generator)
     return model
 
 
-def forward(model: BackboneLM, batch: dict) -> torch.Tensor:
-    """batch = {"tokens": (B, S)} -> logits (B, S, vocab)."""
+def _input_embeddings(model: BackboneLM, batch: dict) -> torch.Tensor:
+    """The (B, S, d) input of the first layer, in the model's dtype, for
+    the config's input mode (the module docstring's batch keys)."""
     cfg = model.cfg
-    x = model.embed(batch["tokens"])
+    if cfg.input_mode == "tokens":
+        return model.embed(batch["tokens"])
+    dt = layers.dtype_of(cfg.dtype)
+    if cfg.input_mode == "embeddings":
+        x = batch["embeddings"].to(dt)
+        if "mask" in batch:
+            x = torch.where(batch["mask"][..., None], model.mask_embed, x)
+        return x
+    if cfg.input_mode == "prefix_embeddings":
+        return torch.cat([batch["patches"].to(dt), model.embed(batch["tokens"])], dim=1)
+    raise ValueError(cfg.input_mode)
+
+
+def forward(model: BackboneLM, batch: dict) -> torch.Tensor:
+    """Full-sequence logits (B, S, vocab); S counts a VLM's prefix."""
+    cfg = model.cfg
+    x = _input_embeddings(model, batch)
     for layer in model.all_layers():
         x = blocks.apply_layer(layer, x, cfg)
     return model.head(model.final_norm(x))
@@ -92,8 +123,9 @@ def init_decode_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
 def prefill_step(model: BackboneLM, batch: dict, *,
                  max_len: int | None = None) -> tuple[torch.Tensor, dict]:
     """Full-sequence prefill -> (last-position logits (B, 1, vocab), cache
-    for ``max_len`` positions, default the prompt's length)."""
-    x = model.embed(batch["tokens"])
+    for ``max_len`` positions, default the input's length: a VLM's prefix
+    and its tokens, which is also the cache's ``pos``)."""
+    x = _input_embeddings(model, batch)
     caches = []
     for layer in model.all_layers():
         x, c = blocks.prefill_layer(layer, x, model.cfg, max_len=max_len)
@@ -117,3 +149,9 @@ def decode_step(model: BackboneLM, cache: dict, batch: dict
                                                     pos, model.cfg)
     cache["pos"] = pos + 1
     return model.head(model.final_norm(x)), cache
+
+
+def encode_step(model: BackboneLM, batch: dict) -> torch.Tensor:
+    """An encoder-only model's (hubert's) full-sequence unit logits (B, S,
+    vocab): ``forward`` on ``{"embeddings", "mask"?}``."""
+    return forward(model, batch)

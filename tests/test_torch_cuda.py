@@ -504,7 +504,7 @@ def _swa_inputs(B, S, H, Hkv, hd, dtype, seed=0):
             for i, shape in enumerate(((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))]
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 80])
 @pytest.mark.parametrize("S", [1, 64, 65, 200, 1000, 4096])
 @pytest.mark.parametrize("window", [None, 48, 1024])
 @pytest.mark.parametrize("causal", [True, False])
@@ -553,6 +553,28 @@ def test_swa_flash_zoo_heads_and_window(card, H, Hkv, window, dtype):
     if window is not None:        # the window changes the result
         full = ref.swa_attention_ref(q, k, v, window=None)
         assert not torch.equal(p, full)
+
+
+@pytest.mark.parametrize("S", [1500, 1000, 65])
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_flash_hubert_heads(card, S, window, causal, dtype):
+    """K5 at hubert-xlarge's heads: hd 80, 16 query heads over 16 KV heads
+    (MHA), B 4, over ragged S (1500 is 30 s of frames at 50 Hz), held to
+    the plain version as ``test_swa_flash_matches_plain``; non-causal
+    without a window is hubert's own case."""
+    q, k, v = _swa_inputs(4, S, 16, 16, 80, dtype, seed=S)
+    o = gram.swa_flash_cuda(q, k, v, window=window, causal=causal)
+    o2 = gram.swa_flash_cuda(q, k, v, window=window, causal=causal)
+    p = ref.swa_attention_ref(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and bool(torch.isfinite(o).all())
+    diff = (o.float() - p.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 3e-5
+    else:
+        assert bool((diff <= p.float().abs() * 2.0 ** -7 + 1e-4).all())
 
 
 def test_swa_attention_dispatch_by_device(card):
@@ -613,6 +635,32 @@ def test_reduced_gemma_on_card_matches_cpu_path(card):
     tg, _ = generate(gpu, toks.to(card), 6)
     tc, _ = generate(cpu, toks, 6)
     assert torch.equal(tg.cpu(), tc)
+
+
+@pytest.mark.parametrize("S", [200, 1500])
+def test_narrow_hubert_encode_on_card_matches_cpu_path(card, S):
+    """The reduced hubert at the full config's head_dim 80, float32: one
+    ``encode_step`` on the card (K5 non-causal, once a layer) against the
+    CPU path (the plain version), and a masked one."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import model
+
+    cfg = dataclasses.replace(configs.get_reduced("hubert-xlarge"), head_dim=80)
+    cpu = model.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    gpu = model.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu").to(card)
+    rng = np.random.default_rng(S)
+    x = torch.from_numpy(rng.standard_normal((2, S, cfg.d_model), dtype=np.float32))
+    mask = torch.from_numpy(rng.random((2, S)) < 0.3)
+    for batch in ({"embeddings": x}, {"embeddings": x, "mask": mask}):
+        before = gram.swa_flash_cuda.launches
+        lg = model.encode_step(gpu, {key: t.to(card) for key, t in batch.items()})
+        assert gram.swa_flash_cuda.launches == before + cfg.num_layers
+        lc = model.encode_step(cpu, batch)
+        scale = max(float(lc.abs().max()), 1.0)
+        assert lg.shape == (2, S, cfg.vocab_size)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4 * scale)
 
 
 @pytest.mark.parametrize("arch,cf", [("phi3.5-moe-42b-a6.6b", 8.0),

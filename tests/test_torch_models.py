@@ -65,6 +65,18 @@ def _models(hd128: bool = False):
     return params, lm, jcfg, tcfg
 
 
+# The reference's analytic count for hubert-xlarge against its own tree:
+# every dense MLP counted as gated (48 x 1280 x 5120) and a vocab x d token
+# embedding where the tree has mask_embed (504 x 1280 - 1280).
+HUBERT_EXCESS = 48 * 1280 * 5120 + 504 * 1280 - 1280
+
+
+def _tree_size(jcfg) -> int:
+    """Parameters the reference's ``init_params`` builds, from shapes only."""
+    tree = jax.eval_shape(lambda: jmodel.init_params(jax.random.PRNGKey(0), jcfg))
+    return sum(int(np.prod(leaf.shape)) for leaf in jax.tree.leaves(tree))
+
+
 def _tokens(S=PROMPT, B=BATCH, seed=0, vocab=512):
     return np.random.default_rng(seed).integers(0, vocab, (B, S)).astype(np.int32)
 
@@ -73,21 +85,35 @@ class TestConfigs:
     @pytest.mark.parametrize("arch", configs.PORTED)
     @pytest.mark.parametrize("get", ["get", "get_reduced"])
     def test_gemma_configs_equal_field_by_field(self, get, arch):
-        """Every ported config, full and reduced (gemma3 first)."""
+        """Every ported config, full and reduced (gemma3 first). The counts
+        agree but for hubert's, where the port's is the reference tree's
+        size and the reference's analytic count is higher."""
         j, t = getattr(jconfigs, get)(arch), getattr(configs, get)(arch)
         assert dataclasses.asdict(j) == dataclasses.asdict(t)
-        assert j.param_count() == t.param_count()
-        assert j.active_param_count() == t.active_param_count()
+        if j.input_mode == "embeddings":
+            assert t.param_count() == t.active_param_count() == _tree_size(j)
+            assert j.param_count() > t.param_count()
+        else:
+            assert j.param_count() == t.param_count()
+            assert j.active_param_count() == t.active_param_count()
         assert (j.num_layers, j.q_dim, j.kv_dim) == (t.num_layers, t.q_dim, t.kv_dim)
 
     @pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
     def test_param_count_and_shapes_of_every_family(self, arch):
         """The copied analytic count covers every family (attention, MoE,
-        Mamba, RWKV), and the skip matrix is the same."""
-        for jcfg in (jconfigs.get(arch), jconfigs.get_reduced(arch)):
+        Mamba, RWKV), and the skip matrix is the same. For hubert-xlarge the
+        port counts what the reference's ``init_params`` builds, and the
+        reference's own count exceeds that by HUBERT_EXCESS at full size."""
+        for full, jcfg in ((True, jconfigs.get(arch)), (False, jconfigs.get_reduced(arch))):
             tcfg = _port_cfg(jcfg)
-            assert tcfg.param_count() == jcfg.param_count()
-            assert tcfg.active_param_count() == jcfg.active_param_count()
+            if jcfg.input_mode == "embeddings":
+                assert tcfg.param_count() == _tree_size(jcfg)
+                if full:
+                    assert jcfg.param_count() - tcfg.param_count() == HUBERT_EXCESS \
+                        == 315_216_640
+            else:
+                assert tcfg.param_count() == jcfg.param_count()
+                assert tcfg.active_param_count() == jcfg.active_param_count()
             for name, shape in jconfig.INPUT_SHAPES.items():
                 assert dataclasses.asdict(config.INPUT_SHAPES[name]) == dataclasses.asdict(shape)
                 assert config.shape_applicable(tcfg, config.INPUT_SHAPES[name]) == \
@@ -119,12 +145,17 @@ class TestConfigs:
         assert tuple(layer.moe.gate.shape) == (4, tcfg.d_model, tcfg.d_ff)
         assert sum(p.numel() for p in layer.parameters()) == config._layer_params(
             moe_cfg, config.LayerSpec("swa", "moe"), active_only=False)
-        with pytest.raises(NotImplementedError, match="item 16"):
-            blocks.Layer(dataclasses.replace(tcfg, encoder_only=True, causal=False),
-                         config.LayerSpec("full_bidir"), dtype=torch.float32, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 16"):
-            model.BackboneLM(dataclasses.replace(tcfg, input_mode="embeddings"),
-                             device="cpu")
+        # an encoder layer builds (slice 16c): the ungated MLP, no gate
+        enc_cfg = dataclasses.replace(tcfg, encoder_only=True, causal=False)
+        layer = blocks.Layer(enc_cfg, config.LayerSpec("full_bidir"),
+                             dtype=torch.float32, device="cpu")
+        assert layer.mlp.gate is None and "mlp.gate" not in dict(layer.named_parameters())
+        assert sum(p.numel() for p in layer.parameters()) == config._layer_params(
+            enc_cfg, config.LayerSpec("full_bidir"), active_only=False)
+        # and an embeddings-mode model: mask_embed in place of the embedding
+        lm = model.BackboneLM(dataclasses.replace(enc_cfg, input_mode="embeddings"),
+                              device="cpu")
+        assert not hasattr(lm, "embed") and tuple(lm.mask_embed.shape) == (tcfg.d_model,)
 
     def test_validate_raises_on_bad_configs(self):
         _, tcfg = _cfgs()
@@ -405,9 +436,17 @@ class TestServe:
 
     @pytest.mark.parametrize("arch", configs.PORTED)
     def test_cli_runs_on_the_cpu(self, arch, monkeypatch, capsys):
+        """Every ported arch; an encoder-only one raises the reference's
+        ValueError (no decode step)."""
         monkeypatch.setattr(sys, "argv", ["serve", "--mode", "model", "--arch", arch,
                                           "--device", "cpu", "--batch", "1",
                                           "--prompt-len", "8", "--gen-tokens", "3"])
+        if configs.get_reduced(arch).encoder_only:
+            with pytest.raises(ValueError, match="encoder-only architecture has no decode"):
+                serve.main()
+            with pytest.raises(ValueError, match="encoder-only architecture has no decode"):
+                jserve.serve(arch, batch=1, prompt_len=8, gen_tokens=3)
+            return
         serve.main()
         out = capsys.readouterr().out
         assert configs.get_reduced(arch).name in out and "sample continuation" in out

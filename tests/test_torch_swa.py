@@ -51,7 +51,10 @@ def _f32(x) -> np.ndarray:
 class TestAgainstReferenceKernel:
     @pytest.mark.parametrize("S,hd,window,causal", [
         (256, 64, 64, True), (256, 128, None, True), (128, 64, 32, True),
-        (256, 64, None, False), (192, 64, 48, True)])
+        (256, 64, None, False), (192, 64, 48, True),
+        # hubert-xlarge's head_dim, non-causal (S a multiple of the block:
+        # the reference wrapper's padding caveat below) and causal
+        (192, 80, None, False), (256, 80, 48, False), (200, 80, None, True)])
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     def test_matches_pallas_kernel(self, S, hd, window, causal, dtype):
         arrs = _inputs(2, S, 2, 2, hd, dtype, seed=S + hd)
@@ -264,6 +267,15 @@ class TestKernelSchedule:
         plain = ref.swa_attention_ref(*_port([q, k, v]), window=window, causal=causal)
         np.testing.assert_allclose(model, plain.numpy(), atol=TOL["float32"])
 
+    @pytest.mark.parametrize("S,window", [(1500, None), (200, 48), (65, 1)])
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_kernel_model_equals_plain_version_at_hd80(self, S, window, causal):
+        """The float32 schedule at hubert-xlarge's head_dim 80, its S 1500."""
+        q, k, v = _inputs(1, S, 2, 2, 80, seed=S + 80)
+        model = _kernel_model(q, k, v, window, causal)
+        plain = ref.swa_attention_ref(*_port([q, k, v]), window=window, causal=causal)
+        np.testing.assert_allclose(model, plain.numpy(), atol=TOL["float32"])
+
     @pytest.mark.parametrize("S,window", [(4096, 1024), (4096, None)])
     def test_kept_pairs_of_the_serving_shape(self, S, window):
         """The kept pairs per (batch, head) that K5's bound in chip_smoke.py
@@ -300,7 +312,11 @@ class TestTensorCoreSchedule:
     @pytest.mark.parametrize("S,window,causal,hd,group", [
         (200, None, True, 64, 2), (200, 48, True, 128, 1), (130, 3, True, 64, 2),
         (1, None, True, 128, 1), (65, 1, True, 64, 1), (256, 1024, False, 128, 2),
-        (200, 48, False, 64, 1), (1100, 1024, True, 64, 2)])
+        (200, 48, False, 64, 1), (1100, 1024, True, 64, 2),
+        # head_dim 80 (hubert-xlarge: 5 k-steps of 16), its ragged S 1500
+        # non-causal, and causal, windowed and grouped cases
+        (1500, None, False, 80, 1), (65, 1, False, 80, 1), (200, 48, True, 80, 2),
+        (130, None, True, 80, 1)])
     def test_model_within_one_bf16_ulp_of_plain(self, S, window, causal, hd, group):
         """The hi/lo split keeps P @ V at float32 accuracy: every element
         within one bf16 ulp of the plain version, chip_smoke.py's limit; and
@@ -312,6 +328,20 @@ class TestTensorCoreSchedule:
         assert _bf16_ulps(model, _f32(plain)) <= 1
         assert np.array_equal(
             model, _kernel_model_bf16(q, k, v, window, causal, mask_every_block=True))
+
+    @pytest.mark.parametrize("hd", [64, 80, 128])
+    def test_ldmatrix_rows_land_on_distinct_banks(self, hd):
+        """The padded shared-memory row (hd + 8 bf16, csrc/swa_flash.cu's
+        kLd): the 8 rows that one ``ldmatrix`` phase reads, 16 bytes each at
+        one column offset, fall on 8 distinct groups of 4 of the 32 banks,
+        at every column offset the kernel reads from, so no phase conflicts."""
+        row_words = (hd + 8) * 2 // 4
+        for col in range(0, hd, 8):                    # 16-byte chunks
+            for row0 in range(0, BLOCK, 8):
+                groups = {((row0 + r) * row_words + col // 2) % 32 // 4 for r in range(8)}
+                assert len(groups) == 8, (hd, col, row0)
+        # unpadded rows (hd elements) would put all 8 rows on one group
+        assert len({(r * hd // 2) % 32 // 4 for r in range(8)}) < 8
 
     @pytest.mark.parametrize("S,window", [(200, None), (130, 3), (1100, 1024)])
     def test_bf16_only_p_breaks_the_check(self, S, window):

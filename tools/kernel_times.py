@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's kernels on one card at the paths' shapes.
 
-    python3 tools/kernel_times.py [--src DIR] [--tag NAME] [--only write|gram|sharded]
+    python3 tools/kernel_times.py [--src DIR] [--tag NAME] [--only write|gram|sharded|swa]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is imported
 (default: this checkout's), so that two checkouts can be compared on one
@@ -32,6 +32,12 @@ through the kernel wrappers of ``repro_torch.kernels.gram``:
   then on a (4, 2) mesh of 8 shards of the card at d 4096 (bs 256), one
   cold ``ShardedBackend`` factor and one rank-64 factor update (event and
   host time).
+- K5 at hubert-xlarge's encode (``--only swa`` runs just these): B 4,
+  S 1500, H 16 over 16, non-causal, no window, at head_dim 64, 80 and 128,
+  in bf16 and float32: each case's time, its rate (4 hd operations a kept
+  pair) and the SHA-256 of its output on inputs drawn from seed 0, so that
+  two checkouts' bits can be compared; a checkout whose K5 refuses a
+  head_dim reports the error instead.
 
 Prints one JSON line: the tag, the card's name and power limit, and the
 milliseconds of each case. Exits non-zero without a CUDA card.
@@ -171,11 +177,35 @@ def sharded(K, g) -> dict:
     return out
 
 
+def swa_head_dims(K) -> dict:
+    """K5 at hubert's encode shape across head_dims and dtypes."""
+    import hashlib
+
+    B, S, H = 4, 1500, 16
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for hd in (64, 80, 128):
+            g = torch.Generator(device="cuda").manual_seed(0)
+            q, k, v = (torch.randn(B, S, H, hd, generator=g, device="cuda").to(dtype)
+                       for _ in range(3))
+            tag = f"{str(dtype).split('.')[1]}_hd{hd}"
+            try:
+                o = K.swa_flash_cuda(q, k, v, window=None, causal=False)
+            except ValueError as err:
+                out[tag] = {"refused": str(err)}
+                continue
+            ms = cuda_ms(lambda: K.swa_flash_cuda(q, k, v, window=None, causal=False))
+            out[tag] = {"ms": ms, "tflops": 4 * hd * S * S * B * H / ms / 1e9,
+                        "sha256": hashlib.sha256(o.cpu().view(torch.uint8).numpy()
+                                                 .tobytes()).hexdigest()}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--tag", default="")
-    ap.add_argument("--only", choices=("write", "gram", "sharded"), default=None)
+    ap.add_argument("--only", choices=("write", "gram", "sharded", "swa"), default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
@@ -207,6 +237,8 @@ def main() -> int:
         ms["write_path"] = write_path(K, g)
     if args.only in (None, "sharded"):
         ms["sharded"] = sharded(K, g)
+    if args.only in (None, "swa"):
+        ms["swa_hubert"] = swa_head_dims(K)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
