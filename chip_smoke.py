@@ -221,24 +221,28 @@ MODEL_BATCH, MODEL_PROMPT, MODEL_GEN = 4, 4096, 32
 MODEL_SEED = 0
 
 # The model zoo (the zoo_serving phase), after the gemma3 model is freed:
-# each config from the registry with only num_stages replaced (every
-# pattern has one layer), random bf16 weights from ZOO_SEED. Per arch:
-# layers on the card, prompts, prompt length (text tokens; pixtral's 256
-# patches come before them), generated tokens. Mixtral's prompts are twice
-# its 4096-token window, so it masks.
+# each config from the registry cut in depth only to its first layers
+# (``depth_cut``), random bf16 weights from ZOO_SEED. Per arch: layers on
+# the card, prompts, prompt length (text tokens; pixtral's 256 patches come
+# before them), generated tokens. Mixtral's prompts are twice its
+# 4096-token window, so it masks. jamba's first 5 of 72 layers (Mamba +
+# dense, Mamba + MoE, twice, then attention + dense; 48.09 GB) are the
+# shortest prefix that reaches its attention layer.
 ZOO_RUNS = (("mixtral-8x22b", 4, 2, 8192, 32),
             ("phi3.5-moe-42b-a6.6b", 4, 1, 4096, 8),
             ("qwen2-72b", 8, 1, 4096, 8),
             ("yi-9b", 48, 1, 4096, 8),
             ("minitron-8b", 32, 1, 4096, 8),
-            ("pixtral-12b", 40, 1, 3840, 8))
+            ("pixtral-12b", 40, 1, 3840, 8),
+            ("jamba-1.5-large-398b", 5, 1, 4096, 8))
 # The encoder (hubert-xlarge, whole): clips, frames (30 s at HuBERT's 50 Hz
 # frame rate, arXiv:2106.07447).
 ENCODE_ARCH, ENCODE_BATCH, ENCODE_FRAMES = "hubert-xlarge", 4, 1500
 ZOO_SEED = 0
 # K5 at every zoo shape that zoo_serving's prefills and encode give it, in
 # the kernel phase: B, S, H, H_kv, hd, window, causal. phi3.5-moe,
-# minitron and pixtral (256 patches + 3840 tokens) share one.
+# minitron and pixtral (256 patches + 3840 tokens) share one; jamba's
+# attention layer is qwen2's.
 SWA_ZOO_SHAPES = {"mixtral": (2, 8192, 48, 8, 128, 4096, True),
                   "qwen2": (1, 4096, 64, 8, 128, None, True),
                   "phi35_minitron": (1, 4096, 32, 8, 128, None, True),
@@ -3516,15 +3520,18 @@ def private_probe_phase(lm) -> dict:
 # -- phase 10: the attention-only model zoo at full width ----------------------
 
 MOE_LABELS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+SPLIT_LABELS = MOE_LABELS + ("mamba.scan",)
 
 
 def moe_prefill_split(fn) -> dict:
     """Run ``fn`` (one prefill) once under ``torch.profiler`` and split its
     device time: K5 (by kernel name), the four ``record_function`` ranges
-    of ``models/moe.py`` (each kernel credited to the range enclosing the
+    of ``models/moe.py`` and the ``mamba.scan`` range of
+    ``models/mamba.py`` (each kernel credited to the range enclosing the
     op that launched it), and the rest (projections, norms, RoPE, the
-    head). ``annotation_ms`` are the ranges' own spans on the device, where
-    the profiler records them."""
+    conv, the head). ``annotation_ms`` are the ranges' own spans on the
+    device, where the profiler records them; ``range_launches`` the
+    kernels credited to each range."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3540,14 +3547,15 @@ def moe_prefill_split(fn) -> dict:
         return (e.time_range.end - e.time_range.start) / 1e3
 
     device = [e for e in events if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in device if e.name not in MOE_LABELS]
-    annotation = dict.fromkeys(MOE_LABELS, 0.0)
+    kernels = [e for e in device if e.name not in SPLIT_LABELS]
+    annotation = dict.fromkeys(SPLIT_LABELS, 0.0)
     for e in device:
-        if e.name in MOE_LABELS:
+        if e.name in SPLIT_LABELS:
             annotation[e.name] += span(e)
     total = sum(span(e) for e in kernels)
     k5 = sum(span(e) for e in kernels if "swa_flash" in e.name)
-    parts = dict.fromkeys(MOE_LABELS, 0.0)
+    parts = dict.fromkeys(SPLIT_LABELS, 0.0)
+    counts = dict.fromkeys(SPLIT_LABELS, 0)
     for e in events:
         if e.device_type != DeviceType.CPU or not e.kernels:
             continue
@@ -3555,14 +3563,16 @@ def moe_prefill_split(fn) -> dict:
         while p is not None and p.name not in parts:
             p = p.cpu_parent
         if p is not None:
-            parts[p.name] += sum(kn.duration for kn in e.kernels
-                                 if "swa_flash" not in kn.name) / 1e3
+            mine = [kn for kn in e.kernels if "swa_flash" not in kn.name]
+            parts[p.name] += sum(kn.duration for kn in mine) / 1e3
+            counts[p.name] += len(mine)
     return {"wall_ms": wall_ms, "device_ms": total, "device_idle_share": 1 - total / wall_ms,
             "launches": len(kernels), "k5_ms": k5,
             "experts_bmm_ms": parts["moe.experts"], "routing_ms": parts["moe.route"],
             "dispatch_combine_ms": parts["moe.dispatch"] + parts["moe.combine"],
+            "mamba_scan_ms": parts["mamba.scan"],
             "rest_ms": total - k5 - sum(parts.values()),
-            "annotation_ms": annotation}
+            "annotation_ms": annotation, "range_launches": counts}
 
 
 def seeded_model(cfg, seed: int, batch: int, prompt_len: int) -> tuple:
@@ -3601,17 +3611,25 @@ def seeded_model(cfg, seed: int, batch: int, prompt_len: int) -> tuple:
     return lm, inputs, {"init_params_s": init_s}, weight_gb
 
 
+def attention_layers(lm) -> int:
+    """The model's attention layers: K5 runs once each in a prefill or an
+    encode (all layers but a hybrid's Mamba ones)."""
+    from repro_torch.models import blocks
+
+    return sum(layer.spec.attn in blocks.ATTN_KINDS for layer in lm.all_layers())
+
+
 def serve_checked(lm, inputs, gen: int, runs: int) -> tuple:
     """``runs`` served runs of ``inputs`` (prompts, and a VLM's patches)
     through ``generate`` (a prefill, then ``gen - 1`` greedy decode steps):
-    K5 once a layer in each run and no other kernel, tokens in range, every
-    run's tokens bitwise the first's. Returns the first run's tokens,
-    launch counts and peak GiB, and each run's times (``prefill_s``,
-    ``prefill_2_s``, ...)."""
+    K5 once an attention layer in each run and no other kernel, tokens in
+    range, every run's tokens bitwise the first's. Returns the first run's
+    tokens, launch counts and peak GiB, and each run's times
+    (``prefill_s``, ``prefill_2_s``, ...)."""
     from repro_torch.kernels import gram as K
     from repro_torch.launch.serve import generate
 
-    cfg, n_layers = lm.cfg, lm.cfg.num_layers
+    cfg, n_layers = lm.cfg, attention_layers(lm)
     prompts, patches = inputs["tokens"], inputs.get("patches")
     batch = prompts.shape[0]
     steps = {}
@@ -3622,7 +3640,8 @@ def serve_checked(lm, inputs, gen: int, runs: int) -> tuple:
     check(launches["swa_flash"] == n_layers
           and all(n == 0 for name, n in launches.items() if name != "swa_flash"),
           f"{cfg.name}: launches {launches} in one prefill + {gen - 1} decode steps, "
-          f"want K5 {n_layers} times (one a layer, none in decode) and nothing else")
+          f"want K5 {n_layers} times (one an attention layer, none in decode) and "
+          "nothing else")
     check(tuple(tokens.shape) == (batch, gen) and int(tokens.min()) >= 0
           and int(tokens.max()) < cfg.vocab_size, f"{cfg.name}: generated tokens out of range")
     for run in range(1, runs + 1):
@@ -3643,7 +3662,8 @@ def decode_consistency(lm, inputs) -> dict:
     prefill's last logits (``tests/test_models.py``'s check; the caller
     holds ``max_abs`` to ``tol`` = 3e-2 x max(scale, 1), the reference's
     tolerance), a VLM's patches before the tokens in both prefills, K5
-    once a layer in each prefill and never in decode. For an MoE, also the
+    once an attention layer in each prefill and never in decode (a Mamba
+    layer hands its state and conv window over instead). For an MoE, also the
     last token's experts in each layer by both paths, and the smallest gap
     between its k-th and (k + 1)-th router probabilities in either."""
     from repro_torch.kernels import gram as K
@@ -3652,7 +3672,7 @@ def decode_consistency(lm, inputs) -> dict:
     def k5() -> int:
         return K.launch_counts()["swa_flash"]
 
-    cfg, n_layers = lm.cfg, lm.cfg.num_layers
+    cfg, n_layers = lm.cfg, attention_layers(lm)
     prompts = inputs["tokens"]
     B = prompts.shape[0]
     S = prompts.shape[1] + (inputs["patches"].shape[1] if "patches" in inputs else 0)
@@ -3694,24 +3714,81 @@ def decode_consistency(lm, inputs) -> dict:
     return out
 
 
-def zoo_run(arch: str, stages: int, batch: int, prompt_len: int, gen: int) -> dict:
-    """One config of the zoo at full width, cut to ``stages`` layers: the
-    parameter count, a served run (prefill, then ``gen`` greedy tokens;
-    a VLM's prefill puts its patches before the prompt) with K5 once a
-    layer, decode consistency, times and peak memory. An
-    MoE also serves twice (bitwise equal tokens), reports each layer's
+def depth_cut(cfg, layers: int):
+    """``cfg`` at full width cut in depth to its first ``layers`` layers:
+    whole stages where ``layers`` is a multiple of the stage pattern, else
+    the pattern's first ``layers`` as one stage (jamba: 5 of its 8)."""
+    period = len(cfg.stage_pattern)
+    if layers % period == 0:
+        return dataclasses.replace(cfg, num_stages=layers // period)
+    check(layers < period and not cfg.tail_pattern,
+          f"{cfg.name}: no depth cut to {layers} layers")
+    return dataclasses.replace(cfg, stage_pattern=cfg.stage_pattern[:layers], num_stages=1)
+
+
+def float32_consistency(lm, inputs) -> dict:
+    """``decode_consistency`` of what ``lm.float()`` computes, with at most
+    one layer in float32 on the card: every layer's weights move to the
+    host in their own dtypes, and each layer goes to the card as float32
+    just before it runs (``blocks.prefill_layer`` / ``decode_layer``) and
+    leaves it after; embedding, final norm and head are float32 on the card
+    throughout. bf16 -> float32 is exact, so the numbers are those of the
+    whole model cast at once, which one card cannot hold for jamba (96.2
+    GB). The model's layers stay on the host: the caller frees it."""
+    from repro_torch.models import blocks
+
+    parked = {}
+    for layer in lm.all_layers():
+        for p in layer.parameters():
+            parked[p] = p.data.cpu()
+            p.data = parked[p]
+    for name in ("embed", "mask_embed", "final_norm", "head"):
+        if hasattr(lm, name):
+            getattr(lm, name).float()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def one_layer_on_card(fn):
+        def run(layer, *args, **kwargs):
+            for p in layer.parameters():
+                p.data = parked[p].cuda().float()
+            try:
+                return fn(layer, *args, **kwargs)
+            finally:
+                for p in layer.parameters():
+                    p.data = parked[p]
+        return run
+
+    saved = blocks.prefill_layer, blocks.decode_layer
+    blocks.prefill_layer, blocks.decode_layer = map(one_layer_on_card, saved)
+    lm.cfg = dataclasses.replace(lm.cfg, dtype="float32")
+    try:
+        return decode_consistency(lm, inputs)
+    finally:
+        blocks.prefill_layer, blocks.decode_layer = saved
+
+
+def zoo_run(arch: str, layers: int, batch: int, prompt_len: int, gen: int) -> dict:
+    """One config of the zoo at full width, cut to its first ``layers``
+    layers: the parameter count, a served run (prefill, then ``gen`` greedy
+    tokens; a VLM's prefill puts its patches before the prompt) with K5
+    once an attention layer, decode consistency, times and peak memory. An
+    MoE also serves twice (bitwise equal tokens), reports each MoE layer's
     dropped share of (token, choice) pairs at its capacity factor 1.25 and
-    a profiler split of one prefill; its decode consistency runs at the
-    dropless capacity E / k, and again in float32 if a bf16 routing tie
-    flipped an expert of the last token."""
+    a profiler split of one prefill (with a hybrid's Mamba scan: its
+    launches and device ms a Mamba layer); its decode consistency runs at
+    the dropless capacity E / k, and again in float32, one layer on the
+    card at a time, if a bf16 routing tie flipped an expert of the last
+    token."""
     from repro_torch import configs
     from repro_torch.models import model as M
     from repro_torch.models import moe
 
     full_cfg = configs.get(arch)
-    cfg = dataclasses.replace(full_cfg, num_stages=stages)
+    cfg = depth_cut(full_cfg, layers)
     n_layers = cfg.num_layers
-    window = cfg.window if cfg.sub_quadratic else None
+    specs = cfg.stage_pattern * cfg.num_stages + cfg.tail_pattern
+    window = cfg.window if any(s.attn == "swa" for s in specs) else None
     check((batch, cfg.num_prefix + prompt_len, cfg.num_heads, cfg.num_kv_heads,
            cfg.head_dim, window, cfg.causal) in SWA_ZOO_SHAPES.values(),
           f"{arch}: the kernel phase does not hold K5 at this prefill's shape")
@@ -3720,28 +3797,33 @@ def zoo_run(arch: str, stages: int, batch: int, prompt_len: int, gen: int) -> di
     tokens, launches, served_peak_gb, served = serve_checked(
         lm, inputs, gen, runs=2 if cfg.num_experts else 1)
     steps.update(served)
+    steps["decode_ms_per_step"] = steps["decode_s"] / (gen - 1) * 1e3
     out = {"arch": cfg.name, "reduced": f"depth: {n_layers} of {full_cfg.num_layers} layers",
            "params": cfg.param_count(), "active_params": cfg.active_param_count(),
            "weight_gb": weight_gb, "batch": batch, "prefix": cfg.num_prefix,
            "prompt_len": prompt_len, "gen_tokens": gen, "window": window,
+           "layers": {f"{s.attn}+{s.mlp}": specs.count(s) for s in dict.fromkeys(specs)},
            "launches": launches, "sample_tokens": tokens[0, :8].tolist()}
 
     if cfg.num_experts:
         T = batch * prompt_len
+        mamba_layers = sum(s.attn == "mamba" for s in specs)
         out["capacity"] = {"factor": cfg.capacity_factor, "tokens": T,
                            "slots_per_expert": moe.capacity(cfg, T)}
-        out["prefill_split"] = moe_prefill_split(lambda: M.prefill_step(lm, inputs))
+        split = moe_prefill_split(lambda: M.prefill_step(lm, inputs))
+        if mamba_layers:
+            split["mamba_scan_per_layer"] = {
+                "ms": split["mamba_scan_ms"] / mamba_layers,
+                "launches": split["range_launches"]["mamba.scan"] / mamba_layers}
+        out["prefill_split"] = split
         out["dropped_share_per_layer"] = [
-            1 - float(layer.moe.routing["keep"].float().mean()) for layer in lm.all_layers()]
+            1 - float(layer.moe.routing["keep"].float().mean())
+            for layer in lm.all_layers() if layer.spec.mlp == "moe"]
         lm.cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
     cons = decode_consistency(lm, inputs)
     if cfg.num_experts and not cons["experts_agree"]:
         # a bf16 routing tie flipped: the same check with the model in float32
-        lm.float()
-        lm.cfg = dataclasses.replace(lm.cfg, dtype="float32")
-        gc.collect()
-        torch.cuda.empty_cache()
-        cons["float32"] = decode_consistency(lm, inputs)
+        cons["float32"] = float32_consistency(lm, inputs)
         cons = {**cons, "checked": "float32"}
         final = cons["float32"]
     else:

@@ -8,6 +8,7 @@ is the paper's own ridge configuration (§V-A defaults).
 from repro_torch.configs import (
     gemma3_27b,
     hubert_xlarge,
+    jamba_15_large,
     minitron_8b,
     mixtral_8x22b,
     phi35_moe,
@@ -26,6 +27,7 @@ _MODULES = {
     "qwen2-72b": qwen2_72b,
     "yi-9b": yi_9b,
     "phi3.5-moe-42b-a6.6b": phi35_moe,
+    "jamba-1.5-large-398b": jamba_15_large,
     "mixtral-8x22b": mixtral_8x22b,
     "minitron-8b": minitron_8b,
     "hubert-xlarge": hubert_xlarge,

@@ -226,15 +226,18 @@ def model_params_from(params, cfg: ArchConfig, *, device="cuda") -> BackboneLM:
     embedding (or an ``embeddings``-mode model's top-level ``mask_embed``),
     head and final norm are copied as they are; an encoder's MLP has no
     ``gate``. Weights keep the (in, out) orientation, so nothing is
-    transposed; shapes and dtypes must match the config's exactly.
+    transposed; shapes and dtypes must match the model's exactly: the
+    config's dtype, but float32 for a Mamba layer's ``A_log`` and ``D`` in
+    every model, as the reference keeps them.
     """
     model = BackboneLM(cfg, device=device)
 
     def copy(name: str, p: torch.Tensor, arr) -> None:
         arr = np.asarray(arr)
-        if arr.shape != tuple(p.shape) or arr.dtype.name != cfg.dtype:
+        want = str(p.dtype).removeprefix("torch.")
+        if arr.shape != tuple(p.shape) or arr.dtype.name != want:
             raise ValueError(f"{name}: reference array {arr.dtype} {arr.shape}, "
-                             f"model wants {cfg.dtype} {tuple(p.shape)}")
+                             f"model wants {want} {tuple(p.shape)}")
         with torch.no_grad():
             p.copy_(tensor_from_numpy(arr, device=device))
 

@@ -1,36 +1,43 @@
-"""Per-layer blocks: pre-norm attention + pre-norm MLP or MoE, with residuals.
+"""Per-layer blocks: a pre-norm mixer (attention or Mamba) + a pre-norm MLP
+or MoE, with residuals.
 
-The counterparts of the reference's ``models/blocks.py`` for the attention
-kinds ``full``/``swa``/``full_bidir`` with a ``dense`` or ``moe`` MLP. The
-dense MLP is SwiGLU, or ungated GELU in an encoder-only model (hubert), as
-the reference's is. An MoE layer runs the capacity-bounded
-``moe.moe_block`` in prefill and in decode (at T = B), as the reference's
-does. ``full_bidir`` layers have no cache: prefill and decode raise, as the
-reference's do. Where the reference stacks stages along a leading axis and
-scans over it, the port keeps a list of per-stage module lists and loops in
-Python. Mamba and RWKV layers wait for ROADMAP item 16.
+The counterparts of the reference's ``models/blocks.py`` for the mixer
+kinds ``full``/``swa``/``full_bidir`` (attention) and ``mamba`` (the S6
+layer of ``models/mamba.py``) with a ``dense`` or ``moe`` MLP. The dense
+MLP is SwiGLU, or ungated GELU in an encoder-only model (hubert), as the
+reference's is. An MoE layer runs the capacity-bounded ``moe.moe_block`` in
+prefill and in decode (at T = B), as the reference's does. A Mamba layer's
+full-sequence pass scans in chunks of ``MAMBA_CHUNK`` positions, the chunk
+the reference's ``serve`` prefills with; its decode cache is the (conv
+window, state) pair. ``full_bidir`` layers have no cache: prefill and
+decode raise, as the reference's do. Where the reference stacks stages
+along a leading axis and scans over it, the port keeps a list of per-stage
+module lists and loops in Python. RWKV layers wait for ROADMAP item 16.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, mamba, moe
 from repro_torch.models.config import ArchConfig, LayerSpec
 
 ATTN_KINDS = ("full", "swa", "full_bidir")
+CACHED_ATTN = ("full", "swa")
+MIXER_KINDS = ATTN_KINDS + ("mamba",)
+MAMBA_CHUNK = 64        # the reference serve's prefill chunk (launch/serve.py)
 
 
 def _check_spec(cfg: ArchConfig, spec: LayerSpec) -> None:
-    if spec.attn not in ATTN_KINDS or spec.mlp not in ("dense", "moe"):
+    if spec.attn not in MIXER_KINDS or spec.mlp not in ("dense", "moe"):
         raise NotImplementedError(
             f"layer {spec} of {cfg.name} is not ported yet (ROADMAP item 16); "
-            f"the port has attention kinds {ATTN_KINDS} with a dense MLP or an MoE")
+            f"the port has mixer kinds {MIXER_KINDS} with a dense MLP or an MoE")
 
 
 class Layer(nn.Module):
-    """norm1 -> attention -> residual, norm2 -> MLP (``mlp``) or MoE
-    (``moe``) -> residual."""
+    """norm1 -> attention (``attn``) or Mamba (``mamba``) -> residual,
+    norm2 -> MLP (``mlp``) or MoE (``moe``) -> residual."""
 
     def __init__(self, cfg: ArchConfig, spec: LayerSpec, *, dtype, device):
         super().__init__()
@@ -38,7 +45,10 @@ class Layer(nn.Module):
         self.spec = spec
         self.norm1 = layers.RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
         self.norm2 = layers.RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
-        self.attn = attention.Attention(cfg, dtype=dtype, device=device)
+        if spec.attn == "mamba":
+            self.mamba = mamba.Mamba(cfg, dtype=dtype, device=device)
+        else:
+            self.attn = attention.Attention(cfg, dtype=dtype, device=device)
         if spec.mlp == "moe":
             self.moe = moe.MoE(cfg, dtype=dtype, device=device)
         else:
@@ -48,7 +58,7 @@ class Layer(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.norm1.reset_parameters()
         self.norm2.reset_parameters()
-        self.attn.reset_parameters(generator)
+        (self.mamba if self.spec.attn == "mamba" else self.attn).reset_parameters(generator)
         (self.moe if self.spec.mlp == "moe" else self.mlp).reset_parameters(generator)
 
     def feed_forward(self, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -59,24 +69,33 @@ class Layer(nn.Module):
 
 
 def apply_layer(layer: Layer, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    x = x + attention.attention_fwd(layer.attn, layer.norm1(x), cfg,
-                                    kind=layer.spec.attn)
+    if layer.spec.attn == "mamba":
+        x = x + mamba.mamba_fwd(layer.mamba, layer.norm1(x), cfg, chunk_size=MAMBA_CHUNK)
+    else:
+        x = x + attention.attention_fwd(layer.attn, layer.norm1(x), cfg,
+                                        kind=layer.spec.attn)
     return x + layer.feed_forward(x, cfg)
 
 
 def init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
                      seq_len: int, dtype, device) -> dict:
-    if spec.attn in ("full", "swa"):
+    if spec.attn in CACHED_ATTN:
         return attention.init_cache(cfg, spec.attn, batch, seq_len, dtype, device)
+    if spec.attn == "mamba":
+        return mamba.init_mamba_cache(cfg, batch, dtype, device)
     raise ValueError(f"no decode cache for attn kind {spec.attn!r}")
 
 
 def decode_layer(layer: Layer, x: torch.Tensor, cache: dict, pos: int,
                  cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
-    if layer.spec.attn not in ("full", "swa"):
-        raise ValueError(f"decode unsupported for attn kind {layer.spec.attn!r}")
-    h, cache = attention.attention_decode(layer.attn, layer.norm1(x), cache,
-                                          pos, cfg, kind=layer.spec.attn)
+    kind = layer.spec.attn
+    if kind == "mamba":
+        h, cache = mamba.mamba_decode(layer.mamba, layer.norm1(x), cache, cfg)
+    elif kind in CACHED_ATTN:
+        h, cache = attention.attention_decode(layer.attn, layer.norm1(x), cache,
+                                              pos, cfg, kind=kind)
+    else:
+        raise ValueError(f"decode unsupported for attn kind {kind!r}")
     x = x + h
     return x + layer.feed_forward(x, cfg), cache
 
@@ -84,9 +103,14 @@ def decode_layer(layer: Layer, x: torch.Tensor, cache: dict, pos: int,
 def prefill_layer(layer: Layer, x: torch.Tensor, cfg: ArchConfig, *,
                   max_len: int | None = None) -> tuple[torch.Tensor, dict]:
     """Full-sequence forward that also emits the decode cache for this layer."""
-    if layer.spec.attn not in ("full", "swa"):
-        raise ValueError(f"prefill unsupported for attn kind {layer.spec.attn!r}")
-    h, cache = attention.prefill_cache(layer.attn, layer.norm1(x), cfg,
-                                       kind=layer.spec.attn, max_len=max_len)
+    kind = layer.spec.attn
+    if kind == "mamba":
+        h, cache = mamba.mamba_fwd(layer.mamba, layer.norm1(x), cfg,
+                                   chunk_size=MAMBA_CHUNK, return_cache=True)
+    elif kind in CACHED_ATTN:
+        h, cache = attention.prefill_cache(layer.attn, layer.norm1(x), cfg,
+                                           kind=kind, max_len=max_len)
+    else:
+        raise ValueError(f"prefill unsupported for attn kind {kind!r}")
     x = x + h
     return x + layer.feed_forward(x, cfg), cache

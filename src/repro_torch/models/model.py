@@ -23,20 +23,23 @@ and its serving steps:
   encode_step      — an encoder's full-sequence logits (no cache, no decode).
 
 The module carries its config, so the functions take the model where the
-reference takes ``(params, cfg)``. Layers are attention with a dense MLP
-(SwiGLU; ungated GELU in an encoder) or an MoE (``models/moe.py``,
-capacity-bounded in prefill and decode alike). Every attention layer's
-full-sequence pass runs kernel K5 on CUDA tensors, causal or not. The cache
+reference takes ``(params, cfg)``. Layers are attention or Mamba
+(``models/mamba.py``) with a dense MLP (SwiGLU; ungated GELU in an encoder)
+or an MoE (``models/moe.py``, capacity-bounded in prefill and decode
+alike). Every attention layer's full-sequence pass runs kernel K5 on CUDA
+tensors, causal or not; a Mamba layer's runs PyTorch's kernels. The cache
 is a dict ``{"layers": [one cache per layer, in execution order], "pos":
-int}``; ``decode_step`` writes into it in place and returns it. Training
-(``loss_fn``, ``make_train_step``) waits for ROADMAP item 16.
+int}``: an attention layer's is its keys and values, a Mamba layer's a
+recurrent state (the conv window and h). ``decode_step`` updates it in
+place and returns it. Training (``loss_fn``, ``make_train_step``) waits
+for ROADMAP item 16.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.models import attention, blocks, layers
+from repro_torch.models import attention, blocks, layers, mamba
 from repro_torch.models.config import ArchConfig
 
 
@@ -138,11 +141,15 @@ def decode_step(model: BackboneLM, cache: dict, batch: dict
                 ) -> tuple[torch.Tensor, dict]:
     """One-token serve step. batch = {"tokens": (B, 1)}; returns logits
     (B, 1, vocab) and the cache, updated in place and advanced by one.
-    A position past a full layer's cache raises ValueError before any
-    layer's cache is written."""
+    A position past a full layer's cache, or a Mamba layer's conv window
+    short of K - 1 positions (a prefill shorter than that), raises
+    ValueError before any layer's cache is written."""
     pos = cache["pos"]
     for layer, c in zip(model.all_layers(), cache["layers"]):
-        attention.decode_slot(layer.spec.attn, pos, c["k"].shape[1])
+        if layer.spec.attn == "mamba":
+            mamba.check_cache(c, model.cfg)
+        else:
+            attention.decode_slot(layer.spec.attn, pos, c["k"].shape[1])
     x = model.embed(batch["tokens"])
     for i, layer in enumerate(model.all_layers()):
         x, cache["layers"][i] = blocks.decode_layer(layer, x, cache["layers"][i],

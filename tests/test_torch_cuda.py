@@ -663,6 +663,47 @@ def test_narrow_hubert_encode_on_card_matches_cpu_path(card, S):
         torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4 * scale)
 
 
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 3e-2)])
+def test_reduced_jamba_on_card_matches_cpu_path(card, dtype, tol):
+    """The reduced jamba (a Mamba + MoE layer, then attention + dense) on
+    the card against the same model on the CPU: prefill logits and every
+    layer's cache (Mamba conv window and state, attention k), teacher-forced
+    decode logits, within ``tol`` x max(scale, 1) (bf16: the reference's
+    decode-consistency tolerance, as the card smoke holds the zoo); K5 once
+    a prefill and never in decode; on the card, a prefill of S - 1 and one
+    decode step against the S-token forward at 3e-2."""
+    from repro_torch import configs
+    from repro_torch.models import model
+
+    cfg = dataclasses.replace(configs.get_reduced("jamba-1.5-large-398b"), dtype=dtype)
+    cpu = model.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    gpu = model.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu").to(card)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 200)).astype(np.int32))
+    before = gram.swa_flash_cuda.launches
+    lg, cache = model.prefill_step(gpu, {"tokens": toks[:, :192].to(card)}, max_len=200)
+    assert gram.swa_flash_cuda.launches == before + 1
+    lc, cache_c = model.prefill_step(cpu, {"tokens": toks[:, :192]}, max_len=200)
+    scale = max(float(lc.abs().max()), 1.0)
+    torch.testing.assert_close(lg.cpu().float(), lc.float(), rtol=0, atol=tol * scale)
+    for tg, tc in zip(cache["layers"], cache_c["layers"]):
+        for key in tc:
+            ref = tc[key].float()
+            torch.testing.assert_close(tg[key].cpu().float(), ref, rtol=0,
+                                       atol=tol * max(float(ref.abs().max()), 1.0))
+    for pos in range(192, 200):
+        tok = toks[:, pos:pos + 1]
+        lg, cache = model.decode_step(gpu, cache, {"tokens": tok.to(card)})
+        lc, cache_c = model.decode_step(cpu, cache_c, {"tokens": tok})
+        torch.testing.assert_close(lg.cpu().float(), lc.float(), rtol=0, atol=tol * scale)
+    assert gram.swa_flash_cuda.launches == before + 1
+    full = model.forward(gpu, {"tokens": toks.to(card)})[:, -1].float()
+    _, c = model.prefill_step(gpu, {"tokens": toks[:, :-1].to(card)}, max_len=200)
+    lg, _ = model.decode_step(gpu, c, {"tokens": toks[:, -1:].to(card)})
+    assert float((lg[:, 0].float() - full).abs().max()) <= \
+        3e-2 * max(float(full.abs().max()), 1.0)
+
+
 @pytest.mark.parametrize("arch,cf", [("phi3.5-moe-42b-a6.6b", 8.0),
                                      ("mixtral-8x22b", 8.0), ("mixtral-8x22b", 0.25)])
 def test_moe_block_on_card_matches_cpu(card, arch, cf):

@@ -133,10 +133,17 @@ class TestConfigs:
 
     def test_unported_layers_raise(self):
         _, tcfg = _cfgs()
-        for spec in (config.LayerSpec("mamba"), config.LayerSpec("rwkv"),
-                     config.LayerSpec("mamba", "moe")):
-            with pytest.raises(NotImplementedError, match="item 16"):
-                blocks.Layer(tcfg, spec, dtype=torch.float32, device="cpu")
+        with pytest.raises(NotImplementedError, match="item 16"):
+            blocks.Layer(tcfg, config.LayerSpec("rwkv"), dtype=torch.float32, device="cpu")
+        # both Mamba layer kinds build (slice 16d): a mamba mixer, no attn
+        mamba_cfg = dataclasses.replace(tcfg, num_experts=4, top_k=2)
+        for spec in (config.LayerSpec("mamba"), config.LayerSpec("mamba", "moe")):
+            layer = blocks.Layer(mamba_cfg, spec, dtype=torch.float32, device="cpu")
+            assert hasattr(layer, "mamba") and not hasattr(layer, "attn")
+            assert hasattr(layer, "moe" if spec.mlp == "moe" else "mlp")
+            assert layer.mamba.A_log.dtype == torch.float32
+            assert sum(p.numel() for p in layer.parameters()) == config._layer_params(
+                mamba_cfg, spec, active_only=False)
         # an MoE layer builds (slice 16b): its experts in place of the MLP
         moe_cfg = dataclasses.replace(tcfg, num_experts=4, top_k=2)
         layer = blocks.Layer(moe_cfg, config.LayerSpec("swa", "moe"),
