@@ -1,8 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's launchers.
 
-The port knows the reference's ten architecture ids, and builds those whose
-layers it has ported (``PORTED``). The others raise ``NotImplementedError``
-naming ROADMAP item 16, which holds the rest of the model zoo. ``RIDGE``
+The port knows the reference's ten architecture ids (``ARCH_IDS``) and
+builds them all (``PORTED``); any other id raises ``KeyError``. ``RIDGE``
 is the paper's own ridge configuration (§V-A defaults).
 """
 from repro_torch.configs import (
@@ -15,6 +14,7 @@ from repro_torch.configs import (
     pixtral_12b,
     qwen2_72b,
     ridge,
+    rwkv6_16b,
     yi_9b,
 )
 from repro_torch.models.config import ArchConfig
@@ -31,6 +31,7 @@ _MODULES = {
     "mixtral-8x22b": mixtral_8x22b,
     "minitron-8b": minitron_8b,
     "hubert-xlarge": hubert_xlarge,
+    "rwkv6-1.6b": rwkv6_16b,
     "pixtral-12b": pixtral_12b,
 }
 PORTED = tuple(_MODULES)
@@ -38,12 +39,8 @@ RIDGE = ridge.CONFIG
 
 
 def _module(arch_id: str):
-    if arch_id not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCH_IDS)}")
     if arch_id not in _MODULES:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP item 16); "
-            f"ported: {list(PORTED)}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCH_IDS)}")
     return _MODULES[arch_id]
 
 

@@ -227,8 +227,10 @@ def model_params_from(params, cfg: ArchConfig, *, device="cuda") -> BackboneLM:
     head and final norm are copied as they are; an encoder's MLP has no
     ``gate``. Weights keep the (in, out) orientation, so nothing is
     transposed; shapes and dtypes must match the model's exactly: the
-    config's dtype, but float32 for a Mamba layer's ``A_log`` and ``D`` in
-    every model, as the reference keeps them.
+    config's dtype, but float32 for a Mamba layer's ``A_log`` and ``D`` and
+    an RWKV time mix's ``w0``, ``u`` and ``ln_scale`` in every model, as
+    the reference keeps them. An RWKV layer's ``rwkv_tm`` and ``rwkv_cm``
+    subtrees carry over by name like any other.
     """
     model = BackboneLM(cfg, device=device)
 

@@ -4,7 +4,9 @@ Modes:
   * ``model``  — prefill a batch of prompts (a VLM's after its random
     patch prefix), then decode new tokens (the reference's
     ``launch/serve.py --mode model``). Every attention layer's prefill runs
-    kernel K5 on the card; decode is plain PyTorch against the KV cache. An
+    kernel K5 on the card; decode is plain PyTorch against the KV cache,
+    or a Mamba or RWKV layer's recurrent state (rwkv6-1.6b has no
+    attention layer, so no K5). An
     encoder-only arch (hubert-xlarge) raises, as the reference's does: it
     has no decode step, and its ``models.model.encode_step`` no CLI.
   * ``fusion`` — ridge serving on one ``server.EnginePool``, in process

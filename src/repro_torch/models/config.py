@@ -4,13 +4,14 @@ reference's ``models/config.py``, field for field).
 One ``ArchConfig`` describes any of the reference's architectures (dense
 GQA, MoE, hybrid Mamba+attention, RWKV6, audio encoder, VLM decoder). Layers
 are organised as ``num_stages`` repetitions of a fixed ``stage_pattern``
-(plus a ``tail_pattern`` remainder). The port builds and runs the
-attention and Mamba layers (``full``/``swa``/``full_bidir``/``mamba`` with a
-``dense`` or ``moe`` MLP, in all three input modes); the analytic
-``param_count`` covers every family, RWKV too. It counts what ``init_params`` builds: an encoder's
-ungated MLP (2 d d_ff) and an ``embeddings``-mode model's ``mask_embed`` (d,
-no token embedding), where the reference's count takes every dense MLP as
-gated and every model as embedding tokens (hubert-xlarge: 315,216,640 high).
+(plus a ``tail_pattern`` remainder). The port builds and runs every
+layer kind a config uses (``full``/``swa``/``full_bidir``/``mamba`` with a
+``dense`` or ``moe`` MLP, in all three input modes, and ``rwkv``), and
+the analytic ``param_count`` covers every family. It counts what
+``init_params`` builds: an encoder's ungated MLP (2 d d_ff) and an
+``embeddings``-mode model's ``mask_embed`` (d, no token embedding), where
+the reference's count takes every dense MLP as gated and every model as
+embedding tokens (hubert-xlarge: 315,216,640 high).
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Shared layers: RMSNorm, RoPE, the SwiGLU / GELU MLP, embedding and LM head.
+"""Shared layers: RMSNorm, RoPE, the SwiGLU / GELU MLP, embedding and LM
+head, and the chunk rule of the chunked recurrences (Mamba, RWKV).
 
 The counterparts of the reference's ``models/layers.py``. Weights keep the
 reference's (in, out) orientation, so a projection is ``x @ W`` and a JAX
@@ -29,6 +30,18 @@ def weight(shape, dtype, device) -> nn.Parameter:
 def dense_init_(w: torch.Tensor, generator: torch.Generator) -> None:
     """In place: normal x in_dim^-0.5 for an (in, out) weight."""
     w.normal_(generator=generator).mul_(w.shape[0] ** -0.5)
+
+
+def pick_chunk(seq_len: int, requested: int | None) -> int:
+    """Largest divisor of seq_len that is <= the requested chunk size (the
+    reference's ``layers.pick_chunk``): a ragged length snaps down to a
+    divisor instead of failing."""
+    if requested is None or requested >= seq_len:
+        return seq_len
+    c = max(1, min(requested, seq_len))
+    while seq_len % c:
+        c -= 1
+    return c
 
 
 class RMSNorm(nn.Module):

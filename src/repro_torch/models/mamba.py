@@ -63,18 +63,6 @@ class Mamba(nn.Module):
         self.D.fill_(1)
 
 
-def pick_chunk(seq_len: int, requested: int | None) -> int:
-    """Largest divisor of seq_len that is <= the requested chunk size (the
-    reference's ``layers.pick_chunk``): a ragged length snaps down to a
-    divisor instead of failing."""
-    if requested is None or requested >= seq_len:
-        return seq_len
-    c = max(1, min(requested, seq_len))
-    while seq_len % c:
-        c -= 1
-    return c
-
-
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv by shifted adds, x (B, S, di), w (K, di): the
     reference's sum, term by term in its order and x's dtype (tap K-1 on
@@ -134,9 +122,9 @@ def mamba_fwd(layer: Mamba, x: torch.Tensor, cfg: ArchConfig, *,
               chunk_size: int | None = None, return_cache: bool = False):
     """x (B, S, d) -> (B, S, d) [, the decode cache {"conv": the last K - 1
     conv inputs in x's dtype, "h": the final state in float32}]. The chunk
-    is ``pick_chunk(S, chunk_size)``."""
+    is ``layers.pick_chunk(S, chunk_size)``."""
     B, S, _ = x.shape
-    chunk = pick_chunk(S, chunk_size)
+    chunk = layers.pick_chunk(S, chunk_size)
     x_in, z = (x @ layer.in_proj).chunk(2, dim=-1)
     x_conv = F.silu(_causal_conv(x_in, layer.conv_w))
     dt, dtx, Bm, Cm = _ssm_inputs(layer, x_conv, cfg)

@@ -26,13 +26,14 @@ The module carries its config, so the functions take the model where the
 reference takes ``(params, cfg)``. Layers are attention or Mamba
 (``models/mamba.py``) with a dense MLP (SwiGLU; ungated GELU in an encoder)
 or an MoE (``models/moe.py``, capacity-bounded in prefill and decode
-alike). Every attention layer's full-sequence pass runs kernel K5 on CUDA
-tensors, causal or not; a Mamba layer's runs PyTorch's kernels. The cache
+alike), or RWKV6 (``models/rwkv6.py``, time mix and channel mix). Every
+attention layer's full-sequence pass runs kernel K5 on CUDA tensors,
+causal or not; a Mamba or RWKV layer's runs PyTorch's kernels. The cache
 is a dict ``{"layers": [one cache per layer, in execution order], "pos":
-int}``: an attention layer's is its keys and values, a Mamba layer's a
-recurrent state (the conv window and h). ``decode_step`` updates it in
-place and returns it. Training (``loss_fn``, ``make_train_step``) waits
-for ROADMAP item 16.
+int}``: an attention layer's is its keys and values, a Mamba or RWKV
+layer's a recurrent state (the conv window and h; S and the two token
+shifts). ``decode_step`` updates it in place and returns it. Training
+(``loss_fn``, ``make_train_step``) waits for ROADMAP item 16.
 """
 from __future__ import annotations
 
@@ -143,12 +144,13 @@ def decode_step(model: BackboneLM, cache: dict, batch: dict
     (B, 1, vocab) and the cache, updated in place and advanced by one.
     A position past a full layer's cache, or a Mamba layer's conv window
     short of K - 1 positions (a prefill shorter than that), raises
-    ValueError before any layer's cache is written."""
+    ValueError before any layer's cache is written; an RWKV layer's state
+    has no bound."""
     pos = cache["pos"]
     for layer, c in zip(model.all_layers(), cache["layers"]):
         if layer.spec.attn == "mamba":
             mamba.check_cache(c, model.cfg)
-        else:
+        elif layer.spec.attn != "rwkv":       # an RWKV state has no length
             attention.decode_slot(layer.spec.attn, pos, c["k"].shape[1])
     x = model.embed(batch["tokens"])
     for i, layer in enumerate(model.all_layers()):

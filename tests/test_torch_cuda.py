@@ -704,6 +704,49 @@ def test_reduced_jamba_on_card_matches_cpu_path(card, dtype, tol):
         3e-2 * max(float(full.abs().max()), 1.0)
 
 
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 3e-2)])
+def test_reduced_rwkv6_on_card_matches_cpu_path(card, dtype, tol):
+    """The reduced rwkv6 (two RWKV layers: the chunked WKV time mix and the
+    channel mix) on the card against the same model on the CPU: prefill
+    logits and every layer's cache (S, x_tm, x_cm), teacher-forced decode
+    logits, within ``tol`` x max(scale, 1) (bf16: the reference's
+    decode-consistency tolerance); no kernel of the port launches (no
+    attention layer); a prefill of S - 1 and one decode step against the
+    S-token forward at 3e-2 on the card. S 200 is a ragged length: its
+    chunk is 50."""
+    from repro_torch import configs
+    from repro_torch.models import model
+
+    cfg = dataclasses.replace(configs.get_reduced("rwkv6-1.6b"), dtype=dtype)
+    cpu = model.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    gpu = model.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu").to(card)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 200)).astype(np.int32))
+    gram.reset_launch_counts()
+    lg, cache = model.prefill_step(gpu, {"tokens": toks[:, :192].to(card)})
+    lc, cache_c = model.prefill_step(cpu, {"tokens": toks[:, :192]})
+    scale = max(float(lc.abs().max()), 1.0)
+    torch.testing.assert_close(lg.cpu().float(), lc.float(), rtol=0, atol=tol * scale)
+    for tg, tc in zip(cache["layers"], cache_c["layers"]):
+        assert set(tg) == {"S", "x_tm", "x_cm"} and tg["S"].dtype == torch.float32
+        for key in tc:
+            ref_ = tc[key].float()
+            torch.testing.assert_close(tg[key].cpu().float(), ref_, rtol=0,
+                                       atol=tol * max(float(ref_.abs().max()), 1.0))
+    for pos in range(192, 200):
+        tok = toks[:, pos:pos + 1]
+        lg, cache = model.decode_step(gpu, cache, {"tokens": tok.to(card)})
+        lc, cache_c = model.decode_step(cpu, cache_c, {"tokens": tok})
+        torch.testing.assert_close(lg.cpu().float(), lc.float(), rtol=0, atol=tol * scale)
+    full = model.forward(gpu, {"tokens": toks.to(card)})[:, -1].float()
+    _, c = model.prefill_step(gpu, {"tokens": toks[:, :-1].to(card)})
+    lg, _ = model.decode_step(gpu, c, {"tokens": toks[:, -1:].to(card)})
+    assert bool(torch.isfinite(full).all())
+    assert float((lg[:, 0].float() - full).abs().max()) <= \
+        3e-2 * max(float(full.abs().max()), 1.0)
+    assert all(n == 0 for n in gram.launch_counts().values())
+
+
 @pytest.mark.parametrize("arch,cf", [("phi3.5-moe-42b-a6.6b", 8.0),
                                      ("mixtral-8x22b", 8.0), ("mixtral-8x22b", 0.25)])
 def test_moe_block_on_card_matches_cpu(card, arch, cf):

@@ -29,7 +29,7 @@ from repro.models import mamba as jmamba
 from repro.models import model as jmodel
 from repro_torch import configs, convert
 from repro_torch.launch import serve
-from repro_torch.models import blocks, config, mamba, model
+from repro_torch.models import blocks, config, layers, mamba, model
 from test_torch_models import BATCH, GEN, PROMPT, _close, _jax_layer_caches, _tokens, \
     _tree_size
 
@@ -138,7 +138,7 @@ class TestMambaLayer:
     @pytest.mark.parametrize("S", [1, 50, 64, 4095])
     def test_pick_chunk_is_the_reference_rule(self, S, chunk):
         from repro.models import layers as jlayers
-        assert mamba.pick_chunk(S, chunk) == jlayers.pick_chunk(S, chunk)
+        assert layers.pick_chunk(S, chunk) == jlayers.pick_chunk(S, chunk)
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     def test_init_draws_the_reference_distributions(self, dtype):
@@ -354,4 +354,4 @@ class TestBlocks:
             assert hasattr(layer, "mamba") == (spec.attn == "mamba") != hasattr(layer, "attn")
             assert sum(p.numel() for p in layer.parameters()) == config._layer_params(
                 tcfg, spec, active_only=False)
-        assert blocks.MAMBA_CHUNK == 64
+        assert blocks.SEQ_CHUNK == 64

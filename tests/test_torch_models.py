@@ -120,21 +120,30 @@ class TestConfigs:
                     jconfig.shape_applicable(jcfg, shape)
 
     def test_registry_knows_the_reference_ids(self):
+        """Every reference id is ported (slice 16e brought the last,
+        rwkv6-1.6b); any other id raises KeyError."""
         assert configs.ARCH_IDS == jconfigs.ARCH_IDS
-        for arch in configs.ARCH_IDS:
-            if arch in configs.PORTED:
-                continue
-            with pytest.raises(NotImplementedError, match="item 16"):
-                configs.get(arch)
-            with pytest.raises(NotImplementedError, match="item 16"):
-                configs.get_reduced(arch)
+        assert sorted(configs.PORTED) == sorted(configs.ARCH_IDS)
         with pytest.raises(KeyError):
             configs.get("gpt-5")
+        with pytest.raises(KeyError):
+            configs.get_reduced("gpt-5")
 
     def test_unported_layers_raise(self):
         _, tcfg = _cfgs()
-        with pytest.raises(NotImplementedError, match="item 16"):
-            blocks.Layer(tcfg, config.LayerSpec("rwkv"), dtype=torch.float32, device="cpu")
+        # an RWKV layer builds (slice 16e): time mix and channel mix, no
+        # attn, mlp or moe, float32 w0, u and ln_scale
+        for spec in (config.LayerSpec("rwkv"), config.LayerSpec("rwkv", "moe")):
+            layer = blocks.Layer(tcfg, spec, dtype=torch.bfloat16, device="cpu")
+            assert hasattr(layer, "rwkv_tm") and hasattr(layer, "rwkv_cm")
+            assert not any(hasattr(layer, n) for n in ("attn", "mlp", "moe", "mamba"))
+            tm = layer.rwkv_tm
+            assert tm.w0.dtype == tm.u.dtype == tm.ln_scale.dtype == torch.float32
+            assert tm.wr.dtype == layer.rwkv_cm.wk.dtype == torch.bfloat16
+            assert sum(p.numel() for p in layer.parameters()) == config._layer_params(
+                tcfg, spec, active_only=False)
+        with pytest.raises(NotImplementedError, match="has no port"):
+            blocks.Layer(tcfg, config.LayerSpec("none"), dtype=torch.float32, device="cpu")
         # both Mamba layer kinds build (slice 16d): a mamba mixer, no attn
         mamba_cfg = dataclasses.replace(tcfg, num_experts=4, top_k=2)
         for spec in (config.LayerSpec("mamba"), config.LayerSpec("mamba", "moe")):
