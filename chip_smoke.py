@@ -124,8 +124,22 @@ kernels' launch counts set to 0 just before it and read just after:
   at every prefill shape of the zoo: mixtral's (B 2, S 8192, H 48 over 8,
   window 4096), qwen2's (B 1, S 4096, H 64 over 8, causal), phi3.5-moe's,
   minitron's and pixtral's (H 32 over 8), yi's (H 32 over 4) and hubert's
-  (B 4, S 1500, H 16 over 16, hd 80, non-causal; also in float32); the
-  zoo phase fails on a config whose shape is not among them.
+  (B 4, S 1500, H 16 over 16, hd 80, non-causal; also in float32), and
+  the train phase's (B 2, S 4096, H 32 over 4); the zoo and train phases
+  fail on a shape that is not among them;
+- training (``train``), after the zoo: the attention's gradient (K5's
+  forward, the port's backward ``ref.swa_attention_bwd``) against
+  autograd through K5's plain version at yi's training shape, gemma's
+  windowed one and hubert's, in float32 (checked) and bf16 (reported);
+  then yi-9b at full width cut to 8 of 48 layers (bf16, 1.91 G params,
+  float32 master weights and moments) trained for 8 steps of
+  ``make_train_step`` with every stage recomputed, on 2 x 4096 tokens of
+  the port's pipeline: losses finite and falling, K5 twice a layer a step
+  and no other kernel, step time, tokens/s, the forward + backward and
+  AdamW split by CUDA events, peak memory, mfu, and one profiled step's
+  idle share and shares of the attention backward, AdamW and K5; then
+  ``python -m repro_torch.launch.train`` on the reduced config as a
+  process, whose loss must fall.
 
 Results are checked against float64 references, and the model against the
 plain attention inside it (decode) and K5's plain version. It prints one JSON line
@@ -259,7 +273,34 @@ SWA_ZOO_SHAPES = {"mixtral": (2, 8192, 48, 8, 128, 4096, True),
                   "qwen2": (1, 4096, 64, 8, 128, None, True),
                   "phi35_minitron": (1, 4096, 32, 8, 128, None, True),
                   "yi": (1, 4096, 32, 4, 128, None, True),
-                  "hubert": (4, 1500, 16, 16, 80, None, False)}
+                  "hubert": (4, 1500, 16, 16, 80, None, False),
+                  # the train phase's forward (B 2 x S 4096, yi's heads)
+                  "yi_train": (2, 4096, 32, 4, 128, None, True)}
+
+# Training (the train phase), after the zoo: yi-9b at full width cut in
+# depth to its first 8 of 48 layers (1,908,477,952 parameters; bf16
+# weights and grads, float32 master, m and v: 30.5 GB), B 2 x S 4096 tokens
+# from the port's TokenPipeline (seed 0), 8 steps of make_train_step with
+# every stage recomputed in the backward (K5 twice a layer a step), AdamW
+# under the schedule of the reference's launch/train.py (warmup
+# max(steps // 20, 5)) at a peak learning rate of its 3e-4 scaled by
+# 256 / d_model (the
+# reduced configs' width, where 3e-4 trains): Adam's first steps move a
+# d-wide product by ~lr * d, and at d 4096 the unscaled 3e-4 took the loss
+# from 11.66 up to 13.60 in 8 steps on an H100 (PERF.md §6), as wider
+# models spike under the reference's own train loop
+# (tests/test_torch_train_wide.py). The
+# attention's gradient (K5 forward, ``ref.swa_attention_bwd`` backward) is
+# held to autograd through K5's plain version at yi's training shape and
+# at two of the kernel phase's (gemma's windowed one, hubert's non-causal
+# hd 80 one): float32 within TRAIN_GRAD_TOL relative Frobenius. Then the
+# train CLI as a process on the reduced config: its loss must fall.
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "yi-9b", 8, 2, 4096
+TRAIN_STEPS, TRAIN_SEED, TRAIN_GRAD_TOL = 8, 0, 1e-5
+TRAIN_LR_REDUCED = 3e-4               # launch/train.py's default, at d_model 256
+TRAIN_PEAK_PREDICTED_GB = (36, 42)
+TRAIN_CLI = ("--arch", "yi-9b", "--reduced", "--steps", "20", "--batch", "8",
+             "--seq", "128")
 
 # Algorithm 2 and the paper's baselines (the private_federation phase), on
 # the main path's data: DP one-shot (eps 1, delta 1e-5, key 7) on 4 of its
@@ -4018,6 +4059,260 @@ def zoo_serving_phase() -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# -- the train phase: yi-9b trained at full width through K5 ----------------
+
+def attention_grad_case(g, B: int, S: int, H: int, Hkv: int, hd: int, window,
+                        causal: bool) -> dict:
+    """The gradient of ``ops.swa_attention`` (K5 forward, then
+    ``ref.swa_attention_bwd``) against ``torch.autograd`` through K5's plain
+    version on the same inputs and output gradient: the worst relative
+    Frobenius error of dq, dk, dv in float32 (checked) and in bf16
+    (reported), and the backward's device time in bf16."""
+    from repro_torch.kernels import ops, ref
+
+    def fro(x, y) -> float:
+        x, y = x.double(), y.double()
+        return float(torch.linalg.vector_norm(x - y) / torch.linalg.vector_norm(y))
+
+    out = {"shape": [B, S, H, Hkv, hd], "window": window, "causal": causal}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = [torch.randn(shape, generator=g, device="cuda").to(dtype)
+                       for shape in ((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd),
+                                     (B, S, H, hd))]
+        kernel = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ops.swa_attention(*kernel, window=window, causal=causal).backward(do)
+        plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref.swa_attention_ref(*plain, window=window, causal=causal).backward(do)
+        err = max(fro(a.grad, b.grad) for a, b in zip(kernel, plain))
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        out[f"{tag}_grad_rel_fro"] = err
+        if dtype == torch.float32:
+            check(err <= TRAIN_GRAD_TOL,
+                  f"attention gradient at {out}: {err} > {TRAIN_GRAD_TOL} (float32)")
+        else:
+            out["bwd_ms_bf16"] = cuda_ms(lambda: ref.swa_attention_bwd(
+                q, k, v, do, window=window, causal=causal), reps=3)
+        del q, k, v, do, kernel, plain
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_step_split(fn) -> dict:
+    """Run ``fn`` (one training step) once under ``torch.profiler``: host
+    wall ms, summed device-kernel ms, the device idle share of the wall
+    (profiler overhead included), the kernel launches, K5's device ms (by
+    kernel name) and the device ms of the kernels launched inside the
+    ``attn.bwd`` range (the attention backward, ``kernels/ops.py``) and the
+    ``adamw.apply`` range (``optim/adamw.py``), each with its share of the
+    kernel time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    labels = ("attn.bwd", "adamw.apply")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in labels]
+    total = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3
+    k5 = sum(e.time_range.end - e.time_range.start for e in kernels
+             if "swa_flash" in e.name) / 1e3
+    parts, counts = dict.fromkeys(labels, 0.0), dict.fromkeys(labels, 0)
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        p = e
+        while p is not None and p.name not in parts:
+            p = p.cpu_parent
+        if p is not None:
+            parts[p.name] += sum(kn.duration for kn in e.kernels) / 1e3
+            counts[p.name] += len(e.kernels)
+    return {"wall_ms": wall_ms, "device_ms": total, "device_idle_share": 1 - total / wall_ms,
+            "launches": len(kernels), "k5_ms": k5, "k5_share": k5 / total,
+            "attn_bwd_ms": parts["attn.bwd"], "attn_bwd_share": parts["attn.bwd"] / total,
+            "attn_bwd_launches": counts["attn.bwd"],
+            "adamw_ms": parts["adamw.apply"], "adamw_share": parts["adamw.apply"] / total,
+            "adamw_launches": counts["adamw.apply"],
+            "rest_ms": total - k5 - parts["attn.bwd"] - parts["adamw.apply"]}
+
+
+def train_model_flops(cfg, batch: int, seq: int) -> float:
+    """The model FLOPs of one training step (no recompute counted): 6 x the
+    matmul parameters (every projection and the head; the embedding is a
+    gather) x the tokens, plus the causal attention's 12 x hd a kept
+    (query, key) pair in each head of each attention layer."""
+    from repro_torch.models import blocks
+
+    specs = cfg.stage_pattern * cfg.num_stages + cfg.tail_pattern
+    per_layer = (2 * cfg.d_model * cfg.q_dim + 2 * cfg.d_model * cfg.kv_dim
+                 + 3 * cfg.d_model * cfg.d_ff)
+    matmul = per_layer * len(specs) + cfg.d_model * cfg.vocab_size
+    attn = sum(s.attn in blocks.ATTN_KINDS for s in specs)
+    pairs = swa_pairs(seq, None, True) * batch * cfg.num_heads
+    return 6.0 * matmul * batch * seq + 12.0 * cfg.head_dim * pairs * attn
+
+
+def train_cli() -> dict:
+    """``python -m repro_torch.launch.train`` on the reduced config as a
+    process on the card: its report (``--out``), its wall seconds, and the
+    fall of its loss (checked)."""
+    out_dir = os.path.join(ROOT, "build", "train_cli")
+    os.makedirs(out_dir, exist_ok=True)
+    report_path = os.path.join(out_dir, "report.json")
+    t0 = time.perf_counter()
+    try:
+        run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI,
+                              "--out", report_path],
+                             capture_output=True, text=True, timeout=PROC_TIMEOUT, cwd=ROOT,
+                             env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+        check(run.returncode == 0, f"train CLI exited {run.returncode}: {run.stderr[-2000:]}")
+        with open(report_path) as f:
+            report = json.load(f)
+    finally:
+        import shutil
+        shutil.rmtree(out_dir, ignore_errors=True)
+    check(report["final_loss"] < report["first_loss"],
+          f"train CLI: the loss did not fall: {report['history']}")
+    return {"args": list(TRAIN_CLI), "first_loss": report["first_loss"],
+            "final_loss": report["final_loss"], "params_m": report["params_m"],
+            "train_wall_s": report["wall_s"], "process_s": time.perf_counter() - t0,
+            "last_line": run.stdout.strip().splitlines()[-1]}
+
+
+def train_phase(peaks) -> dict:
+    """yi-9b (``TRAIN_LAYERS`` of 48 layers, full width, bf16) trained for
+    ``TRAIN_STEPS`` steps on B ``TRAIN_BATCH`` x S ``TRAIN_SEQ`` tokens
+    through ``make_train_step(remat=True)``: every loss finite and the last
+    below the first, K5 launched 2 x 8 times a step and no other kernel;
+    step times, tokens/s, the step's split into forward + backward and
+    AdamW (CUDA events), peak memory, mfu, and one profiled step's device
+    idle share and attention-backward share. Before it, the attention
+    gradient at three shapes; after it, the train CLI."""
+    from repro_torch import configs
+    from repro_torch.data import BatchSpec, TokenPipeline
+    from repro_torch.kernels import gram as K
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    t_all = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator("cuda").manual_seed(TRAIN_SEED)
+    full = configs.get(TRAIN_ARCH)
+    cfg = depth_cut(full, TRAIN_LAYERS)
+    check((TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, None,
+           cfg.causal) in SWA_ZOO_SHAPES.values(),
+          "train: the kernel phase does not hold K5 at the training shape")
+    gemma = configs.get(MODEL_ARCH)
+    grad_cases = [
+        attention_grad_case(g, TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads,
+                            cfg.head_dim, None, True),
+        attention_grad_case(g, MODEL_BATCH, MODEL_PROMPT, gemma.num_heads,
+                            gemma.num_kv_heads, gemma.head_dim, gemma.window, True),
+        attention_grad_case(g, *SWA_ZOO_SHAPES["hubert"])]
+    grad_s = time.perf_counter() - t_all
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = M.init_params(cfg, generator=torch.Generator("cuda").manual_seed(TRAIN_SEED),
+                       device="cuda")
+    n_params = sum(p.numel() for p in lm.parameters())
+    check(n_params == cfg.param_count(),
+          f"{cfg.name}: {n_params} parameters, the config counts {cfg.param_count()}")
+    opt_state = adamw.init(lm)
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR_REDUCED * 256 / cfg.d_model,
+                                warmup_steps=max(TRAIN_STEPS // 20, 5),
+                                total_steps=TRAIN_STEPS)
+    step_fn = M.make_train_step(cfg, opt_cfg, remat=True)
+    pipe = TokenPipeline(BatchSpec(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size), seed=TRAIN_SEED,
+                         device="cuda")
+    batches = [pipe.batch(i) for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    state_gb = sum(t.numel() * t.element_size() for key in ("master", "m", "v")
+                   for t in opt_state[key].values()) / 1e9
+
+    # CUDA events around each step and around AdamW inside it
+    marks = []
+    apply = adamw.apply
+
+    def timed_apply(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = apply(*args, **kwargs)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    attn = attention_layers(cfg)
+    losses, step_s, fb_ms, adam_ms, k5_per_step = [], [], [], [], []
+    split = None
+    K.reset_launch_counts()
+    adamw.apply = timed_apply
+    try:
+        for i, batch in enumerate(batches):
+            before = K.launch_counts()["swa_flash"]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            begin = torch.cuda.Event(enable_timing=True)
+            begin.record()
+            if i == TRAIN_STEPS - 1:        # the last step, profiled
+                holder = {}
+                split = train_step_split(lambda: holder.update(
+                    loss=step_fn(lm, opt_state, batch)))
+                loss = holder["loss"]
+            else:
+                loss = step_fn(lm, opt_state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            start, end = marks[-1]
+            fb_ms.append(begin.elapsed_time(start))
+            adam_ms.append(start.elapsed_time(end))
+            losses.append(float(loss))
+            k5_per_step.append(K.launch_counts()["swa_flash"] - before)
+    finally:
+        adamw.apply = apply
+    launches = K.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(x) for x in losses), f"training losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
+    check(all(n == 2 * attn for n in k5_per_step),
+          f"K5 launches a step {k5_per_step}, want 2 x {attn} (remat runs each forward twice)")
+    check(all(n == 0 for name, n in launches.items() if name != "swa_flash"),
+          f"training launched other kernels: {launches}")
+    # steady state: the steps after the first (warm-up) and before the profiled one
+    steady = step_s[1:-1]
+    step_med = float(np.median(steady))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    out = {"phase": "train", "arch": cfg.name,
+           "reduced": f"depth: {cfg.num_layers} of {full.num_layers} layers",
+           "params": n_params, "dtype": cfg.dtype, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "remat": True, "adamw": dataclasses.asdict(opt_cfg),
+           "attention_grad": grad_cases, "attention_grad_tol": TRAIN_GRAD_TOL,
+           "losses": losses, "step_s": step_s, "step_s_median": step_med,
+           "steps_per_s": 1 / step_med, "tokens_per_s": tokens / step_med,
+           "fwd_bwd_ms": fb_ms, "adamw_ms": adam_ms,
+           "fwd_bwd_ms_median": float(np.median(fb_ms[1:-1])),
+           "adamw_ms_median": float(np.median(adam_ms[1:-1])),
+           "k5_launches_per_step": k5_per_step, "launches": launches,
+           "peak_gb": peak_gb, "peak_gb_predicted": list(TRAIN_PEAK_PREDICTED_GB),
+           "optimizer_state_gb": state_gb,
+           "model_tflop_per_step": flops / 1e12,
+           "mfu": flops / step_med / peaks[2], "mfu_peak": "dense bf16, CARD_PEAKS",
+           "profiled_step": split, "nvidia_smi": smi(),
+           "setup_s": setup_s, "attention_grad_s": grad_s}
+    del lm, opt_state, batches, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cli"] = train_cli()
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4056,6 +4351,8 @@ def main() -> int:
     emit(probe)
     zoo = zoo_serving_phase()
     emit(zoo)
+    train = train_phase(peaks)
+    emit(train)
     for kname, row in rows.items():
         run = (features if kname in ("sketch_gram", "rff_gram")
                else serving if kname == "swa_flash" else path)
@@ -4067,9 +4364,10 @@ def main() -> int:
         row["sharded_launches"] = (sharded_line["launches"][kname]
                                    + probe["mesh_launches"][kname])
         row["zoo_launches"] = zoo["launches"][kname]
+        row["train_launches"] = train["launches"][kname]
     order = ("name", "route", "source", "replaces", "launches", "wire_launches",
              "relay_launches", "private_launches", "sharded_launches", "zoo_launches",
-             "max_abs_err",
+             "train_launches", "max_abs_err",
              "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in order if k in row} for row in rows.values()]})
     print(smi(), flush=True)

@@ -1,6 +1,7 @@
 """Carry statistics, datasets, engine ledgers, serving pools, meshes,
 sharded backends, feature maps and model parameters across from numpy
-arrays.
+arrays, and a model's parameters, gradients and optimizer state both ways
+(``model_tree_of``, ``named_tensors_from``, ``opt_state_from``).
 
 Everything here goes through ``np.asarray``, so any object whose arrays
 convert to numpy (the reference package's arrays included) can be handed
@@ -233,32 +234,99 @@ def model_params_from(params, cfg: ArchConfig, *, device="cuda") -> BackboneLM:
     subtrees carry over by name like any other.
     """
     model = BackboneLM(cfg, device=device)
-
-    def copy(name: str, p: torch.Tensor, arr) -> None:
-        arr = np.asarray(arr)
+    by_name = dict(model.named_parameters())
+    for name, arr in _named_arrays(params, model):
+        p = by_name[name]
         want = str(p.dtype).removeprefix("torch.")
         if arr.shape != tuple(p.shape) or arr.dtype.name != want:
             raise ValueError(f"{name}: reference array {arr.dtype} {arr.shape}, "
                              f"model wants {want} {tuple(p.shape)}")
         with torch.no_grad():
             p.copy_(tensor_from_numpy(arr, device=device))
-
-    def fill(module, tree, index=None) -> None:
-        for name, p in module.named_parameters():
-            arr = tree
-            for key in name.split("."):
-                arr = arr[key]
-            copy(name, p, arr if index is None else np.asarray(arr)[index])
-
-    for s, stage in enumerate(model.stages):
-        for i, layer in enumerate(stage):
-            fill(layer, params["stages"][i], s)
-    for i, layer in enumerate(model.tail):
-        fill(layer, params["tail"][i])
-    for name in ("head", "final_norm"):
-        fill(getattr(model, name), params[name])
-    if cfg.input_mode == "embeddings":
-        copy("mask_embed", model.mask_embed, params["mask_embed"])
-    else:
-        fill(model.embed, params["embed"])
     return model
+
+
+def _named_arrays(tree, model: BackboneLM):
+    """(name, numpy array) for each of ``model``'s parameters: its leaf in a
+    tree of the reference's layout, stage s of a stacked stage leaf."""
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "stages":
+            arr, keys, index = tree["stages"][int(parts[2])], parts[3:], int(parts[1])
+        elif parts[0] == "tail":
+            arr, keys, index = tree["tail"][int(parts[1])], parts[2:], None
+        else:
+            arr, keys, index = tree, parts, None
+        for key in keys:
+            arr = arr[key]
+        yield name, np.asarray(arr) if index is None else np.asarray(arr)[index]
+
+
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array; bf16 / f16 widened to float32
+    (exact), since numpy has no bf16 of its own."""
+    t = t.detach()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def model_tree_of(model: BackboneLM, tensors: Mapping[str, torch.Tensor] | None = None
+                  ) -> dict:
+    """The reference's nested parameter layout of ``model``'s parameters, or
+    of any dict keyed by their names (grads, AdamW's master, m or v), as
+    host numpy arrays (bf16 widened to float32): the inverse of
+    :func:`model_params_from`. ``"stages"`` is a tuple with one dict per
+    stage-pattern position whose leaves stack the stages along a leading
+    ``num_stages`` axis; ``"tail"`` a tuple of per-layer dicts."""
+    cfg = model.cfg
+    values = dict(model.named_parameters()) if tensors is None else tensors
+    tree: dict = {}
+    stacks = [{} for _ in cfg.stage_pattern]            # position -> key path -> [per stage]
+    tail = [{} for _ in cfg.tail_pattern]
+
+    def put(node: dict, keys: list[str], leaf) -> None:
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = leaf
+
+    for name, _ in model.named_parameters():
+        parts, arr = name.split("."), _host_array(values[name])
+        if parts[0] == "stages":
+            stacks[int(parts[2])].setdefault(tuple(parts[3:]), []).append(arr)
+        elif parts[0] == "tail":
+            put(tail[int(parts[1])], parts[2:], arr)
+        else:
+            put(tree, parts, arr)
+    stages = []
+    for per_path in stacks:
+        node: dict = {}
+        for keys, arrs in per_path.items():
+            put(node, list(keys), np.stack(arrs))
+        stages.append(node)
+    tree["stages"] = tuple(stages)
+    if cfg.tail_pattern:
+        tree["tail"] = tuple(tail)
+    return tree
+
+
+def named_tensors_from(tree, model: BackboneLM, *, dtype=None) -> dict[str, torch.Tensor]:
+    """The leaves of a tree in the reference's parameter layout (its
+    parameters, grads, or AdamW's master, m or v) by ``model``'s parameter
+    names, on the model's device (``dtype``: the leaf's own by default):
+    the inverse of :func:`model_tree_of`."""
+    device = next(model.parameters()).device
+    return {name: tensor_from_numpy(arr, dtype=dtype, device=device)
+            for name, arr in _named_arrays(tree, model)}
+
+
+def opt_state_from(jax_state, model: BackboneLM) -> dict:
+    """The port's AdamW state (``optim.adamw``) for the reference's
+    ``{"master", "m", "v", "count"}``: each tree's leaves by the model's
+    parameter names as float32 on the model's device, and the count as an
+    int32 scalar."""
+    state = {key: named_tensors_from(jax_state[key], model, dtype=torch.float32)
+             for key in ("master", "m", "v")}
+    state["count"] = torch.tensor(int(np.asarray(jax_state["count"])), dtype=torch.int32,
+                                  device=next(model.parameters()).device)
+    return state

@@ -1,9 +1,12 @@
 """Public kernel entry points: dispatch by device, plus the Theorem-4 codec.
 
 ``gram_moment``, ``gemm_nt``, ``sketch_gram``, ``rff_gram`` and
-``swa_attention`` run the hand-written CUDA kernel for CUDA tensors and the plain PyTorch version (``kernels.ref``) for CPU tensors; any
-other device raises. There is no switch between the two: the tensor's device
-decides, and a failing kernel raises rather than falling back.
+``swa_attention`` run the hand-written CUDA kernel for CUDA tensors and the
+plain PyTorch version (``kernels.ref``) for CPU tensors; any other device
+raises. There is no switch between the two: the tensor's device decides,
+and a failing kernel raises rather than falling back. ``swa_attention``
+also carries a gradient where autograd records (its backward is
+``ref.swa_attention_bwd``).
 
 ``synchronize`` is the one device fence the host-timed loops use.
 
@@ -15,6 +18,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels import gram as gram_kernel
 from repro_torch.kernels import ref
@@ -72,6 +76,36 @@ def rff_gram(X: torch.Tensor, b: torch.Tensor, W: torch.Tensor,
     return ref.rff_gram_ref(X, b, W, c)
 
 
+class _SWAAttention(torch.autograd.Function):
+    """:func:`swa_attention` with a gradient: the forward is K5 on CUDA
+    tensors (the plain version on CPU ones), the backward
+    ``ref.swa_attention_bwd`` on both, inside an ``attn.bwd``
+    ``record_function`` range. The reference has no kernel here: its
+    attention is XLA's, and JAX differentiates it; the backward is the
+    port's own form of that autodiff work, not a plain version standing in
+    for a kernel. Only q, k and v are saved; the scores are recomputed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.window, ctx.causal = window, causal
+        return _swa_forward(q, k, v, window, causal)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        with record_function("attn.bwd"):
+            dq, dk, dv = ref.swa_attention_bwd(q, k, v, do, window=ctx.window,
+                                               causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def _swa_forward(q, k, v, window, causal):
+    if on_card(q.device, "swa_attention"):
+        return gram_kernel.swa_flash_cuda(q, k, v, window=window, causal=causal)
+    return ref.swa_attention_ref(q, k, v, window=window, causal=causal)
+
+
 def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   window: int | None, causal: bool = True) -> torch.Tensor:
     """Sliding-window (or full, ``window=None``) attention over a sequence:
@@ -79,13 +113,16 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, S, H, hd); k, v: (B, S, H_kv, hd) with H % H_kv == 0, query head
     h reading KV head h // (H / H_kv). No padding: the kernel masks a ragged
-    S itself, so a non-causal ragged S is exact too.
+    S itself, so a non-causal ragged S is exact too. Where autograd records
+    (grad mode on and an input that requires grad) the call carries a
+    gradient (:class:`_SWAAttention`); otherwise it is the bare forward,
+    with nothing saved.
     """
     if window is not None and window < 1:
         raise ValueError(f"swa_attention: window must be None or >= 1, got {window}")
-    if on_card(q.device, "swa_attention"):
-        return gram_kernel.swa_flash_cuda(q, k, v, window=window, causal=causal)
-    return ref.swa_attention_ref(q, k, v, window=window, causal=causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _SWAAttention.apply(q, k, v, window, causal)
+    return _swa_forward(q, k, v, window, causal)
 
 
 def synchronize(t: torch.Tensor) -> None:

@@ -102,3 +102,60 @@ def swa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = p / p.sum(-1, keepdim=True)
         out[:, :, :, q0:q1] = torch.einsum("bkgqs,bksd->bkgqd", p, vf)
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
+
+
+def swa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, *, window: int | None,
+                      causal: bool = True
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`swa_attention_ref`'s attention for the output
+    gradient ``do`` (B, S, H, hd), in float32 inside and returned in the
+    inputs' dtypes.
+
+    The scores are recomputed 256 queries at a time, each block reading
+    only the keys its mask can keep: [max(0, q0 - window + 1), q1) when
+    causal, up to S when not. Per block, with P the masked softmax,
+    dV += P^T dO, dP = dO V^T, dS = P . (dP - rowsum(dP . P)), dQ = dS K
+    scale and dK += dS^T Q scale; a KV head's dK and dV sum over its
+    group of query heads. The forward is K5 on the card; this backward is
+    the port's own form of the autodiff the reference leaves to XLA, and
+    runs on both devices.
+    """
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    scale = hd ** -0.5
+    qg = q.float().reshape(B, S, Hkv, H // Hkv, hd).permute(0, 2, 3, 1, 4)
+    dog = do.float().reshape(B, S, Hkv, H // Hkv, hd).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)                      # (B, Hkv, S, hd)
+    vf = v.float().permute(0, 2, 1, 3)
+    dq = torch.empty_like(qg)                                # (B, Hkv, G, S, hd)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for q0 in range(0, S, _SWA_BLOCK_Q):
+        q1 = min(q0 + _SWA_BLOCK_Q, S)
+        k0 = 0 if window is None else max(0, q0 - window + 1)
+        k1 = q1 if causal else S
+        qb, dob = qg[:, :, :, q0:q1], dog[:, :, :, q0:q1]
+        kb, vb = kf[:, :, k0:k1], vf[:, :, k0:k1]
+        s = torch.einsum("bkgqd,bksd->bkgqs", qb, kb) * scale
+        rel = (torch.arange(q0, q1, device=q.device)[:, None]
+               - torch.arange(k0, k1, device=q.device)[None, :])
+        ok = torch.ones_like(rel, dtype=torch.bool)
+        if causal:
+            ok &= rel >= 0
+        if window is not None:
+            ok &= rel < window
+        s = torch.where(ok, s, -1e30)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        p = p / p.sum(-1, keepdim=True)
+        del s
+        dv[:, :, k0:k1] += torch.einsum("bkgqs,bkgqd->bksd", p, dob)
+        dp = torch.einsum("bkgqd,bksd->bkgqs", dob, vb)
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+        del p, dp
+        dq[:, :, :, q0:q1] = torch.einsum("bkgqs,bksd->bkgqd", ds, kb) * scale
+        dk[:, :, k0:k1] += torch.einsum("bkgqs,bkgqd->bksd", ds, qb) * scale
+        del ds
+    return (dq.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype),
+            dk.permute(0, 2, 1, 3).to(k.dtype).contiguous(),
+            dv.permute(0, 2, 1, 3).to(v.dtype).contiguous())

@@ -76,14 +76,23 @@ class Layer(nn.Module):
         (self.mamba if self.spec.attn == "mamba" else self.attn).reset_parameters(generator)
         (self.moe if self.spec.mlp == "moe" else self.mlp).reset_parameters(generator)
 
-    def feed_forward(self, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-        """norm2 -> MLP or MoE, without the residual."""
+    def feed_forward(self, x: torch.Tensor, cfg: ArchConfig,
+                     collect_aux: list | None = None) -> torch.Tensor:
+        """norm2 -> MLP or MoE, without the residual; an MoE appends its
+        load-balance aux loss to ``collect_aux`` when one is given."""
         if self.spec.mlp == "moe":
-            return moe.moe_block(self.moe, self.norm2(x), cfg)
+            if collect_aux is None:
+                return moe.moe_block(self.moe, self.norm2(x), cfg)
+            y, aux = moe.moe_block(self.moe, self.norm2(x), cfg, return_aux=True)
+            collect_aux.append(aux)
+            return y
         return self.mlp(self.norm2(x))
 
 
-def apply_layer(layer: Layer, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def apply_layer(layer: Layer, x: torch.Tensor, cfg: ArchConfig, *,
+                collect_aux: list | None = None) -> torch.Tensor:
+    """One layer's full-sequence pass; an MoE layer appends its aux loss to
+    ``collect_aux`` when one is given (the reference's ``apply_layer``)."""
     if layer.spec.attn == "rwkv":
         x = x + rwkv6.rwkv_time_mix(layer.rwkv_tm, layer.norm1(x), cfg,
                                     chunk_size=SEQ_CHUNK)
@@ -93,7 +102,7 @@ def apply_layer(layer: Layer, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     else:
         x = x + attention.attention_fwd(layer.attn, layer.norm1(x), cfg,
                                         kind=layer.spec.attn)
-    return x + layer.feed_forward(x, cfg)
+    return x + layer.feed_forward(x, cfg, collect_aux)
 
 
 def init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,

@@ -8,7 +8,8 @@ Every module allocates its parameters empty; ``reset_parameters`` draws the
 reference's distributions (normal x in_dim^-0.5 for projections, normal x
 0.02 for the embedding, ones for norms) from an explicit ``torch.Generator``,
 which gives other numbers than ``jax.random`` from the same seed. Parameters
-do not require gradients: the port serves, it does not train yet.
+do not require gradients, so a served model never builds a graph; a
+training step (``model.make_train_step``) turns them on for its own use.
 """
 from __future__ import annotations
 
@@ -132,3 +133,11 @@ class LMHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x @ self.kernel
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Token-mean CE; the log-softmax in float32 whatever the logits' dtype."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)

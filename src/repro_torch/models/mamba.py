@@ -89,13 +89,19 @@ def _ssm_inputs(layer: Mamba, x_conv: torch.Tensor, cfg: ArchConfig):
 def _scan(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Inclusive scan of (a, b) along dim 1 under (a1, b1) o (a2, b2) =
     (a1 a2, a2 b1 + b2), in ceil(log2 L) Hillis-Steele steps."""
+    recording = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
     s = 1
     while s < a.shape[1]:
-        na, nb = torch.empty_like(a), torch.empty_like(b)
-        na[:, :s], nb[:, :s] = a[:, :s], b[:, :s]
-        torch.mul(a[:, :-s], a[:, s:], out=na[:, s:])
-        torch.addcmul(b[:, s:], a[:, s:], b[:, :-s], out=nb[:, s:])
-        a, b = na, nb
+        if recording:       # out= has no gradient: the same products, out of place
+            a, b = (torch.cat([a[:, :s], a[:, :-s] * a[:, s:]], dim=1),
+                    torch.cat([b[:, :s], torch.addcmul(b[:, s:], a[:, s:], b[:, :-s])],
+                              dim=1))
+        else:
+            na, nb = torch.empty_like(a), torch.empty_like(b)
+            na[:, :s], nb[:, :s] = a[:, :s], b[:, :s]
+            torch.mul(a[:, :-s], a[:, s:], out=na[:, s:])
+            torch.addcmul(b[:, s:], a[:, s:], b[:, :-s], out=nb[:, s:])
+            a, b = na, nb
         s *= 2
     return a, b
 

@@ -11,11 +11,16 @@ input modes:
   prefix_embeddings — the VLM (pixtral): ``batch["patches"]`` (B, P, d)
                       before the embedded ``batch["tokens"]``.
 
-and its serving steps:
+and its serving and training steps:
 
   init_params      — a ``BackboneLM`` with the reference's initial
                      distributions, drawn from a ``torch.Generator``;
-  forward          — full-sequence logits;
+  forward          — full-sequence logits (and the MoE aux loss), each
+                     stage recomputed in the backward under ``remat``;
+  loss_fn          — next-token CE, hubert's masked-unit CE or a VLM's CE
+                     past its prefix, plus the weighted MoE aux loss;
+  make_train_step  — gradients (accumulated over microbatches), then
+                     AdamW with float32 master weights (``optim.adamw``);
   prefill_step     — full-sequence forward returning last-position logits
                      and the decode cache (a VLM's prefix included);
   decode_step      — one token against the cache (full layers: the whole
@@ -32,16 +37,22 @@ causal or not; a Mamba or RWKV layer's runs PyTorch's kernels. The cache
 is a dict ``{"layers": [one cache per layer, in execution order], "pos":
 int}``: an attention layer's is its keys and values, a Mamba or RWKV
 layer's a recurrent state (the conv window and h; S and the two token
-shifts). ``decode_step`` updates it in place and returns it. Training
-(``loss_fn``, ``make_train_step``) waits for ROADMAP item 16.
+shifts). ``decode_step`` updates it in place and returns it.
+
+Parameters do not require gradients: serving builds no graph. A training
+step turns them on for its own use and off again; K5 stays the attention's
+forward there, and its backward is ``kernels.ref.swa_attention_bwd``
+(``kernels.ops.swa_attention``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, blocks, layers, mamba
 from repro_torch.models.config import ArchConfig
+from repro_torch.optim import adamw
 
 
 class BackboneLM(nn.Module):
@@ -106,13 +117,121 @@ def _input_embeddings(model: BackboneLM, batch: dict) -> torch.Tensor:
     raise ValueError(cfg.input_mode)
 
 
-def forward(model: BackboneLM, batch: dict) -> torch.Tensor:
-    """Full-sequence logits (B, S, vocab); S counts a VLM's prefix."""
+def _stage_body(stage: nn.ModuleList, x: torch.Tensor, cfg: ArchConfig,
+                with_aux: bool):
+    """One stage's layers -> (x, the stage's summed aux loss in float32, or
+    None without ``with_aux``)."""
+    aux = [] if with_aux else None
+    for layer in stage:
+        x = blocks.apply_layer(layer, x, cfg, collect_aux=aux)
+    if not with_aux:
+        return x, None
+    return x, sum(aux) if aux else x.new_zeros((), dtype=torch.float32)
+
+
+def forward(model: BackboneLM, batch: dict, *, remat: bool = False,
+            with_aux: bool = False):
+    """Full-sequence logits (B, S, vocab); S counts a VLM's prefix. With
+    ``with_aux``, (logits, the MoE layers' summed aux loss in float32).
+    ``remat`` recomputes each stage in the backward instead of keeping its
+    activations (``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint`` of its stage body), so each attention layer runs its
+    forward twice a training step."""
     cfg = model.cfg
     x = _input_embeddings(model, batch)
-    for layer in model.all_layers():
-        x = blocks.apply_layer(layer, x, cfg)
-    return model.head(model.final_norm(x))
+    stage_aux = []
+    for stage in model.stages:
+        if remat:
+            x, aux = checkpoint(_stage_body, stage, x, cfg, with_aux, use_reentrant=False)
+        else:
+            x, aux = _stage_body(stage, x, cfg, with_aux)
+        stage_aux.append(aux)
+    tail_aux = [] if with_aux else None
+    for layer in model.tail:
+        x = blocks.apply_layer(layer, x, cfg, collect_aux=tail_aux)
+    logits = model.head(model.final_norm(x))
+    if not with_aux:
+        return logits
+    aux_total = torch.stack(stage_aux).sum() if stage_aux \
+        else x.new_zeros((), dtype=torch.float32)
+    for aux in tail_aux:
+        aux_total = aux_total + aux
+    return logits, aux_total
+
+
+def loss_fn(model: BackboneLM, batch: dict, *, remat: bool = True) -> torch.Tensor:
+    """The training loss (float32 scalar) plus ``router_aux_weight`` times
+    the MoE aux loss: next-token CE on ``batch["labels"]``; for an encoder
+    (``embeddings``) the CE at the frames ``batch["mask"]`` sets, averaged
+    over them; for a VLM the CE of the text positions after its prefix."""
+    cfg = model.cfg
+    logits, aux = forward(model, batch, remat=remat, with_aux=True)
+    if cfg.input_mode == "embeddings":
+        lg = logits.float()
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = lg.gather(-1, batch["labels"].long()[..., None])[..., 0]
+        mask = batch["mask"].float()
+        loss = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    elif cfg.input_mode == "prefix_embeddings":
+        loss = layers.cross_entropy(logits[:, cfg.num_prefix:], batch["labels"])
+    else:
+        loss = layers.cross_entropy(logits, batch["labels"])
+    return loss + cfg.router_aux_weight * aux
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
+                    remat: bool = True, microbatches: int = 1):
+    """``train_step(model, opt_state, batch) -> loss`` (a float32 scalar on
+    the model's device, not synchronised).
+
+    The step turns ``requires_grad`` on for the model's parameters, takes
+    the gradients of :func:`loss_fn` and turns it off again, so a served
+    model never builds a graph. With ``microbatches`` > 1 the batch splits
+    along its leading axis and the gradients accumulate in the parameters'
+    dtype (``.grad``), as the reference's scan adds them; then they are
+    scaled by 1 / microbatches in that dtype and the loss is the mean.
+    AdamW (``optim.adamw.apply``) then updates the state and the
+    parameters in place.
+    """
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+
+    def train_step(model: BackboneLM, opt_state: dict, batch: dict) -> torch.Tensor:
+        named = list(model.named_parameters())
+        for _, p in named:
+            p.grad = None
+            p.requires_grad_(True)
+        try:
+            if microbatches == 1:
+                loss = loss_fn(model, batch, remat=remat)
+                loss.backward()
+                loss = loss.detach()
+            else:
+                split = {k: t.reshape(microbatches, t.shape[0] // microbatches,
+                                      *t.shape[1:]) for k, t in batch.items()}
+                loss = torch.zeros((), dtype=torch.float32, device=named[0][1].device)
+                for i in range(microbatches):
+                    loss_i = loss_fn(model, {k: t[i] for k, t in split.items()},
+                                     remat=remat)
+                    loss_i.backward()
+                    loss = loss + loss_i.detach()
+                inv = 1.0 / microbatches
+                loss = loss * inv
+                for _, p in named:
+                    if p.grad is not None:
+                        p.grad.mul_(inv)
+        finally:
+            for _, p in named:
+                p.requires_grad_(False)
+        # a parameter the loss does not reach (a mask_embed without a mask)
+        # has no .grad; its gradient is zero, as JAX's is
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad for n, p in named}
+        for _, p in named:
+            p.grad = None
+        adamw.apply(model, grads, opt_state, opt_cfg)
+        return loss
+
+    return train_step
 
 
 def init_decode_cache(cfg: ArchConfig, batch: int, seq_len: int, *,

@@ -113,7 +113,10 @@ def moe_block(module: MoE, x: torch.Tensor, cfg: ArchConfig,
     with record_function("moe.experts"):           # (E, C, d) -> (E, C, d)
         h = torch.bmm(disp[:, :C], module.gate)
         u = torch.bmm(disp[:, :C], module.up)
-        act = F.silu(h, inplace=True).mul_(u)
+        if torch.is_grad_enabled() and (h.requires_grad or u.requires_grad):
+            act = F.silu(h) * u      # silu's backward needs h itself
+        else:
+            act = F.silu(h, inplace=True).mul_(u)
         del u
         out_e = torch.bmm(act, module.down)
 

@@ -148,10 +148,17 @@ def _wkv_group(S0, r, k, v, lw, u):
     kv = k_dec.transpose(-1, -2) @ v                       # (n, B, H, hd, hd)
     decay = torch.exp(lw_cum[..., -1, :])[..., None]       # (n, B, H, hd, 1)
     # the carry: the state each chunk starts from
-    starts = torch.empty_like(kv)
-    starts[0] = S0
-    for j in range(r.shape[0] - 1):
-        torch.addcmul(kv[j], decay[j], starts[j], out=starts[j + 1])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (S0, kv, decay)):
+        # out= has no gradient: the same addcmuls, out of place
+        carried = [S0]
+        for j in range(r.shape[0] - 1):
+            carried.append(torch.addcmul(kv[j], decay[j], carried[j]))
+        starts = torch.stack(carried)
+    else:
+        starts = torch.empty_like(kv)
+        starts[0] = S0
+        for j in range(r.shape[0] - 1):
+            torch.addcmul(kv[j], decay[j], starts[j], out=starts[j + 1])
     # cross: y_t = (r_t . prod_{j<=t-1} w_j) @ S_start
     y = q @ starts
     # intra: y_t += sum_{i<t} (r_t . prod_{i<j<t} w) . k_i  v_i

@@ -1479,3 +1479,102 @@ def test_sharded_pool_on_card_restores_bitwise(card, tmp_path):
     assert back.tenant("s").backend_name == "sharded"
     assert torch.equal(back.solve("s", 0.1), w)
     back.close()
+
+
+# --- training (K5's forward with the port's backward) --------------------------
+
+@pytest.mark.parametrize("S,H,Hkv,hd,window,causal", [
+    (300, 4, 1, 128, None, True), (520, 4, 2, 64, 100, True), (257, 2, 2, 80, None, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_attention_grad_on_card(card, S, H, Hkv, hd, window, causal, dtype):
+    """dq, dk, dv of ``ops.swa_attention`` (K5 forward, then
+    ``ref.swa_attention_bwd``) against autograd through the plain forward on
+    the same card tensors: float32 within 1e-5, bf16 within 1e-2 of each
+    gradient's largest magnitude; K5 launched once."""
+    q, k, v, do = (_randn(shape, dtype, seed=i).to(card) for i, shape in enumerate(
+        ((2, S, H, hd), (2, S, Hkv, hd), (2, S, Hkv, hd), (2, S, H, hd))))
+    kernel = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = gram.swa_flash_cuda.launches
+    ops.swa_attention(*kernel, window=window, causal=causal).backward(do)
+    assert gram.swa_flash_cuda.launches == before + 1
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref.swa_attention_ref(*plain, window=window, causal=causal).backward(do)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for a, b in zip(kernel, plain):
+        assert a.grad.dtype == dtype
+        assert _rel(a.grad, b.grad) <= tol
+
+
+def _yi_pair(card, dtype="float32"):
+    from repro_torch import configs
+    from repro_torch.models import model
+
+    cfg = dataclasses.replace(configs.get_reduced("yi-9b"), dtype=dtype)
+    cpu = model.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    gpu = model.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu").to(card)
+    return cfg, cpu, gpu
+
+
+def test_reduced_yi_loss_and_grads_on_card_match_cpu_path(card):
+    from repro_torch.launch import train
+    from repro_torch.models import model
+
+    cfg, cpu, gpu = _yi_pair(card)
+    batch = train.make_pipeline(cfg, 2, 128, 0, device="cpu").batch(0)
+    out = {}
+    before = gram.swa_flash_cuda.launches
+    for name, lm, b in (("cpu", cpu, batch),
+                        ("gpu", gpu, {k: t.to(card) for k, t in batch.items()})):
+        for p in lm.parameters():
+            p.requires_grad_(True)
+        loss = model.loss_fn(lm, b, remat=True)
+        loss.backward()
+        out[name] = (float(loss), {n: p.grad.cpu() for n, p in lm.named_parameters()})
+    # remat: each attention layer's forward runs twice on the card
+    assert gram.swa_flash_cuda.launches == before + 2 * cfg.num_layers
+    assert abs(out["gpu"][0] - out["cpu"][0]) <= 1e-4
+    for n, g in out["cpu"][1].items():
+        assert _rel(out["gpu"][1][n], g) <= 1e-4, n
+
+
+@pytest.mark.parametrize("remat,per_layer", [(True, 2), (False, 1)])
+def test_train_step_k5_launches_on_card(card, remat, per_layer):
+    from repro_torch.launch import train
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+
+    cfg, _, gpu = _yi_pair(card, "bfloat16")
+    state = adamw.init(gpu)
+    step = model.make_train_step(cfg, adamw.AdamWConfig(warmup_steps=1), remat=remat)
+    pipe = train.make_pipeline(cfg, 2, 128, 0, device=card)
+    gram.reset_launch_counts()
+    losses = [float(step(gpu, state, pipe.batch(i))) for i in range(3)]
+    counts = gram.launch_counts()
+    assert counts["swa_flash"] == 3 * per_layer * cfg.num_layers
+    assert all(n == 0 for k, n in counts.items() if k != "swa_flash")
+    assert all(np.isfinite(losses))
+    assert not any(p.requires_grad or p.grad is not None for p in gpu.parameters())
+
+
+def test_adamw_step_on_card_matches_cpu_path(card):
+    """One AdamW step from the same bf16 weights on the same gradients, on
+    the card and on the CPU: master, m and v within 1e-6 of each tensor's
+    largest magnitude, the bf16 parameters within one bf16 ulp."""
+    from repro_torch.optim import adamw
+
+    _, cpu, gpu = _yi_pair(card, "bfloat16")
+    cfg = adamw.AdamWConfig(warmup_steps=3, total_steps=20)
+    sc, sg = adamw.init(cpu), adamw.init(gpu)
+    grads = {n: _randn(p.shape, seed=i).mul(1e-2).bfloat16()
+             for i, (n, p) in enumerate(cpu.named_parameters())}
+    for _ in range(2):
+        adamw.apply(cpu, grads, sc, cfg)
+        adamw.apply(gpu, {n: g.to(card) for n, g in grads.items()}, sg, cfg)
+    assert int(sg["count"]) == int(sc["count"]) == 2
+    for key in ("master", "m", "v"):
+        for n, t in sc[key].items():
+            assert _rel(sg[key][n], t) <= 1e-6, (key, n)
+    for (n, pg), pc in zip(gpu.named_parameters(), cpu.parameters()):
+        diff = (pg.cpu().float() - pc.float()).abs()
+        assert bool((diff <= 2.0 ** -7 * pc.float().abs()).all()), n
