@@ -288,7 +288,8 @@ SWA_ZOO_SHAPES = {"mixtral": (2, 8192, 48, 8, 128, 4096, True),
 # reduced configs' width, where 3e-4 trains): Adam's first steps move a
 # d-wide product by ~lr * d, and at d 4096 the unscaled 3e-4 took the loss
 # from 11.66 up to 13.60 in 8 steps on an H100 (PERF.md §6), as wider
-# models spike under the reference's own train loop
+# models spike under the reference's own train loop: at d 2048 in float32
+# and at this width in bf16 (one layer) both packages rise step for step
 # (tests/test_torch_train_wide.py). The
 # attention's gradient (K5 forward, ``ref.swa_attention_bwd`` backward) is
 # held to autograd through K5's plain version at yi's training shape and

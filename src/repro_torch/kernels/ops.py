@@ -113,16 +113,14 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, S, H, hd); k, v: (B, S, H_kv, hd) with H % H_kv == 0, query head
     h reading KV head h // (H / H_kv). No padding: the kernel masks a ragged
-    S itself, so a non-causal ragged S is exact too. Where autograd records
-    (grad mode on and an input that requires grad) the call carries a
-    gradient (:class:`_SWAAttention`); otherwise it is the bare forward,
-    with nothing saved.
+    S itself, so a non-causal ragged S is exact too. The call carries a
+    gradient (:class:`_SWAAttention`) where autograd records (grad mode on
+    and an input that requires grad); otherwise the output has no
+    ``grad_fn`` and nothing saved outlives the call.
     """
     if window is not None and window < 1:
         raise ValueError(f"swa_attention: window must be None or >= 1, got {window}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _SWAAttention.apply(q, k, v, window, causal)
-    return _swa_forward(q, k, v, window, causal)
+    return _SWAAttention.apply(q, k, v, window, causal)
 
 
 def synchronize(t: torch.Tensor) -> None:

@@ -69,6 +69,24 @@ def panel_gemm_ref(L: torch.Tensor, X: torch.Tensor, c0: int, c1: int,
 _SWA_BLOCK_Q = 256    # query rows per step: a (B, H, 256, S) float32 score block
 
 
+def _block_probs(qb: torch.Tensor, kb: torch.Tensor, q0: int, k0: int,
+                 window: int | None, causal: bool, scale: float) -> torch.Tensor:
+    """The masked softmax of one query block qb (B, Hkv, G, bq, hd) over
+    the keys kb (B, Hkv, nk, hd) at positions q0.. and k0..: float32
+    (B, Hkv, G, bq, nk), dropped pairs scoring -1e30 before the softmax."""
+    s = torch.einsum("bkgqd,bksd->bkgqs", qb, kb) * scale
+    rel = (torch.arange(q0, q0 + qb.shape[3], device=qb.device)[:, None]
+           - torch.arange(k0, k0 + kb.shape[2], device=qb.device)[None, :])
+    ok = torch.ones_like(rel, dtype=torch.bool)
+    if causal:
+        ok &= rel >= 0
+    if window is not None:
+        ok &= rel < window
+    s = torch.where(ok, s, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return p / p.sum(-1, keepdim=True)
+
+
 def swa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       window: int | None, causal: bool = True) -> torch.Tensor:
     """Masked-softmax attention in float32: the plain version of K5.
@@ -85,21 +103,11 @@ def swa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qg = q.float().view(B, S, Hkv, H // Hkv, hd).permute(0, 2, 3, 1, 4)
     kf = k.float().permute(0, 2, 1, 3)                      # (B, Hkv, S, hd)
     vf = v.float().permute(0, 2, 1, 3)
-    k_pos = torch.arange(S, device=q.device)
     out = torch.empty_like(qg)                               # (B, Hkv, G, S, hd)
     for q0 in range(0, S, _SWA_BLOCK_Q):
         q1 = min(q0 + _SWA_BLOCK_Q, S)
-        q_pos = torch.arange(q0, q1, device=q.device)
-        s = torch.einsum("bkgqd,bksd->bkgqs", qg[:, :, :, q0:q1], kf) * scale
-        rel = q_pos[:, None] - k_pos[None, :]
-        ok = torch.ones_like(rel, dtype=torch.bool)
-        if causal:
-            ok &= rel >= 0
-        if window is not None:
-            ok &= rel < window
-        s = torch.where(ok, s, -1e30)
-        p = torch.exp(s - s.amax(-1, keepdim=True))
-        p = p / p.sum(-1, keepdim=True)
+        # every block reads all S keys (the backward reads only those kept)
+        p = _block_probs(qg[:, :, :, q0:q1], kf, q0, 0, window, causal, scale)
         out[:, :, :, q0:q1] = torch.einsum("bkgqs,bksd->bkgqd", p, vf)
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
 
@@ -137,18 +145,7 @@ def swa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k1 = q1 if causal else S
         qb, dob = qg[:, :, :, q0:q1], dog[:, :, :, q0:q1]
         kb, vb = kf[:, :, k0:k1], vf[:, :, k0:k1]
-        s = torch.einsum("bkgqd,bksd->bkgqs", qb, kb) * scale
-        rel = (torch.arange(q0, q1, device=q.device)[:, None]
-               - torch.arange(k0, k1, device=q.device)[None, :])
-        ok = torch.ones_like(rel, dtype=torch.bool)
-        if causal:
-            ok &= rel >= 0
-        if window is not None:
-            ok &= rel < window
-        s = torch.where(ok, s, -1e30)
-        p = torch.exp(s - s.amax(-1, keepdim=True))
-        p = p / p.sum(-1, keepdim=True)
-        del s
+        p = _block_probs(qb, kb, q0, k0, window, causal, scale)
         dv[:, :, k0:k1] += torch.einsum("bkgqs,bkgqd->bksd", p, dob)
         dp = torch.einsum("bkgqd,bksd->bkgqs", dob, vb)
         ds = p * (dp - (dp * p).sum(-1, keepdim=True))

@@ -135,9 +135,14 @@ class LMHead(nn.Module):
         return x @ self.kernel
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Token-mean CE; the log-softmax in float32 whatever the logits' dtype."""
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-mean CE; the log-softmax in float32 whatever the logits' dtype.
+    With a ``mask`` the mean is over the positions it sets (at least one)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    return torch.mean(logz - gold)
+    if mask is None:
+        return torch.mean(logz - gold)
+    mask = mask.float()
+    return ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -92,7 +92,11 @@ def _scan(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
     recording = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
     s = 1
     while s < a.shape[1]:
-        if recording:       # out= has no gradient: the same products, out of place
+        # out= has no gradient, so a recorded step makes the same products
+        # out of place; serving writes them in place, since the
+        # concatenation copies every element again (the scan ~2x slower on
+        # an H100, PERF.md §6)
+        if recording:
             a, b = (torch.cat([a[:, :s], a[:, :-s] * a[:, s:]], dim=1),
                     torch.cat([b[:, :s], torch.addcmul(b[:, s:], a[:, s:], b[:, :-s])],
                               dim=1))

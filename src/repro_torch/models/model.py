@@ -167,11 +167,7 @@ def loss_fn(model: BackboneLM, batch: dict, *, remat: bool = True) -> torch.Tens
     cfg = model.cfg
     logits, aux = forward(model, batch, remat=remat, with_aux=True)
     if cfg.input_mode == "embeddings":
-        lg = logits.float()
-        logz = torch.logsumexp(lg, dim=-1)
-        gold = lg.gather(-1, batch["labels"].long()[..., None])[..., 0]
-        mask = batch["mask"].float()
-        loss = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        loss = layers.cross_entropy(logits, batch["labels"], batch["mask"])
     elif cfg.input_mode == "prefix_embeddings":
         loss = layers.cross_entropy(logits[:, cfg.num_prefix:], batch["labels"])
     else:

@@ -149,7 +149,8 @@ def _wkv_group(S0, r, k, v, lw, u):
     decay = torch.exp(lw_cum[..., -1, :])[..., None]       # (n, B, H, hd, 1)
     # the carry: the state each chunk starts from
     if torch.is_grad_enabled() and any(t.requires_grad for t in (S0, kv, decay)):
-        # out= has no gradient: the same addcmuls, out of place
+        # out= has no gradient: the same addcmuls, out of place (serving
+        # writes each state in place rather than stacking copies of them)
         carried = [S0]
         for j in range(r.shape[0] - 1):
             carried.append(torch.addcmul(kv[j], decay[j], carried[j]))

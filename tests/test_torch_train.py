@@ -215,6 +215,27 @@ def test_cross_entropy_matches_reference(dtype):
     assert abs(float(got) - want) <= 1e-6 * abs(want)
 
 
+@pytest.mark.parametrize("kept", [0, 5, 18])
+def test_masked_cross_entropy_matches_reference(kept):
+    """The masked-unit CE (hubert's loss): the reference's masked mean of
+    ``logz - gold`` in float32, with no position kept giving 0."""
+    rng = np.random.default_rng(2)
+    logits = rng.standard_normal((2, 9, 40)).astype(np.float32) * 4
+    labels = rng.integers(0, 40, (2, 9)).astype(np.int32)
+    mask = np.zeros(18, bool)
+    mask[rng.permutation(18)[:kept]] = True
+    mask = mask.reshape(2, 9)
+    lg = jnp.asarray(logits)
+    ce = (jax.nn.logsumexp(lg, axis=-1)
+          - jnp.take_along_axis(lg, jnp.asarray(labels)[..., None], axis=-1)[..., 0])
+    m = jnp.asarray(mask, jnp.float32)
+    want = float((ce * m).sum() / jnp.maximum(m.sum(), 1.0))
+    got = layers.cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels),
+                               torch.from_numpy(mask))
+    assert abs(float(got) - want) <= 1e-6 * max(abs(want), 1.0)
+    assert (float(got) == 0.0) == (kept == 0)
+
+
 def test_model_tree_round_trip():
     """``model_tree_of`` gives the reference's tree structure and shapes;
     ``named_tensors_from`` of it gives the parameters back bitwise."""
