@@ -136,10 +136,23 @@ kernels' launch counts set to 0 just before it and read just after:
   ``make_train_step`` with every stage recomputed, on 2 x 4096 tokens of
   the port's pipeline: losses finite and falling, K5 twice a layer a step
   and no other kernel, step time, tokens/s, the forward + backward and
-  AdamW split by CUDA events, peak memory, mfu, and one profiled step's
-  idle share and shares of the attention backward, AdamW and K5; then
-  ``python -m repro_torch.launch.train`` on the reduced config as a
-  process, whose loss must fall.
+  AdamW split by CUDA events, peak memory over the dry-run's bytes of the
+  step's arguments, mfu, and one profiled step's idle share and shares of
+  the attention backward, AdamW and K5; then ``python -m
+  repro_torch.launch.train`` on the reduced config as a process, whose
+  loss must fall;
+- the dry-run (``dryrun``), last: ``python -m repro_torch.launch.dryrun
+  --all --card --memory-only`` as a process over every (config x input
+  shape) on the one-card mesh, 33 OK and the reference's 7 skips, yi-9b's
+  train_4k in cost mode and ``python -m repro_torch.launch.roofline``'s
+  table; the dry-run's parameter bytes of every model built above at full
+  width (gemma3-27b's cut, the zoo's, yi-9b's training cut, and for
+  training AdamW's state and the arguments) equal to the byte to what the
+  phases measured; the roofline of the train phase's step beside its
+  measured time; then the probe example (``examples/train_probe_e2e_torch.py``)
+  at its defaults in process: its one-shot head within 1e-3 of the
+  centralized one, K1 once and K5 twice a layer a step and once a layer a
+  client, K1 and K5 then held to their plain versions at its shapes.
 
 Results are checked against float64 references, and the model against the
 plain attention inside it (decode) and K5's plain version. It prints one JSON line
@@ -299,9 +312,21 @@ SWA_ZOO_SHAPES = {"mixtral": (2, 8192, 48, 8, 128, 4096, True),
 TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "yi-9b", 8, 2, 4096
 TRAIN_STEPS, TRAIN_SEED, TRAIN_GRAD_TOL = 8, 0, 1e-5
 TRAIN_LR_REDUCED = 3e-4               # launch/train.py's default, at d_model 256
-TRAIN_PEAK_PREDICTED_GB = (36, 42)
 TRAIN_CLI = ("--arch", "yi-9b", "--reduced", "--steps", "20", "--batch", "8",
              "--seq", "128")
+
+# The dry-run (the dryrun phase), after training: ``launch.dryrun --all
+# --card --memory-only`` over the whole (config x input shape) matrix on the
+# one-card mesh (33 combinations and the reference's 7 skips), then the cost
+# mode of DRYRUN_COSTED (the matrix's cost sweep takes many minutes of host
+# time on meta: jamba's train_4k alone ~3 min), then ``launch.roofline``
+# over the records, under build/ (removed after). Then the probe example
+# (examples/train_probe_e2e_torch.py) in process at its defaults: reduced
+# yi-9b (2 layers, float32) trained for EXAMPLE_STEPS steps, then
+# EXAMPLE_CLIENTS clients' features; K5 twice a layer a step (remat) and
+# once a layer a client, K1 once (the centralized head).
+DRYRUN_COSTED = (("yi-9b", "train_4k"),)
+EXAMPLE_STEPS, EXAMPLE_CLIENTS, EXAMPLE_ROWS = 200, 8, 16
 
 # Algorithm 2 and the paper's baselines (the private_federation phase), on
 # the main path's data: DP one-shot (eps 1, delta 1e-5, key 7) on 4 of its
@@ -340,17 +365,6 @@ SHARD_SERVE_TENANTS, SHARD_SERVE_CLIENTS, SHARD_SERVE_ROWS = 4, 4, 4096
 SHARD_SERVE_QUERIES, SHARD_SERVE_STREAM = 64, 64
 SHARD_DP_DIM, SHARD_DP_ROWS = 1024, 8192
 
-# Published peaks, NVIDIA data sheets: memory bytes/s, FP32 operations/s
-# outside the tensor cores (the bound of K2 and P, float32 work), dense
-# bf16 tensor-core operations/s (the bound of K5's bf16 attention) and
-# dense TF32 tensor-core operations/s (K1's, K3's and K4's 3xTF32 routes:
-# a third of it).
-CARD_PEAKS = {
-    "H100 PCIe": (2.0e12, 51e12, 756e12, 378e12),
-    "H100 NVL": (3.9e12, 60e12, 835e12, 418e12),
-    "H100": (3.35e12, 67e12, 989e12, 495e12),     # SXM5 (HBM3)
-}
-
 # K1's, K3's, K4's and K5's times on their earlier CUDA-core routines,
 # quoted from PERF.md §6 (NVIDIA H100 80GB HBM3, 700.00 W). They are not
 # measured by this script: its output keeps them apart, under
@@ -373,13 +387,6 @@ def emit(obj) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
-
-
-def card_peaks(name: str):
-    for key, rates in CARD_PEAKS.items():
-        if key in name:
-            return rates
-    raise RuntimeError(f"no published peaks for card {name!r}")
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
@@ -3378,7 +3385,7 @@ def model_serving_phase() -> tuple:
     specs = [s.attn for s in cfg.stage_pattern * cfg.num_stages + cfg.tail_pattern]
     errs = {}
     t_all = time.perf_counter()
-    lm, inputs, steps, weight_gb = seeded_model(cfg, MODEL_SEED, MODEL_BATCH, MODEL_PROMPT)
+    lm, inputs, steps, param_bytes = seeded_model(cfg, MODEL_SEED, MODEL_BATCH, MODEL_PROMPT)
     prompts = inputs["tokens"]
 
     # the main path: prefill 4 x 4096, then 31 decode steps (32 tokens),
@@ -3441,7 +3448,8 @@ def model_serving_phase() -> tuple:
     return lm, {"phase": "model_serving", "arch": cfg.name,
             "reduced": f"depth: num_stages {MODEL_STAGES} of 10 ({n_layers} of 62 layers)",
             "layers": {kind: specs.count(kind) for kind in ("swa", "full")},
-            "params": cfg.param_count(), "weight_gb": weight_gb,
+            "params": cfg.param_count(), "param_bytes": param_bytes,
+            "weight_gb": param_bytes / 1e9,
             "batch": MODEL_BATCH, "prompt_len": MODEL_PROMPT, "gen_tokens": MODEL_GEN,
             "dtype": cfg.dtype, "steps_s": steps, "errors": errs, "launches": launches,
             "profiles": profiles,
@@ -3638,7 +3646,8 @@ def seeded_model(cfg, seed: int, batch: int, prompt_len: int) -> tuple:
     (and the reference's) draws them; an encoder's (batch, prompt_len,
     d_model) float32 frames instead. Returns the model, the inputs
     (``{"tokens", "patches"?}`` or ``{"embeddings"}``), the init seconds
-    and the weights' GB."""
+    and the weights' bytes (an integer: the dryrun phase holds the
+    dry-run's bytes to it)."""
     from repro_torch.models import model as M
 
     gc.collect()
@@ -3652,18 +3661,18 @@ def seeded_model(cfg, seed: int, batch: int, prompt_len: int) -> tuple:
     n_params = sum(p.numel() for p in lm.parameters())
     check(n_params == cfg.param_count(),
           f"{cfg.name}: {n_params} parameters, the config counts {cfg.param_count()}")
-    weight_gb = sum(p.numel() * p.element_size() for p in lm.parameters()) / 1e9
+    param_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
     rng = np.random.default_rng(seed)
     if cfg.input_mode == "embeddings":
         frames = rng.standard_normal((batch, prompt_len, cfg.d_model), dtype=np.float32)
         return lm, {"embeddings": torch.from_numpy(frames).cuda()}, \
-            {"init_params_s": init_s}, weight_gb
+            {"init_params_s": init_s}, param_bytes
     inputs = {"tokens": torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).cuda()}
     if cfg.input_mode == "prefix_embeddings":
         inputs["patches"] = torch.from_numpy(rng.standard_normal(
             (batch, cfg.num_prefix, cfg.d_model), dtype=np.float32)).cuda()
-    return lm, inputs, {"init_params_s": init_s}, weight_gb
+    return lm, inputs, {"init_params_s": init_s}, param_bytes
 
 
 def attention_layers(cfg) -> int:
@@ -3857,7 +3866,7 @@ def zoo_run(arch: str, layers: int, batch: int, prompt_len: int, gen: int) -> di
                cfg.head_dim, window, cfg.causal) in SWA_ZOO_SHAPES.values(),
               f"{arch}: the kernel phase does not hold K5 at this prefill's shape")
     t_all = time.perf_counter()
-    lm, inputs, steps, weight_gb = seeded_model(cfg, ZOO_SEED, batch, prompt_len)
+    lm, inputs, steps, param_bytes = seeded_model(cfg, ZOO_SEED, batch, prompt_len)
     tokens, launches, served_peak_gb, served = serve_checked(
         lm, inputs, gen, runs=2 if cfg.num_experts else 1)
     steps.update(served)
@@ -3866,7 +3875,8 @@ def zoo_run(arch: str, layers: int, batch: int, prompt_len: int, gen: int) -> di
                else f"depth: {n_layers} of {full_cfg.num_layers} layers")
     out = {"arch": cfg.name, "reduced": reduced,
            "params": cfg.param_count(), "active_params": cfg.active_param_count(),
-           "weight_gb": weight_gb, "batch": batch, "prefix": cfg.num_prefix,
+           "param_bytes": param_bytes, "weight_gb": param_bytes / 1e9, "batch": batch,
+           "prefix": cfg.num_prefix,
            "prompt_len": prompt_len, "gen_tokens": gen, "window": window,
            "layers": {f"{s.attn}+{s.mlp}": specs.count(s) for s in dict.fromkeys(specs)},
            "launches": launches, "sample_tokens": tokens[0, :8].tolist()}
@@ -3934,7 +3944,7 @@ def long_run(arch: str, batch: int, gen: int) -> dict:
     seq = INPUT_SHAPES["prefill_32k"].seq_len
     check(attention_layers(cfg) == 0, f"{arch}: has attention layers")
     t_all = time.perf_counter()
-    lm, inputs, steps, weight_gb = seeded_model(cfg, ZOO_SEED, batch, seq)
+    lm, inputs, steps, param_bytes = seeded_model(cfg, ZOO_SEED, batch, seq)
     tokens, launches, served_peak_gib, served = serve_checked(lm, inputs, gen, runs=1)
     steps.update(served)
     steps["decode_ms_per_step"] = steps["decode_s"] / (gen - 1) * 1e3
@@ -3950,7 +3960,8 @@ def long_run(arch: str, batch: int, gen: int) -> dict:
           f"and {seq} positions")
     steps["total_s"] = time.perf_counter() - t_all
     out = {"arch": cfg.name, "reduced": "none: all layers, full width",
-           "params": cfg.param_count(), "weight_gb": weight_gb, "batch": batch,
+           "params": cfg.param_count(), "param_bytes": param_bytes,
+           "weight_gb": param_bytes / 1e9, "batch": batch,
            "prompt_len": seq, "gen_tokens": gen, "launches": launches,
            "sample_tokens": tokens[0, :8].tolist(),
            "cache_bytes_per_layer": {str(n): b[0] for n, b in per_layer.items()},
@@ -3982,7 +3993,7 @@ def encode_run(arch: str, batch: int, frames: int) -> dict:
           in SWA_ZOO_SHAPES.values(),
           f"{arch}: the kernel phase does not hold K5 at this encode's shape")
     t_all = time.perf_counter()
-    lm, inputs, steps, weight_gb = seeded_model(cfg, ZOO_SEED, batch, frames)
+    lm, inputs, steps, param_bytes = seeded_model(cfg, ZOO_SEED, batch, frames)
 
     def encode(batch_in, key):
         t0 = time.perf_counter()
@@ -4026,7 +4037,8 @@ def encode_run(arch: str, batch: int, frames: int) -> dict:
           f"{cfg.name}: K5 launches of four encodes")
     steps["total_s"] = time.perf_counter() - t_all
     out = {"arch": cfg.name, "reduced": "none: all layers, full width",
-           "params": cfg.param_count(), "weight_gb": weight_gb, "batch": batch,
+           "params": cfg.param_count(), "param_bytes": param_bytes,
+           "weight_gb": param_bytes / 1e9, "batch": batch,
            "frames": frames, "head_dim": cfg.head_dim, "causal": cfg.causal,
            "launches": launches, "frame0_moved_max_abs": frame0_moved,
            "vs_float32": {"max_abs": err, "tol": tol, "logit_scale": scale},
@@ -4195,7 +4207,9 @@ def train_phase(peaks) -> dict:
     from repro_torch import configs
     from repro_torch.data import BatchSpec, TokenPipeline
     from repro_torch.kernels import gram as K
+    from repro_torch.launch import dryrun
     from repro_torch.models import model as M
+    from repro_torch.models.config import InputShape
     from repro_torch.optim import adamw
 
     t_all = time.perf_counter()
@@ -4233,8 +4247,14 @@ def train_phase(peaks) -> dict:
     batches = [pipe.batch(i) for i in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    state_gb = sum(t.numel() * t.element_size() for key in ("master", "m", "v")
-                   for t in opt_state[key].values()) / 1e9
+    param_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    optimizer_bytes = sum(t.numel() * t.element_size() for key in ("master", "m", "v")
+                          for t in opt_state[key].values()) \
+        + opt_state["count"].numel() * opt_state["count"].element_size()
+    # the predicted floor of the peak: the step's arguments on one card
+    # (parameters, AdamW's state, the batch), as the dry-run counts them
+    floor = dryrun.memory(cfg, InputShape("train_phase", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                          dryrun.make_named_mesh("card"))
 
     # CUDA events around each step and around AdamW inside it
     marks = []
@@ -4300,10 +4320,13 @@ def train_phase(peaks) -> dict:
            "fwd_bwd_ms_median": float(np.median(fb_ms[1:-1])),
            "adamw_ms_median": float(np.median(adam_ms[1:-1])),
            "k5_launches_per_step": k5_per_step, "launches": launches,
-           "peak_gb": peak_gb, "peak_gb_predicted": list(TRAIN_PEAK_PREDICTED_GB),
-           "optimizer_state_gb": state_gb,
+           "peak_gb": peak_gb, "param_bytes": param_bytes,
+           "optimizer_bytes": optimizer_bytes, "optimizer_state_gb": optimizer_bytes / 1e9,
+           "dryrun_arguments": floor["arguments"],
+           "peak_floor_bytes": floor["argument_bytes"],
+           "peak_over_floor_gb": peak_gb - floor["argument_bytes"] / 1e9,
            "model_tflop_per_step": flops / 1e12,
-           "mfu": flops / step_med / peaks[2], "mfu_peak": "dense bf16, CARD_PEAKS",
+           "mfu": flops / step_med / peaks[2], "mfu_peak": "dense bf16, launch.mesh.CARD_PEAKS",
            "profiled_step": split, "nvidia_smi": smi(),
            "setup_s": setup_s, "attention_grad_s": grad_s}
     del lm, opt_state, batches, step_fn
@@ -4314,6 +4337,185 @@ def train_phase(peaks) -> dict:
     return out
 
 
+# -- the dryrun phase: the dry-run on the card's mesh, and the probe example --
+
+def dryrun_phase(peaks, serving: dict, zoo: dict, train: dict) -> dict:
+    """(a) the dry-run's memory sweep of the whole matrix on the one-card
+    mesh as a process (33 OK, 7 SKIP), the cost mode of ``DRYRUN_COSTED``
+    and the roofline's table; (b) the dry-run's parameter bytes of every
+    model the script built at full width (gemma3-27b's cut, the zoo's runs,
+    yi-9b's training cut), and for training AdamW's and the arguments'
+    bytes, equal to the byte to what the phases measured; (c) the roofline
+    of the train phase's own step (yi-9b at 8 layers, B 2 x 4096) beside its
+    measured time, not a gate; (d) the probe example in process, its
+    one-shot head within 1e-3 of the centralized one and its K1 and K5
+    launches pinned, K1 and K5 then held to their plain versions at its
+    shapes."""
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.kernels import gram as K
+    from repro_torch.kernels import ref
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.config import InputShape
+
+    t_all = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "dryrun_torch")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    steps = {}
+
+    def module(step: str, *args) -> str:
+        """``python -m args`` as a process; its stdout; its seconds as ``step``."""
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
+                             timeout=PROC_TIMEOUT, cwd=ROOT, env=env)
+        check(run.returncode == 0, f"{' '.join(args)} exited {run.returncode}: "
+              f"{run.stdout[-1000:]} {run.stderr[-2000:]}")
+        steps[step] = time.perf_counter() - t0
+        return run.stdout
+
+    # (a) the matrix in memory mode, DRYRUN_COSTED in cost mode, the roofline
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        lines = module("memory_sweep_s", "repro_torch.launch.dryrun", "--all", "--card",
+                       "--memory-only", "--out", out_dir).splitlines()
+        status = [line[1:5].strip() for line in lines if line.startswith("[")]
+        counts = {k: status.count(k) for k in ("OK", "SKIP", "FAIL")}
+        check(counts == {"OK": 33, "SKIP": 7, "FAIL": 0} and len(status) == 40,
+              f"dry-run sweep: {counts}")
+        for arch, shape_name in DRYRUN_COSTED:
+            module(f"cost_{arch}_{shape_name}_s", "repro_torch.launch.dryrun", "--arch", arch,
+                   "--shape", shape_name, "--card", "--out", out_dir)
+        table = module("roofline_s", "repro_torch.launch.roofline", "--dir", out_dir)
+        matrix = {}
+        for name in sorted(os.listdir(out_dir)):
+            if not name.endswith("_card.json"):
+                continue
+            with open(os.path.join(out_dir, name)) as f:
+                rec = json.load(f)
+            if "skipped" in rec:
+                continue
+            mem = rec["memory"]
+            row = {"argument_bytes": mem["argument_bytes"], "arguments": mem["arguments"],
+                   "output_bytes": mem["output_bytes"], "fits": mem["fits"],
+                   "fit_layers": mem["fit_layers"]}
+            r = roofline.analyze(rec)
+            if r is not None:
+                row.update(counted_tflop=r.flops / 1e12, model_tflop=r.model_flops / 1e12,
+                           compute_ms=r.compute_s * 1e3, memory_ms=r.est_memory_s * 1e3,
+                           dominant=r.dominant)
+            matrix[f"{rec['arch']} {rec['shape']}"] = row
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    # (b) the dry-run's bytes against the models the phases built
+    card = dryrun.make_named_mesh("card")
+
+    def params_bytes(cfg) -> int:
+        shape = InputShape("serve", cfg.num_prefix + 64, 1, "prefill")
+        return dryrun.memory(cfg, shape, card)["arguments"]["params"]
+
+    gemma = dataclasses.replace(configs.get(MODEL_ARCH), num_stages=MODEL_STAGES)
+    built = [(gemma, serving["param_bytes"])]
+    built += [(depth_cut(configs.get(run[0]), run[1]), r["param_bytes"])
+              for run, r in zip(ZOO_RUNS, zoo["runs"])]
+    built += [(configs.get(r["arch"]), r["param_bytes"]) for r in zoo["runs"][len(ZOO_RUNS):]]
+    exact = []
+    for cfg, measured in built:
+        want = params_bytes(cfg)
+        exact.append({"arch": cfg.name, "layers": cfg.num_layers, "dryrun_param_bytes": want,
+                      "model_param_bytes": measured})
+        check(want == measured, f"{cfg.name} at {cfg.num_layers} layers: the dry-run's "
+              f"parameter bytes {want}, the model's {measured}")
+    train_cfg = depth_cut(configs.get(TRAIN_ARCH), TRAIN_LAYERS)
+    train_shape = InputShape("train_phase", TRAIN_SEQ, TRAIN_BATCH, "train")
+    mem = dryrun.memory(train_cfg, train_shape, card)
+    exact.append({"arch": train_cfg.name, "layers": train_cfg.num_layers, "train": True,
+                  "dryrun_arguments": mem["arguments"],
+                  "model_param_bytes": train["param_bytes"],
+                  "adamw_state_bytes": train["optimizer_bytes"]})
+    check(mem["arguments"]["params"] == train["param_bytes"]
+          and mem["arguments"]["opt"] == train["optimizer_bytes"]
+          and mem["argument_bytes"] == train["peak_floor_bytes"],
+          f"training: the dry-run's arguments {mem['arguments']}, the phase's parameters "
+          f"{train['param_bytes']} and AdamW state {train['optimizer_bytes']} bytes")
+
+    # (c) the roofline of the train phase's step beside its measured time
+    t0 = time.perf_counter()
+    c2, c4 = (dryrun.cost(train_cfg, train_shape, card, n)["flops"]
+              for n in dryrun.COST_STAGES)
+    flops = roofline.at_depth(c2, c4, train_cfg.num_stages)
+    est = roofline.hbm_bytes(train_cfg, train_shape, model_shards=1, data_shards=1)
+    compute_s, memory_s = flops / peaks[2], est / peaks[0]
+    step_roofline = {
+        "arch": train_cfg.name, "layers": train_cfg.num_layers,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": False,
+        "counted_tflop": flops / 1e12,
+        "counted_tflop_at_8_stages": dryrun.count_flops(train_cfg, train_shape) / 1e12,
+        "model_tflop_6nd": roofline.model_flops(train_cfg, train_shape, 1) / 1e12,
+        "train_phase_model_tflop_per_step": train["model_tflop_per_step"],
+        "compute_s": compute_s, "memory_s": memory_s, "est_hbm_bytes": est,
+        "bound_s": max(compute_s, memory_s),
+        "measured_step_s_median": train["step_s_median"],
+        "measured_over_bound": train["step_s_median"] / max(compute_s, memory_s),
+        "peaks": "launch.mesh.CARD_PEAKS (dense bf16, HBM)"}
+    steps["step_roofline_s"] = time.perf_counter() - t0
+
+    # (d) the probe example at its defaults, in process
+    t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "train_probe_e2e_torch", os.path.join(ROOT, "examples", "train_probe_e2e_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    printed = io.StringIO()
+    K.reset_launch_counts()
+    with contextlib.redirect_stdout(printed):
+        res = example.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    steps["example_s"] = time.perf_counter() - t0
+    attn = attention_layers(configs.get_reduced("yi-9b"))
+    want = {name: 0 for name in launches}
+    want.update(swa_flash=2 * attn * EXAMPLE_STEPS + attn * EXAMPLE_CLIENTS, gram_moment=1)
+    check(launches == want, f"the example launched {launches}, want {want}")
+    check(res["rel"] < 1e-3, f"the example's head: rel err {res['rel']}")
+    F, Y = res["features"], res["targets"]
+    G, h = K.gram_moment_cuda(F, Y)
+    Gr, hr = ref.gram_moment_ref(F, Y)
+    k1_err = max(rel_err(G, Gr), rel_err(h, hr))
+    check(k1_err <= 1e-5, f"K1 at the example's features: rel err {k1_err}")
+    g = torch.Generator("cuda").manual_seed(TRAIN_SEED)
+    rcfg = configs.get_reduced("yi-9b")
+    k5_err = {}
+    for B in (8, EXAMPLE_ROWS):          # the training batch, a client's rows
+        q, k, v = [torch.randn(shape, generator=g, device="cuda") for shape in (
+            (B, 64, rcfg.num_heads, rcfg.head_dim),
+            (B, 64, rcfg.num_kv_heads, rcfg.head_dim),
+            (B, 64, rcfg.num_kv_heads, rcfg.head_dim))]
+        k5_err[f"B {B}"] = float((K.swa_flash_cuda(q, k, v, window=None, causal=True)
+                                  - ref.swa_attention_ref(q, k, v, window=None,
+                                                          causal=True)).abs().max())
+        check(k5_err[f"B {B}"] <= 3e-5, f"K5 float32 at the example's shape: {k5_err}")
+    example_line = {"rel": res["rel"], "mse": res["mse"], "launches": launches,
+                    "first_loss": res["train"]["first_loss"],
+                    "final_loss": res["train"]["final_loss"],
+                    "train_wall_s": res["train"]["wall_s"], "k1_rel_err": k1_err,
+                    "k5_f32_max_abs_err": k5_err,
+                    "last_lines": printed.getvalue().strip().splitlines()[-3:]}
+    del res, F, Y, G, h, Gr, hr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "dryrun", "mesh": "card (1, 1)", "hbm_bytes": mesh_lib.HBM_BYTES,
+            "sweep": counts, "costed": [list(c) for c in DRYRUN_COSTED],
+            "matrix": matrix, "roofline_table": table.strip().splitlines(),
+            "exact_bytes": exact, "step_roofline": step_roofline, "example": example_line,
+            "steps_s": steps, "nvidia_smi": smi(), "seconds": time.perf_counter() - t_all}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4322,9 +4524,14 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    from repro_torch.launch import mesh as mesh_lib
+
     torch.cuda.set_device(0)
     name = torch.cuda.get_device_name(0)
-    peaks = card_peaks(name)
+    # published peaks (memory bytes/s, FP32, dense bf16 and dense TF32
+    # operations/s): K2 and P are bound at FP32, K5 at bf16, K1, K3 and K4
+    # at a third of TF32 (their 3xTF32 routes)
+    peaks = mesh_lib.card_peaks(name)
     emit(device_phase())
     kernels_line, rows = kernel_phase(peaks)
     emit(kernels_line)
@@ -4354,6 +4561,8 @@ def main() -> int:
     emit(zoo)
     train = train_phase(peaks)
     emit(train)
+    dry = dryrun_phase(peaks, serving, zoo, train)
+    emit(dry)
     for kname, row in rows.items():
         run = (features if kname in ("sketch_gram", "rff_gram")
                else serving if kname == "swa_flash" else path)
@@ -4366,9 +4575,10 @@ def main() -> int:
                                    + probe["mesh_launches"][kname])
         row["zoo_launches"] = zoo["launches"][kname]
         row["train_launches"] = train["launches"][kname]
+        row["example_launches"] = dry["example"]["launches"][kname]
     order = ("name", "route", "source", "replaces", "launches", "wire_launches",
              "relay_launches", "private_launches", "sharded_launches", "zoo_launches",
-             "train_launches", "max_abs_err",
+             "train_launches", "example_launches", "max_abs_err",
              "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in order if k in row} for row in rows.values()]})
     print(smi(), flush=True)

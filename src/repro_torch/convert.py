@@ -20,7 +20,7 @@ from repro_torch.core import features
 from repro_torch.core.sufficient_stats import SuffStats
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.model import BackboneLM
+from repro_torch.models.model import BackboneLM, stacked_tree
 from repro_torch.launch.mesh import Mesh, make_mesh
 from repro_torch.server.distributed import ShardedBackend
 from repro_torch.server.engine import CoalescerPolicy, FusionEngine
@@ -278,36 +278,11 @@ def model_tree_of(model: BackboneLM, tensors: Mapping[str, torch.Tensor] | None 
     host numpy arrays (bf16 widened to float32): the inverse of
     :func:`model_params_from`. ``"stages"`` is a tuple with one dict per
     stage-pattern position whose leaves stack the stages along a leading
-    ``num_stages`` axis; ``"tail"`` a tuple of per-layer dicts."""
-    cfg = model.cfg
+    ``num_stages`` axis; ``"tail"`` a tuple of per-layer dicts
+    (``models.model.stacked_tree``)."""
     values = dict(model.named_parameters()) if tensors is None else tensors
-    tree: dict = {}
-    stacks = [{} for _ in cfg.stage_pattern]            # position -> key path -> [per stage]
-    tail = [{} for _ in cfg.tail_pattern]
-
-    def put(node: dict, keys: list[str], leaf) -> None:
-        for key in keys[:-1]:
-            node = node.setdefault(key, {})
-        node[keys[-1]] = leaf
-
-    for name, _ in model.named_parameters():
-        parts, arr = name.split("."), _host_array(values[name])
-        if parts[0] == "stages":
-            stacks[int(parts[2])].setdefault(tuple(parts[3:]), []).append(arr)
-        elif parts[0] == "tail":
-            put(tail[int(parts[1])], parts[2:], arr)
-        else:
-            put(tree, parts, arr)
-    stages = []
-    for per_path in stacks:
-        node: dict = {}
-        for keys, arrs in per_path.items():
-            put(node, list(keys), np.stack(arrs))
-        stages.append(node)
-    tree["stages"] = tuple(stages)
-    if cfg.tail_pattern:
-        tree["tail"] = tuple(tail)
-    return tree
+    return stacked_tree(model.cfg, {name: _host_array(values[name])
+                                    for name, _ in model.named_parameters()}, np.stack)
 
 
 def named_tensors_from(tree, model: BackboneLM, *, dtype=None) -> dict[str, torch.Tensor]:

@@ -3,10 +3,12 @@
 ``gram_moment``, ``gemm_nt``, ``sketch_gram``, ``rff_gram`` and
 ``swa_attention`` run the hand-written CUDA kernel for CUDA tensors and the
 plain PyTorch version (``kernels.ref``) for CPU tensors; any other device
-raises. There is no switch between the two: the tensor's device decides,
-and a failing kernel raises rather than falling back. ``swa_attention``
-also carries a gradient where autograd records (its backward is
-``ref.swa_attention_bwd``).
+raises, but ``meta``, whose tensors carry shapes and no data: it takes the
+plain version, which there computes nothing (the dry-run's shape-only
+programs, ``launch/dryrun.py``). There is no switch between the two: the
+tensor's device decides, and a failing kernel raises rather than falling
+back. ``swa_attention`` also carries a gradient where autograd records
+(its backward is ``ref.swa_attention_bwd``).
 
 ``synchronize`` is the one device fence the host-timed loops use.
 
@@ -34,13 +36,14 @@ def pow2_bucket(n: int, *, floor: int = 1) -> int:
 
 
 def on_card(device: torch.device, name: str) -> bool:
-    """True for CUDA (kernel), False for CPU (plain version); else raise.
+    """True for CUDA (kernel), False for CPU (plain version) and for meta
+    (the plain version on shapes alone); else raise.
 
     The port's one device rule: every dispatcher asks it, none looks at the
     device itself."""
     if device.type == "cuda":
         return True
-    if device.type == "cpu":
+    if device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"{name}: no kernel or plain path for device {device}")
 

@@ -18,8 +18,12 @@ summation order is fixed, so a reduction repeats bit for bit.
 ``make_cpu_mesh(n)`` and ``make_device_mesh(n)`` arrange n shards as the
 most-square (rows, cols) factorization with rows >= cols (8 gives (4, 2)),
 as the reference's ``make_cpu_mesh`` does; unlike it they never degrade,
-since shards need no devices of their own. The reference's production mesh
-(256 TPU v5e chips) and its TPU constants are not carried over.
+since shards need no devices of their own. ``make_production_mesh`` builds
+the reference's production shapes, (16, 16) or (2, 16, 16), on ``meta`` by
+default: the dry-run resolves shardings on it and never allocates. The
+reference's TPU v5e constants give way to the H100's data-sheet peaks
+(``CARD_PEAKS``, ``PEAK_FLOPS_BF16``, ``HBM_BANDWIDTH``, ``HBM_BYTES``),
+which ``launch/roofline.py`` and the card smoke read.
 """
 from __future__ import annotations
 
@@ -118,6 +122,14 @@ def make_device_mesh(n: int = 8, axes=("data", "model"), *,
     return make_mesh(_square(n), axes, device=device)
 
 
+def make_production_mesh(*, multi_pod: bool = False, device="meta") -> Mesh:
+    """The reference's production mesh: (data 16, model 16), or with
+    ``multi_pod`` (pod 2, data 16, model 16), every shard on ``device``."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"), device=device)
+    return make_mesh((16, 16), ("data", "model"), device=device)
+
+
 def make_host_mesh(shape=(4, 2), axes=("data", "model")) -> Mesh:
     """A mesh of ``shape`` on the CPU (tests)."""
     return make_mesh(shape, axes, device="cpu")
@@ -131,6 +143,33 @@ def make_cpu_mesh(n: int = 8, axes=("data", "model")) -> Mesh:
 def client_axes(mesh) -> tuple[str, ...]:
     """Mesh axes that play the paper's 'clients' role (row-sharding axes)."""
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+# -- the card's peaks --------------------------------------------------------
+
+# Published peaks, NVIDIA H100 data sheet (dense, without sparsity, at the
+# full power limit): memory bytes/s, FP32 operations/s outside the tensor
+# cores, dense bf16 tensor-core operations/s and dense TF32 tensor-core
+# operations/s (a 3xTF32 route runs at a third of it), by the name's part
+# that ``torch.cuda.get_device_name`` gives.
+CARD_PEAKS = {
+    "H100 PCIe": (2.0e12, 51e12, 756e12, 378e12),
+    "H100 NVL": (3.9e12, 60e12, 835e12, 418e12),
+    "H100": (3.35e12, 67e12, 989e12, 495e12),     # SXM5 (HBM3)
+}
+
+# The H100 SXM5 80 GB at 700 W, the roofline's target (data sheet):
+PEAK_FLOPS_BF16 = 989e12          # FLOP/s, dense bf16 tensor cores
+HBM_BANDWIDTH = 3.35e12           # bytes/s, HBM3
+HBM_BYTES = 80e9                  # "80GB" of HBM3, as the data sheet states it
+
+
+def card_peaks(name: str) -> tuple[float, float, float, float]:
+    """``CARD_PEAKS`` of the card named ``name``."""
+    for key, rates in CARD_PEAKS.items():
+        if key in name:
+            return rates
+    raise RuntimeError(f"no published peaks for card {name!r}")
 
 
 # -- collectives: the shards' tensors in flat shard order ----------------------

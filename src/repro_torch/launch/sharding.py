@@ -15,8 +15,14 @@ The rule tables are the reference's, as plain data. ``FUSION_RULES`` lays out
 the sharded fusion server's Gram (``server.distributed``): rows over the
 client axes, columns over the model axis. The model-parameter tables
 (``DEFAULT_RULES``, ``ZERO1_PARAM_RULES``, ``STACK_FSDP_RULES``,
-``DECODE_RULES``, ``BATCH_AXES``) resolve here too; the helpers that shard a
-model's parameter tree with them come with the port's training.
+``DECODE_RULES``, ``BATCH_AXES``) lay out a model's parameters, optimizer
+state, batches and caches: :meth:`ShardingRules.named` gives a
+:class:`NamedSharding` (a mesh and a resolved spec, with ``shard_shape``),
+:meth:`ShardingRules.tree_shardings`, :func:`params_shardings` and
+:func:`opt_state_shardings` one for every leaf of a tree of logical specs
+(``models.model.param_axes``) over a tree of the same structure (nested
+dicts and tuples) whose leaves are tensors (``meta`` ones will do) or
+shapes.
 
 :class:`ShardedTensor` is a tensor laid out over a mesh by a spec: one block
 per shard position, on that shard's device (the reference's array with a
@@ -64,6 +70,30 @@ def spec_entry(axes: Sequence[str]):
     return axes[0] if len(axes) == 1 else axes
 
 
+def map_specs(fn, tree, *others):
+    """``fn(spec, *leaves)`` for every spec of ``tree`` (nested dicts,
+    tuples and lists whose leaves are specs), with the leaves at the same
+    place in each of ``others``, in a tree of ``tree``'s structure."""
+    if isinstance(tree, PartitionSpec):
+        return fn(tree, *others)
+    if isinstance(tree, dict):
+        for o in others:
+            if set(o) != set(tree):
+                raise ValueError(f"tree keys {sorted(o)} differ from {sorted(tree)}")
+        return {k: map_specs(fn, v, *(o[k] for o in others)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        for o in others:
+            if len(o) != len(tree):
+                raise ValueError(f"a sequence of {len(o)} against {len(tree)}")
+        return type(tree)(map_specs(fn, v, *(o[i] for o in others))
+                          for i, v in enumerate(tree))
+    raise TypeError(f"not a spec tree node: {tree!r}")
+
+
+def _shape(leaf) -> tuple[int, ...]:
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
+
+
 def _cands(*names) -> tuple[Candidate, ...]:
     return tuple((n,) if isinstance(n, str) else tuple(n) for n in names)
 
@@ -95,6 +125,41 @@ class ShardingRules:
                     break
             out.append(None if chosen is None else spec_entry(chosen))
         return PartitionSpec(*out)
+
+    def named(self, logical: Sequence, shape: Sequence[int], mesh) -> "NamedSharding":
+        return NamedSharding(mesh, self.resolve(logical, shape, mesh))
+
+    def tree_shardings(self, axes_tree, shape_tree, mesh):
+        """A :class:`NamedSharding` for every leaf of ``shape_tree``
+        (tensors or shapes), by the spec at its place in ``axes_tree``."""
+        return map_specs(lambda spec, leaf: self.named(spec, _shape(leaf), mesh),
+                         axes_tree, shape_tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a resolved spec (the reference's ``jax.sharding.NamedSharding``)."""
+
+    mesh: object
+    spec: PartitionSpec
+
+    def shard_shape(self, shape: Sequence[int]) -> tuple[int, ...]:
+        """The shape of one shard's block of a tensor of ``shape``."""
+        counts = ShardedTensor.grid(self.mesh, self.spec, shape)
+        return tuple(int(d) // n for d, n in zip(shape, counts))
+
+
+def params_shardings(rules: ShardingRules, axes_tree, params_shapes, mesh):
+    return rules.tree_shardings(axes_tree, params_shapes, mesh)
+
+
+def opt_state_shardings(rules: ShardingRules, axes_tree, opt_shapes, mesh):
+    """Optimizer state mirrors the parameters' sharding (master / m / v);
+    the step count is replicated."""
+    out = {k: rules.tree_shardings(axes_tree, opt_shapes[k], mesh)
+           for k in ("master", "m", "v")}
+    out["count"] = NamedSharding(mesh, PartitionSpec())
+    return out
 
 
 DEFAULT_RULES = ShardingRules(rules={
@@ -193,8 +258,15 @@ class ShardedTensor:
         return counts
 
     @classmethod
-    def distribute(cls, x: torch.Tensor, mesh, spec: Sequence) -> "ShardedTensor":
-        """Cut ``x`` into the spec's blocks and put each on its shard's device."""
+    def distribute(cls, x: torch.Tensor, mesh, spec: Sequence | None = None
+                   ) -> "ShardedTensor":
+        """Cut ``x`` into the spec's blocks and put each on its shard's
+        device; ``mesh`` may be a :class:`NamedSharding` (and ``spec`` then
+        omitted)."""
+        if isinstance(mesh, NamedSharding):
+            if spec is not None:
+                raise ValueError("a NamedSharding carries its spec")
+            mesh, spec = mesh.mesh, mesh.spec
         counts = cls.grid(mesh, spec, x.shape)
         spec = tuple(spec) + (None,) * (x.ndim - len(spec))
         blocks = {}

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.launch.sharding import P
 from repro_torch.models import layers
 from repro_torch.models.config import ArchConfig
 
@@ -47,6 +48,14 @@ class Attention(nn.Module):
         for b in (self.bq, self.bk, self.bv):
             if b is not None:
                 b.zero_()
+
+
+def axes_attention(cfg: ArchConfig) -> dict:
+    p = {"wq": P("embed", "heads"), "wk": P("embed", "kv"),
+         "wv": P("embed", "kv"), "wo": P("heads", "embed")}
+    if cfg.qkv_bias:
+        p.update(bq=P("heads"), bk=P("kv"), bv=P("kv"))
+    return p
 
 
 def project_qkv(attn: Attention, x: torch.Tensor, cfg: ArchConfig,
@@ -97,6 +106,11 @@ def init_cache(cfg: ArchConfig, kind: str, batch: int, seq_len: int, dtype,
     shape = (batch, L, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def axes_cache() -> dict:
+    spec = P("batch", "seq_cache", "kv_heads", "head_dim")
+    return {"k": spec, "v": spec}
 
 
 def decode_slot(kind: str, pos: int, L: int) -> int:

@@ -17,13 +17,15 @@ window, h) pair of a Mamba layer, (S, x_tm, x_cm) of an RWKV layer.
 ``full_bidir`` layers have no cache: prefill and decode raise, as the
 reference's do. Where the reference stacks stages along a leading axis and
 scans over it, the port keeps a list of per-stage module lists and loops
-in Python.
+in Python; the sharding axes (``axes_stacked_stages``) keep the
+reference's stacked layout, a leading ``"stack"`` axis on every leaf.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.launch.sharding import P, map_specs
 from repro_torch.models import attention, layers, mamba, moe, rwkv6
 from repro_torch.models.config import ArchConfig, LayerSpec
 
@@ -38,6 +40,44 @@ def _check_spec(cfg: ArchConfig, spec: LayerSpec) -> None:
         raise NotImplementedError(
             f"layer {spec} of {cfg.name} has no port; the port has mixer kinds "
             f"{MIXER_KINDS} with a dense MLP or an MoE")
+
+
+def axes_layer(cfg: ArchConfig, spec: LayerSpec) -> dict:
+    """The logical axes of one layer's parameters, by the reference's keys."""
+    a: dict = {"norm1": layers.axes_rmsnorm(), "norm2": layers.axes_rmsnorm()}
+    if spec.attn in ATTN_KINDS:
+        a["attn"] = attention.axes_attention(cfg)
+    elif spec.attn == "mamba":
+        a["mamba"] = mamba.axes_mamba()
+    elif spec.attn == "rwkv":
+        a["rwkv_tm"] = rwkv6.axes_rwkv()
+        a["rwkv_cm"] = rwkv6.axes_channel_mix()
+        return a
+    if spec.mlp == "dense":
+        a["mlp"] = layers.axes_mlp(gated=not cfg.encoder_only)
+    elif spec.mlp == "moe":
+        a["moe"] = moe.axes_moe()
+    return a
+
+
+def axes_layer_cache(spec: LayerSpec) -> dict:
+    if spec.attn in CACHED_ATTN:
+        return attention.axes_cache()
+    if spec.attn == "mamba":
+        return mamba.axes_mamba_cache()
+    if spec.attn == "rwkv":
+        return rwkv6.axes_rwkv_cache()
+    raise ValueError(spec.attn)
+
+
+def stacked(axes):
+    """``axes`` with a leading ``"stack"`` axis on every spec: the layout of
+    the reference's stages, stacked along a leading ``num_stages`` axis."""
+    return map_specs(lambda spec: P("stack", *spec), axes)
+
+
+def axes_stacked_stages(cfg: ArchConfig) -> tuple:
+    return tuple(stacked(axes_layer(cfg, s)) for s in cfg.stage_pattern)
 
 
 class Layer(nn.Module):

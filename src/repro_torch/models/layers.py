@@ -1,5 +1,7 @@
 """Shared layers: RMSNorm, RoPE, the SwiGLU / GELU MLP, embedding and LM
-head, and the chunk rule of the chunked recurrences (Mamba, RWKV).
+head, and the chunk rule of the chunked recurrences (Mamba, RWKV); each
+module's logical sharding axes (``axes_*``, the reference's, over the
+port's ``PartitionSpec``).
 
 The counterparts of the reference's ``models/layers.py``. Weights keep the
 reference's (in, out) orientation, so a projection is ``x @ W`` and a JAX
@@ -16,6 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.launch.sharding import P
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -43,6 +47,10 @@ def pick_chunk(seq_len: int, requested: int | None) -> int:
     while seq_len % c:
         c -= 1
     return c
+
+
+def axes_rmsnorm() -> dict:
+    return {"scale": P("embed")}
 
 
 class RMSNorm(nn.Module):
@@ -88,6 +96,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+def axes_mlp(*, gated: bool = True) -> dict:
+    p = {"up": P("embed", "ff"), "down": P("ff", "embed")}
+    if gated:
+        p["gate"] = P("embed", "ff")
+    return p
+
+
 class MLP(nn.Module):
     """SwiGLU ``(silu(x @ gate) * (x @ up)) @ down``, or with ``gated=False``
     (an encoder's MLP) ``gelu(x @ up) @ down`` with the tanh approximation,
@@ -109,6 +124,14 @@ class MLP(nn.Module):
         if self.gate is None:
             return F.gelu(up, approximate="tanh") @ self.down
         return (F.silu(x @ self.gate) * up) @ self.down
+
+
+def axes_embedding() -> dict:
+    return {"table": P("vocab", "embed")}
+
+
+def axes_lm_head() -> dict:
+    return {"kernel": P("embed", "vocab")}
 
 
 class Embedding(nn.Module):

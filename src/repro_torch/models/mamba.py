@@ -27,8 +27,16 @@ import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
+from repro_torch.launch.sharding import P
 from repro_torch.models import layers
 from repro_torch.models.config import ArchConfig
+
+
+def axes_mamba() -> dict:
+    return {"in_proj": P("embed", "inner"), "conv_w": P(None, "inner"),
+            "x_proj": P("inner", None), "dt_proj": P(None, "inner"),
+            "dt_bias": P("inner"), "A_log": P("inner", "state"), "D": P("inner"),
+            "out_proj": P("inner", "embed")}
 
 
 class Mamba(nn.Module):
@@ -155,6 +163,10 @@ def init_mamba_cache(cfg: ArchConfig, batch: int, dtype, device) -> dict:
                                 dtype=dtype, device=device),
             "h": torch.zeros(batch, cfg.d_inner, cfg.mamba_d_state,
                              dtype=torch.float32, device=device)}
+
+
+def axes_mamba_cache() -> dict:
+    return {"conv": P("batch", None, "inner"), "h": P("batch", "inner", "state")}
 
 
 def check_cache(cache: dict, cfg: ArchConfig) -> None:

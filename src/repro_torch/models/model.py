@@ -11,6 +11,13 @@ input modes:
   prefix_embeddings — the VLM (pixtral): ``batch["patches"]`` (B, P, d)
                       before the embedded ``batch["tokens"]``.
 
+its logical sharding axes (the reference's layout, stages stacked under a
+leading ``"stack"`` axis):
+
+  param_axes / cache_axes — the trees of the reference's ``param_axes`` /
+                     ``cache_axes``; ``param_axes_by_name`` the spec of each
+                     of ``BackboneLM.named_parameters()`` (no ``"stack"``);
+
 and its serving and training steps:
 
   init_params      — a ``BackboneLM`` with the reference's initial
@@ -50,6 +57,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.sharding import P
 from repro_torch.models import attention, blocks, layers, mamba
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import adamw
@@ -82,6 +90,91 @@ class BackboneLM(nn.Module):
     def all_layers(self) -> list[blocks.Layer]:
         """Every layer in execution order: the stages, then the tail."""
         return [layer for stage in self.stages for layer in stage] + list(self.tail)
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of the reference's parameter tree for ``cfg``."""
+    a: dict = {"stages": blocks.axes_stacked_stages(cfg),
+               "final_norm": layers.axes_rmsnorm(), "head": layers.axes_lm_head()}
+    if cfg.tail_pattern:
+        a["tail"] = tuple(blocks.axes_layer(cfg, s) for s in cfg.tail_pattern)
+    if cfg.input_mode in ("tokens", "prefix_embeddings"):
+        a["embed"] = layers.axes_embedding()
+    if cfg.input_mode == "embeddings":
+        a["mask_embed"] = P("embed")
+    return a
+
+
+def param_axes_by_name(cfg: ArchConfig) -> dict[str, P]:
+    """The spec of each of ``BackboneLM(cfg).named_parameters()``, by name:
+    a stage's parameter its position's spec without ``"stack"``."""
+    out: dict[str, P] = {}
+
+    def put(prefix: str, node) -> None:
+        if isinstance(node, P):
+            out[prefix] = node
+        else:
+            for key, child in node.items():
+                put(f"{prefix}.{key}", child)
+
+    if cfg.input_mode == "embeddings":
+        out["mask_embed"] = P("embed")
+    else:
+        put("embed", layers.axes_embedding())
+    for s in range(cfg.num_stages):
+        for i, spec in enumerate(cfg.stage_pattern):
+            put(f"stages.{s}.{i}", blocks.axes_layer(cfg, spec))
+    for i, spec in enumerate(cfg.tail_pattern):
+        put(f"tail.{i}", blocks.axes_layer(cfg, spec))
+    put("final_norm", layers.axes_rmsnorm())
+    put("head", layers.axes_lm_head())
+    return out
+
+
+def cache_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of the reference's decode cache for ``cfg``: its
+    stages stacked, ``pos`` a replicated scalar."""
+    a: dict = {"stages": tuple(blocks.stacked(blocks.axes_layer_cache(s))
+                               for s in cfg.stage_pattern), "pos": P()}
+    if cfg.tail_pattern:
+        a["tail"] = tuple(blocks.axes_layer_cache(s) for s in cfg.tail_pattern)
+    return a
+
+
+def stacked_tree(cfg: ArchConfig, named: dict, stack) -> dict:
+    """The reference's nested parameter layout of ``named`` (any values
+    keyed by ``BackboneLM(cfg)``'s parameter names, in its order):
+    ``"stages"`` a tuple with one dict per stage-pattern position whose
+    leaves are ``stack`` of that leaf's per-stage values (a leading
+    ``num_stages`` axis), ``"tail"`` a tuple of per-layer dicts, the rest
+    by name."""
+    tree: dict = {}
+    stacks = [{} for _ in cfg.stage_pattern]   # position -> key path -> [per stage]
+    tail = [{} for _ in cfg.tail_pattern]
+
+    def put(node: dict, keys, leaf) -> None:
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = leaf
+
+    for name, value in named.items():
+        parts = name.split(".")
+        if parts[0] == "stages":
+            stacks[int(parts[2])].setdefault(tuple(parts[3:]), []).append(value)
+        elif parts[0] == "tail":
+            put(tail[int(parts[1])], parts[2:], value)
+        else:
+            put(tree, parts, value)
+    stages = []
+    for per_path in stacks:
+        node: dict = {}
+        for keys, values in per_path.items():
+            put(node, keys, stack(values))
+        stages.append(node)
+    tree["stages"] = tuple(stages)
+    if cfg.tail_pattern:
+        tree["tail"] = tuple(tail)
+    return tree
 
 
 def init_params(cfg: ArchConfig, *, generator: torch.Generator,

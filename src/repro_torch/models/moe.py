@@ -26,8 +26,14 @@ import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
+from repro_torch.launch.sharding import P
 from repro_torch.models import layers
 from repro_torch.models.config import ArchConfig
+
+
+def axes_moe() -> dict:
+    return {"router": P("embed", None), "gate": P("experts", "embed", "ff"),
+            "up": P("experts", "embed", "ff"), "down": P("experts", "ff", "embed")}
 
 
 class MoE(nn.Module):

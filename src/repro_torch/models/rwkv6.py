@@ -39,11 +39,26 @@ import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
+from repro_torch.launch.sharding import P
 from repro_torch.models import layers
 from repro_torch.models.config import ArchConfig
 
 LORA_RANK = 32
 GROUP_CHUNKS = 64      # chunks whose state-free terms are made at once
+
+
+def axes_rwkv() -> dict:
+    return {"mix": P(None, "embed"),
+            "wr": P("embed", "heads"), "wk": P("embed", "heads"),
+            "wv": P("embed", "heads"), "wg": P("embed", "heads"),
+            "wo": P("heads", "embed"), "w0": P("embed"),
+            "wA": P("embed", None), "wB": P(None, "embed"),
+            "u": P("rwkv_heads", "head_dim"), "ln_scale": P("rwkv_heads", "head_dim")}
+
+
+def axes_channel_mix() -> dict:
+    return {"mix": P(None, "embed"), "wk": P("embed", "ff"),
+            "wv": P("ff", "embed"), "wr": P("embed", "heads")}
 
 
 class RWKVTimeMix(nn.Module):
@@ -214,6 +229,11 @@ def init_rwkv_cache(cfg: ArchConfig, batch: int, dtype, device) -> dict:
     return {"S": torch.zeros(batch, H, hd, hd, dtype=torch.float32, device=device),
             "x_tm": torch.zeros(batch, cfg.d_model, dtype=dtype, device=device),
             "x_cm": torch.zeros(batch, cfg.d_model, dtype=dtype, device=device)}
+
+
+def axes_rwkv_cache() -> dict:
+    return {"S": P("batch", "rwkv_heads", "head_dim", None),
+            "x_tm": P("batch", "embed"), "x_cm": P("batch", "embed")}
 
 
 def rwkv_decode(tm: RWKVTimeMix, cm: RWKVChannelMix, norm1: layers.RMSNorm,

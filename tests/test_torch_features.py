@@ -148,10 +148,15 @@ class TestPlainKernels:
         assert gram.launch_counts()["rff_gram"] == 0
 
     def test_unknown_device_raises(self):
-        A = torch.zeros(4, 3, device="meta")
+        """A device other than CUDA, CPU and meta raises; a meta tensor
+        takes the plain version, which there computes shapes alone."""
+        G, h = ops.sketch_gram(torch.zeros(4, 3, device="meta"),
+                               torch.zeros(4, device="meta"),
+                               torch.zeros(3, 2, device="meta"))
+        assert (G.device.type, G.shape, h.shape) == ("meta", (2, 2), (2,))
+        elsewhere = type("Elsewhere", (), {"device": torch.device("xpu")})()
         with pytest.raises(ValueError, match="device"):
-            ops.sketch_gram(A, torch.zeros(4, device="meta"),
-                            torch.zeros(3, 2, device="meta"))
+            ops.sketch_gram(elsewhere, elsewhere, elsewhere)
 
 
 def _kernel_model(X, b, M, c, dtype=torch.float32):

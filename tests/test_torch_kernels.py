@@ -29,6 +29,11 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
 
+class _Elsewhere:
+    """A stand-in for a tensor on a device the port has no route for."""
+    device = torch.device("xpu")
+
+
 def _rng(*seed):
     return np.random.default_rng(list(seed))
 
@@ -216,11 +221,16 @@ class TestCudaEntryPoints:
                                         "rff_gram": 0, "swa_flash": 0}
 
     def test_unknown_device_raises(self):
-        A = torch.zeros(4, 3, device="meta")
+        """A device other than CUDA, CPU and meta raises; a meta tensor
+        takes the plain version, which there computes shapes alone."""
+        G, h = ops.gram_moment(torch.zeros(4, 3, device="meta"),
+                               torch.zeros(4, device="meta"))
+        assert (G.device.type, G.shape, h.shape) == ("meta", (3, 3), (3,))
+        elsewhere = _Elsewhere()
         with pytest.raises(ValueError, match="device"):
-            ops.gram_moment(A, torch.zeros(4, device="meta"))
+            ops.gram_moment(elsewhere, elsewhere)
         with pytest.raises(ValueError, match="device"):
-            tchol.panel_transform(torch.eye(3, device="meta"), A)
+            tchol.panel_transform(elsewhere, elsewhere)
 
     def test_build_goes_to_ignored_build_dir(self):
         assert _build.BUILD_ROOT.parent == ROOT / "build"

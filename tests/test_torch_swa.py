@@ -116,11 +116,15 @@ class TestAgainstReferenceKernel:
             ops.swa_attention(q, k, v, window=0)
 
     def test_kernel_refuses_cpu_and_unknown_devices(self):
+        """The kernel refuses CPU tensors; a device other than CUDA, CPU
+        and meta raises; meta takes the plain version, shapes alone."""
         q, k, v = _port(_inputs(1, 8, 1, 1, 64))
         with pytest.raises(ValueError, match="CUDA"):
             gram.swa_flash_cuda(q, k, v, window=None)
+        o = ops.swa_attention(*(t.to("meta") for t in (q, k, v)), window=None)
+        assert (o.device.type, o.shape, o.dtype) == ("meta", q.shape, q.dtype)
         with pytest.raises(ValueError, match="device"):
-            ops.swa_attention(*(t.to("meta") for t in (q, k, v)), window=None)
+            ops.on_card(torch.device("xpu"), "swa_attention")
 
 
 # --- a numpy model of csrc/swa_flash.cu's schedule ----------------------------
