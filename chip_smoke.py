@@ -141,7 +141,7 @@ kernels' launch counts set to 0 just before it and read just after:
   the attention backward, AdamW and K5; then ``python -m
   repro_torch.launch.train`` on the reduced config as a process, whose
   loss must fall;
-- the dry-run (``dryrun``), last: ``python -m repro_torch.launch.dryrun
+- the dry-run (``dryrun``), after training: ``python -m repro_torch.launch.dryrun
   --all --card --memory-only`` as a process over every (config x input
   shape) on the one-card mesh, 33 OK and the reference's 7 skips, yi-9b's
   train_4k in cost mode and ``python -m repro_torch.launch.roofline``'s
@@ -152,7 +152,18 @@ kernels' launch counts set to 0 just before it and read just after:
   measured time; then the probe example (``examples/train_probe_e2e_torch.py``)
   at its defaults in process: its one-shot head within 1e-3 of the
   centralized one, K1 once and K5 twice a layer a step and once a layer a
-  client, K1 and K5 then held to their plain versions at its shapes.
+  client, K1 and K5 then held to their plain versions at its shapes;
+- the examples (``examples``), last, in process: ``examples/quickstart_torch.py``
+  at its defaults (20 clients x 500 rows, d 100) and its steps at the main
+  path's width (d 4096, 8 x 16384 rows), one-shot within 1e-4 of
+  centralized and the Thm-8 dropout run of a float64 solve of the
+  survivors' rows; ``examples/private_federation_torch.py`` at its
+  defaults, its failed cells and MSEs those of the same example on a CPU
+  copy of the data; ``examples/serve_batched_torch.py`` at its defaults
+  (reduced mixtral), K5 then held to its plain version at that prefill's
+  shape; K1 and K5 launched as often as the examples' code implies; and
+  ``launch.mesh.psum_scatter`` on a mesh of ``cuda:0`` and ``cpu``, each
+  slice on its shard's device.
 
 Results are checked against float64 references, and the model against the
 plain attention inside it (decode) and K5's plain version. It prints one JSON line
@@ -327,6 +338,14 @@ TRAIN_CLI = ("--arch", "yi-9b", "--reduced", "--steps", "20", "--batch", "8",
 # once a layer a client, K1 once (the centralized head).
 DRYRUN_COSTED = (("yi-9b", "train_4k"),)
 EXAMPLE_STEPS, EXAMPLE_CLIENTS, EXAMPLE_ROWS = 200, 8, 16
+# The examples (the examples phase), last: quickstart, private_federation
+# and serve_batched in process at their defaults (the reference's 20
+# clients x 500 rows, d 100; reduced mixtral at batch 4, prompt 48, 24
+# tokens), then quickstart's steps at the main path's width (DIM, CLIENTS,
+# ROWS). private_federation is not run at d 4096: each DP client's host
+# draw of d x d noise takes 10-15 s there and the example makes 41 a budget
+# for 5 budgets; the private_federation phase covers Algorithm 2 at d 4096.
+EXAMPLES_CLIENTS, EXAMPLES_ROWS, EXAMPLES_DIM = 20, 500, 100
 
 # Algorithm 2 and the paper's baselines (the private_federation phase), on
 # the main path's data: DP one-shot (eps 1, delta 1e-5, key 7) on 4 of its
@@ -4351,9 +4370,6 @@ def dryrun_phase(peaks, serving: dict, zoo: dict, train: dict) -> dict:
     one-shot head within 1e-3 of the centralized one and its K1 and K5
     launches pinned, K1 and K5 then held to their plain versions at its
     shapes."""
-    import contextlib
-    import importlib.util
-    import io
     import shutil
 
     from repro_torch import configs
@@ -4467,15 +4483,9 @@ def dryrun_phase(peaks, serving: dict, zoo: dict, train: dict) -> dict:
 
     # (d) the probe example at its defaults, in process
     t0 = time.perf_counter()
-    spec = importlib.util.spec_from_file_location(
-        "train_probe_e2e_torch", os.path.join(ROOT, "examples", "train_probe_e2e_torch.py"))
-    example = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(example)
-    printed = io.StringIO()
+    example = load_example("train_probe_e2e_torch.py")
     K.reset_launch_counts()
-    with contextlib.redirect_stdout(printed):
-        res = example.main(["--device", "cuda"])
-    torch.cuda.synchronize()
+    res, printed = printed_by(example.main, ["--device", "cuda"])
     launches = K.launch_counts()
     steps["example_s"] = time.perf_counter() - t0
     attn = attention_layers(configs.get_reduced("yi-9b"))
@@ -4505,7 +4515,7 @@ def dryrun_phase(peaks, serving: dict, zoo: dict, train: dict) -> dict:
                     "final_loss": res["train"]["final_loss"],
                     "train_wall_s": res["train"]["wall_s"], "k1_rel_err": k1_err,
                     "k5_f32_max_abs_err": k5_err,
-                    "last_lines": printed.getvalue().strip().splitlines()[-3:]}
+                    "last_lines": printed[-3:]}
     del res, F, Y, G, h, Gr, hr
     gc.collect()
     torch.cuda.empty_cache()
@@ -4514,6 +4524,198 @@ def dryrun_phase(peaks, serving: dict, zoo: dict, train: dict) -> dict:
             "matrix": matrix, "roofline_table": table.strip().splitlines(),
             "exact_bytes": exact, "step_roofline": step_roofline, "example": example_line,
             "steps_s": steps, "nvidia_smi": smi(), "seconds": time.perf_counter() - t_all}
+
+
+# -- the examples: quickstart, private federation, batched serving ------------
+
+def load_example(name: str):
+    """``examples/<name>`` imported as a module (its ``main`` not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name[:-len(".py")],
+                                                  os.path.join(ROOT, "examples", name))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def printed_by(fn, *args) -> tuple:
+    """``fn(*args)``'s result, after the card has finished, and the lines it
+    printed."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = fn(*args)
+    torch.cuda.synchronize()
+    return res, out.getvalue().rstrip("\n").split("\n")
+
+
+def launched(want: dict) -> dict:
+    """This run's launches, which must be ``want``'s and none of any other
+    kernel."""
+    from repro_torch.kernels import gram as K
+
+    counts = K.launch_counts()
+    full = {name: want.get(name, 0) for name in counts}
+    check(counts == full, f"launched {counts}, want {full}")
+    return counts
+
+
+def examples_phase() -> dict:
+    """The port's examples in process, each through its ``main`` or ``run``
+    with the kernels' launch counts set to 0 before it: (a) quickstart at
+    its defaults (K1 once a client, once for the centralized rows and once a
+    surviving client), then its ``run`` at the main path's full width
+    (EXAMPLES_QUICK_*), one-shot against centralized at the main path's
+    1e-4 and the dropout run against a float64 solve of the surviving
+    clients' rows; (b) private_federation at its defaults (K1 in every
+    Phase 1), then the same example's ``run`` on a CPU copy of the same data
+    as the reference: the same failed cells, each finite MSE within one
+    unit of its printed fourth decimal, the parity tests' tolerance; (c)
+    serve_batched at its defaults (reduced mixtral, K5 once an attention
+    layer in the prefill), K5 then held to its plain version at that
+    prefill's shape, in float32 (the served dtype) at 3e-5 and in bf16
+    within one ulp; (d) ``launch.mesh.psum_scatter`` on a two-shard mesh of
+    ``cuda:0`` and ``cpu``: each slice on its shard's device, bitwise the
+    sum's slice."""
+    from repro_torch import configs, data
+    from repro_torch.kernels import gram as K
+    from repro_torch.kernels import ref
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_all = time.perf_counter()
+    steps, launches = {}, {}
+    quick = load_example("quickstart_torch.py")
+    private = load_example("private_federation_torch.py")
+    serve_ex = load_example("serve_batched_torch.py")
+    clients, rows, dim = EXAMPLES_CLIENTS, EXAMPLES_ROWS, EXAMPLES_DIM
+
+    # (a) quickstart: its defaults, then the main path's width
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    res, lines = printed_by(quick.main, ["--device", "cuda"])
+    launches["quickstart"] = launched({"gram_moment": clients + 1 + clients // 2})
+    check(res["rel_err"] <= 1e-4 and len(lines) == 5, f"quickstart: {lines}")
+    quick_line = {"lines": lines, "rel_err": res["rel_err"]}
+    steps["quickstart_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ds = data.synthetic.generate(0, num_clients=CLIENTS, samples_per_client=ROWS, dim=DIM)
+    torch.cuda.synchronize()
+    steps["quickstart_full_generate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    res, lines = printed_by(quick.run, ds)
+    launches["quickstart_full"] = launched({"gram_moment": CLIENTS + 1 + CLIENTS // 2})
+    steps["quickstart_full_s"] = time.perf_counter() - t0
+    alive = [A for (A, _), a in zip(ds.clients, res["alive"]) if a]
+    A64 = torch.cat(alive).double()
+    b64 = torch.cat([b for (_, b), a in zip(ds.clients, res["alive"]) if a]).double()
+    w64 = torch.linalg.solve(A64.T @ A64 + SIGMA * torch.eye(DIM, dtype=torch.float64,
+                                                             device="cuda"), A64.T @ b64)
+    del A64, b64, alive
+    full = {"d": DIM, "clients": CLIENTS, "rows": ROWS, "lines": lines,
+            "one_shot_vs_centralized": rel_err(res["w_fed"], res["w_central"]),
+            "dropout_vs_f64": rel_err(res["w_dropout"], w64),
+            **{k: res[k] for k in ("rel_err", "mse_one_shot", "mse_centralized",
+                                   "mse_fedavg", "mse_dropout", "fedavg_mb", "one_shot_mb",
+                                   "traffic_ratio", "survivors")}}
+    check(full["one_shot_vs_centralized"] <= 1e-4 and full["dropout_vs_f64"] <= 1e-4,
+          f"quickstart at d {DIM}: {full}")
+    check(all(math.isfinite(full[k]) for k in ("mse_one_shot", "mse_centralized",
+                                               "mse_fedavg", "mse_dropout")),
+          f"quickstart at d {DIM}: {full}")
+    del res, ds, w64
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) private_federation at its defaults, on the card and on a CPU copy
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    res, lines = printed_by(private.main, ["--device", "cuda"])
+    # K1: the clean run, then each eps's Algorithm 2, its repaired run and
+    # the secure aggregation's clipped rows, then LOCO-CV's statistics
+    launches["private_federation"] = launched(
+        {"gram_moment": clients * (2 + 3 * len(private.EPS_GRID))})
+    steps["private_federation_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = data.generate(seed=0, num_clients=clients, samples_per_client=rows, dim=dim,
+                       gamma=0.5, device="cuda")
+    ds_cpu = data.FederatedDataset(
+        clients=tuple((A.cpu(), b.cpu()) for A, b in ds.clients), test_A=ds.test_A.cpu(),
+        test_b=ds.test_b.cpu(), w_star=ds.w_star.cpu(), gamma=ds.gamma)
+    K.reset_launch_counts()
+    cpu, _ = printed_by(private.run, ds_cpu)
+    launched({})                  # the CPU copy launches no kernel
+    steps["private_federation_cpu_s"] = time.perf_counter() - t0
+
+    def close(a, b) -> bool:      # one unit in the printed fourth decimal
+        return (a is None) == (b is None) and (a is None or abs(a - b) <= 1e-4 * (1 + 1e-9))
+
+    priv = {"lines": lines, "cpu_rows": cpu["rows"], "rows": res["rows"],
+            "mse_non_private": [res["mse_non_private"], cpu["mse_non_private"]],
+            "loco": [[res["loco_sigma"], res["loco_mse"]], [cpu["loco_sigma"], cpu["loco_mse"]]],
+            "tolerance": "the same failed cells; finite MSEs within 1e-4 of the CPU run's"}
+    for got, want in zip(res["rows"], cpu["rows"]):
+        for key in ("alg2", "alg2_psd", "secagg"):
+            check(close(got[key], want[key]),
+                  f"private_federation at eps {got['eps']}, {key}: card {got[key]}, "
+                  f"cpu {want[key]}")
+    check(close(res["mse_non_private"], cpu["mse_non_private"])
+          and close(res["loco_mse"], cpu["loco_mse"]) and res["loco_sigma"] == cpu["loco_sigma"]
+          and res["thm7_eps_total"] == cpu["thm7_eps_total"], f"private_federation: {priv}")
+    del res, cpu, ds, ds_cpu
+
+    # (c) serve_batched at its defaults, then K5 at its prefill's shape
+    t0 = time.perf_counter()
+    cfg = configs.get_reduced("mixtral-8x22b")
+    K.reset_launch_counts()
+    res, lines = printed_by(serve_ex.main, ["--device", "cuda"])
+    launches["serve_batched"] = launched({"swa_flash": attention_layers(cfg)})
+    gen = res["generated"]
+    check(gen.shape == (4, 24) and bool(((gen >= 0) & (gen < cfg.vocab_size)).all())
+          and lines[0] == f"[serve_batched] {cfg.name}", f"serve_batched: {lines}")
+    steps["serve_batched_s"] = time.perf_counter() - t0
+    B, S, H, Hkv, hd = 4, 48, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator("cuda").manual_seed(ZOO_SEED)
+    q, k, v = [torch.randn(shape, generator=g, device="cuda")
+               for shape in ((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd))]
+    k5_f32 = float((K.swa_flash_cuda(q, k, v, window=cfg.window, causal=True)
+                    - ref.swa_attention_ref(q, k, v, window=cfg.window, causal=True))
+                   .abs().max())
+    check(k5_f32 <= 3e-5, f"K5 float32 at serve_batched's prefill: {k5_f32} > 3e-5")
+    k5_bf16 = swa_case(g, mesh_lib.card_peaks(torch.cuda.get_device_name(0)),
+                       B, S, H, Hkv, hd, cfg.window)
+    serve_line = {"lines": lines, "prefill_s": res["prefill_s"],
+                  "decode_tok_per_s": res["decode_tok_per_s"],
+                  "k5_shape": [B, S, H, Hkv, hd], "window": cfg.window,
+                  "k5_f32_max_abs_err": k5_f32, "k5_bf16": k5_bf16}
+
+    # (d) the reduce-scatter on a mesh of two devices
+    mesh = mesh_lib.Mesh([torch.device("cuda", 0), "cpu"], ("data",))
+    devices = list(mesh.devices.reshape(-1))
+    parts = [torch.randn((8, 6), generator=torch.Generator().manual_seed(i)).to(dev)
+             for i, dev in enumerate(devices)]
+    total = mesh_lib.psum(parts)
+    scatter = {}
+    for axis in (0, 1):
+        sl = mesh_lib.psum_scatter(parts, dim=axis)
+        scatter[f"dim {axis}"] = [str(x.device) for x in sl]
+        check([x.device for x in sl] == devices, f"psum_scatter placed its slices on "
+              f"{scatter[f'dim {axis}']}, the shards are on {devices}")
+        check(all(torch.equal(x.cpu(), want.cpu())
+                  for x, want in zip(sl, torch.chunk(total, 2, dim=axis))),
+              "psum_scatter's slices are not the sum's")
+
+    totals = {name: sum(run.get(name, 0) for run in launches.values())
+              for name in K.launch_counts()}
+    return {"phase": "examples", "quickstart": quick_line, "quickstart_full_width": full,
+            "private_federation": priv, "serve_batched": serve_line,
+            "psum_scatter": {"mesh": [str(d) for d in devices], "slices_on": scatter},
+            "launches_by_example": launches, "launches": totals, "steps_s": steps,
+            "nvidia_smi": smi(), "seconds": time.perf_counter() - t_all}
 
 
 def main() -> int:
@@ -4563,6 +4765,8 @@ def main() -> int:
     emit(train)
     dry = dryrun_phase(peaks, serving, zoo, train)
     emit(dry)
+    examples = examples_phase()
+    emit(examples)
     for kname, row in rows.items():
         run = (features if kname in ("sketch_gram", "rff_gram")
                else serving if kname == "swa_flash" else path)
@@ -4575,7 +4779,8 @@ def main() -> int:
                                    + probe["mesh_launches"][kname])
         row["zoo_launches"] = zoo["launches"][kname]
         row["train_launches"] = train["launches"][kname]
-        row["example_launches"] = dry["example"]["launches"][kname]
+        row["example_launches"] = (dry["example"]["launches"][kname]
+                                   + examples["launches"][kname])
     order = ("name", "route", "source", "replaces", "launches", "wire_launches",
              "relay_launches", "private_launches", "sharded_launches", "zoo_launches",
              "train_launches", "example_launches", "max_abs_err",

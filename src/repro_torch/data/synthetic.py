@@ -93,3 +93,16 @@ def generate(seed: int = 0, *, num_clients: int = 20,
     test_b = test_A @ w_star + normal(n_test) * noise_std
     return FederatedDataset(clients=tuple(clients), test_A=test_A,
                             test_b=test_b, w_star=w_star, gamma=gamma)
+
+
+def as_sharded_rows(ds: FederatedDataset, num_shards: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Re-partition the same global rows into ``num_shards`` equal clients.
+
+    Theorem 1 makes the solution partition-invariant, so mapping K process
+    clients onto a different number of mesh shards is exact: the stacked
+    rows, cut to a multiple of ``num_shards``.
+    """
+    A, b = ds.stacked()
+    n = (A.shape[0] // num_shards) * num_shards
+    return A[:n], b[:n]

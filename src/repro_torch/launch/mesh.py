@@ -11,9 +11,11 @@ drives every shard; there is no process group.
 The collectives over a set of axes are plain tensor operations on the
 shards' tensors, given in flat shard order (row-major over the axes):
 :func:`psum` adds them in that order, :func:`all_gather` concatenates them,
-:func:`psum_scatter` adds and slices. A shard's tensor is copied
-(``Tensor.to``) only where its device differs from the result's. The
-summation order is fixed, so a reduction repeats bit for bit.
+:func:`psum_scatter` adds and slices, leaving slice i on shard i's device
+as the reference's tiled reduce-scatter leaves it on shard i. A shard's
+tensor is copied (``Tensor.to``) only where its device differs from the
+result's. The summation order is fixed, so a reduction repeats bit for
+bit.
 
 ``make_cpu_mesh(n)`` and ``make_device_mesh(n)`` arrange n shards as the
 most-square (rows, cols) factorization with rows >= cols (8 gives (4, 2)),
@@ -193,10 +195,11 @@ def all_gather(parts: Sequence[torch.Tensor], device=None,
 
 def psum_scatter(parts: Sequence[torch.Tensor], device=None,
                  dim: int = 0) -> list[torch.Tensor]:
-    """:func:`psum`, then the sum cut into ``len(parts)`` equal slices along
-    ``dim`` (a tiled reduce-scatter): slice i belongs to shard i."""
+    """:func:`psum` on ``device``, then the sum cut into ``len(parts)`` equal
+    slices along ``dim`` (a tiled reduce-scatter): slice i goes to shard i's
+    device, ``parts[i].device``."""
     total = psum(parts, device)
     if total.shape[dim] % len(parts):
         raise ValueError(f"dim {dim} of size {total.shape[dim]} does not "
                          f"split into {len(parts)} shards")
-    return list(torch.chunk(total, len(parts), dim=dim))
+    return [s.to(p.device) for s, p in zip(torch.chunk(total, len(parts), dim=dim), parts)]

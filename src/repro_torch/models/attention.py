@@ -15,6 +15,8 @@ writes the new key and value into the cache in place.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
 
@@ -95,6 +97,13 @@ def attention_fwd(attn: Attention, x: torch.Tensor, cfg: ArchConfig, *,
 
 
 # --- KV cache ----------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CacheSpec:
+    """Shape spec for one attention layer's decode cache."""
+
+    length: int  # seq_len for full layers, window for swa layers
+
 
 def cache_length(cfg: ArchConfig, kind: str, seq_len: int) -> int:
     return min(cfg.window, seq_len) if kind == "swa" else seq_len

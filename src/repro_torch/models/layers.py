@@ -155,7 +155,13 @@ class LMHead(nn.Module):
         dense_init_(self.kernel, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel
+        return lm_logits(self, x)
+
+
+def lm_logits(head: LMHead, x: torch.Tensor) -> torch.Tensor:
+    """The reference's ``lm_logits(params, x)``, the head module in place of
+    its parameter dict: ``x @ kernel``."""
+    return x @ head.kernel
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

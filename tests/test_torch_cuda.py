@@ -1578,3 +1578,22 @@ def test_adamw_step_on_card_matches_cpu_path(card):
     for (n, pg), pc in zip(gpu.named_parameters(), cpu.parameters()):
         diff = (pg.cpu().float() - pc.float()).abs()
         assert bool((diff <= 2.0 ** -7 * pc.float().abs()).all()), n
+
+
+def test_psum_scatter_places_each_slice_on_its_shard(card):
+    """A two-shard mesh with one shard on the card and one on the host: the
+    reduce-scatter leaves slice i of the sum on shard i's device, bitwise
+    the sum's slice, as the reference's tiled ``psum_scatter`` leaves it on
+    shard i."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    m = mesh_lib.Mesh([card, "cpu"], ("data",))
+    devices = list(m.devices.reshape(-1))
+    parts = [_randn((8, 6), seed=i).to(dev) for i, dev in enumerate(devices)]
+    total = mesh_lib.psum(parts)
+    assert total.device == devices[0]
+    for dim in (0, 1):
+        sl = mesh_lib.psum_scatter(parts, dim=dim)
+        assert [s.device for s in sl] == devices
+        for s, want in zip(sl, torch.chunk(total, 2, dim=dim)):
+            assert torch.equal(s.cpu(), want.cpu())

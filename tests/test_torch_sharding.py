@@ -189,6 +189,24 @@ class TestCollectives:
         with pytest.raises(ValueError, match="does not split"):
             mesh_lib.psum_scatter(self._parts(k=4), dim=0)
 
+    @pytest.mark.parametrize("dim", [0, 1])
+    def test_psum_scatter_on_a_repeated_device_mesh(self, dim):
+        # every shard on the one cpu device: slice i of the sum, its values
+        # and its device unchanged by the placement on shard i's device
+        parts = [torch.from_numpy(p) for p in np.random.default_rng(3).standard_normal(
+            (4, 8, 8)).astype(np.float32)]
+        devices = mesh_lib.make_cpu_mesh(4).devices.reshape(-1)
+        assert all(p.device == d for p, d in zip(parts, devices))
+        total = mesh_lib.psum(parts)
+        for device in (None, "cpu"):
+            sl = mesh_lib.psum_scatter(parts, device=device, dim=dim)
+            assert len(sl) == 4
+            for i, s in enumerate(sl):
+                assert s.device == parts[i].device
+                assert torch.equal(s, torch.chunk(total, 4, dim=dim)[i])
+                # no copy: every slice is a view of the one sum
+                assert s.untyped_storage().data_ptr() == sl[0].untyped_storage().data_ptr()
+
 
 class TestShardedTensor:
     @pytest.mark.parametrize("spec", [("data", "model"), ("data", None),
