@@ -88,7 +88,10 @@ kernels' launch counts set to 0 just before it and read just after:
   1024, each mesh client's statistics its K1 statistics plus its noise
   bits; K2 at the four sharded tile shapes (SYRK, TRSM, trailing update,
   the tile's composition) against ``addmm``, by wrapper and device time,
-  and the tile's composed P against the plain loop (``sharded_serving``);
+  the tile's composed P against the plain loop, and the same backend on a
+  (4, 2) mesh whose rows alternate ``cuda:0`` and the host at d 1024, every
+  copy between devices of a mesh over several cards, held to float64
+  (``sharded_serving``);
 - gemma3-27b serving at full width (d_model 5376, 32 heads over 16 KV heads,
   d_ff 21504, vocab 262144, bf16), depth cut to 2 stages + the 2-layer SWA
   tail (14 layers: 12 sliding-window, 2 full), random weights from a seed:
@@ -163,7 +166,20 @@ kernels' launch counts set to 0 just before it and read just after:
   (reduced mixtral), K5 then held to its plain version at that prefill's
   shape; K1 and K5 launched as often as the examples' code implies; and
   ``launch.mesh.psum_scatter`` on a mesh of ``cuda:0`` and ``cpu``, each
-  slice on its shard's device.
+  slice on its shard's device;
+- the sharded backend across the cards of one host (``multi_card``), last,
+  where there are two or more cards (up to four): K1, K2's two entries and P
+  on every card bitwise card 0's; each collective's bytes and time against
+  NVLink; (A) the ``sharded_serving`` calls on the (4, 2) mesh with row i
+  on card i, bitwise those on one card; (B) d 65536, one client of 32768
+  rows a card, ``ingest_distributed``, the sigma sweep and a rank-64 update,
+  held to float64 residuals over the blocks; on one card it prints
+  ``"cards": 1`` and runs nothing (the ``sharded_serving`` phase runs the
+  mixed mesh of ``cuda:0`` and the host instead).
+
+``python3 chip_smoke.py --phase multi_card`` runs the device line (the
+build), the mixed mesh check, this phase and the last line alone, for a
+call on four cards.
 
 Results are checked against float64 references, and the model against the
 plain attention inside it (decode) and K5's plain version. It prints one JSON line
@@ -383,6 +399,42 @@ SHARD_FACTOR_TOL = 1e-5
 SHARD_SERVE_TENANTS, SHARD_SERVE_CLIENTS, SHARD_SERVE_ROWS = 4, 4, 4096
 SHARD_SERVE_QUERIES, SHARD_SERVE_STREAM = 64, 64
 SHARD_DP_DIM, SHARD_DP_ROWS = 1024, 8192
+# The sharded_serving phase's mixed mesh: the (4, 2) mesh whose rows
+# alternate cuda:0 and the host, at d 1024 (4 x 2048 rows, a rank-16
+# update): every copy that the sharded backend makes between cards, on one
+# card, held to float64 at 1e-4.
+MIXED_DIM, MIXED_ROWS, MIXED_RANK = 1024, 2048, 16
+
+# The multi-card phase (multi_card), last, on a host of two or more cards
+# (up to MC_CARDS): the (4, 2) mesh of 8 shards with row i on card i
+# (launch.mesh.make_device_mesh(8, devices=...)). First K1, K2's two entries
+# and P on every card, card 0 current, each card's output bitwise card 0's
+# on the same inputs (K2 at the tile shapes of (A) and (B), its panel entry
+# on both tiles); each collective timed against NVLink, NCCL beside it.
+# (A) parity: the sharded_serving phase's calls at its setup (d 4096, block
+# 256, the main path's 8 x 16384 rows; serve_fusion's pool mesh over the
+# cards), every fused block, h, count, factor block and weight bitwise
+# those of the same calls on the one-card (4, 2) mesh. (B) the size the
+# backend exists for: d 65536 in float32, one client of 32768 Gaussian rows
+# on each card (kappa ~ 35), the default block size 4096 (16 block
+# columns; a card's share of G is 4 GiB): ingest_distributed, solve_batch
+# over SIGMAS and one rank-64 update of the cached factors; each solve's
+# float64 residual over the blocks <= MC_RESIDUAL_TOL and, at SIGMA before
+# and after the update, the factor's residual <= SHARD_FACTOR_TOL; each
+# card's peak memory; the reduce-scatter's bytes exactly each card's own
+# rows of the other cards' Grams. Phase 1, the reduce-scatter, a factor, a
+# cached solve and an update are timed alone at (A) on one card and on the
+# cards, and at (B).
+MC_CARDS = 4
+MC_BIG_DIM, MC_BIG_ROWS, MC_BIG_BLOCK, MC_BIG_SEED = 65536, 32768, 4096, 21
+MC_RESIDUAL_TOL = 1e-5
+MC_PART_BYTES = 1 << 28             # one part a card of each timed collective
+MC_TILES = (256, MC_BIG_BLOCK)      # the block sizes of (A) and (B)
+MC_K2_SHAPES = {                    # (m, n, k) of K2 on a card of the 4-card mesh
+    "a_syrk": (1024, 2048, 256), "a_trsm": (1024, 256, 256),
+    "a_update": (1024, 320, 320), "a_compose": (320, 96, 96),
+    "b_syrk": (16384, 32768, 4096), "b_trsm": (16384, 4096, 4096),
+    "b_update": (16384, 4160, 4160), "b_compose": (4160, 96, 96)}
 
 # K1's, K3's, K4's and K5's times on their earlier CUDA-core routines,
 # quoted from PERF.md §6 (NVIDIA H100 80GB HBM3, 700.00 W). They are not
@@ -2012,26 +2064,32 @@ def pool_serving_phase(ds) -> dict:
 
 def sharded_update_launches(be, updates: int) -> dict:
     """P and K2 launches of ``updates`` rank-r updates of one factor of
-    ``be``: per block column, ceil(bs / 32) P and, inside the tile, a K2
-    panel entry and a composing K2 between them; then a trailing K2 on each
-    row shard with rows at or below the panel."""
+    ``be``: per block column and per distinct device of the mesh,
+    ceil(bs / 32) P and, inside the tile, a K2 panel entry and a composing
+    K2 between them; then a trailing K2 on each row shard with rows at or
+    below the panel."""
     subs = -(-be.block_size // 32)
+    cards = len(be.mesh.distinct_devices)
     trailing = sum(1 for k in range(be._nb) for ri in range(be._nrows)
                    if (ri + 1) * be._rl > k * be.block_size)
-    return {"panel_transform": updates * be._nb * subs,
-            "gemm_nt": updates * (be._nb * 2 * (subs - 1) + trailing)}
+    return {"panel_transform": updates * be._nb * subs * cards,
+            "gemm_nt": updates * (be._nb * 2 * (subs - 1) * cards + trailing)}
 
 
 def sharded_factor_launches(be) -> int:
     """K2 launches of one cold factor: a SYRK on every shard holding rows
-    and columns at or below the panel and not wholly above the diagonal, a
-    TRSM for every panel but the last."""
+    and columns at or below the panel and not wholly above the diagonal,
+    and per panel a TRSM on every device whose row shards (of the panel's
+    column) hold rows below the tile."""
+    bs, rl, cl = be.block_size, be._rl, be._cl
     syrk = sum(1 for k in range(be._nb) for ri in range(be._nrows)
                for ci in range(be._ncols)
-               if (ri + 1) * be._rl > k * be.block_size
-               and (ci + 1) * be._cl > k * be.block_size
-               and (ri + 1) * be._rl > ci * be._cl)
-    return syrk + be._nb - 1
+               if (ri + 1) * rl > k * bs and (ci + 1) * cl > k * bs
+               and (ri + 1) * rl > ci * cl)
+    trsm = sum(len({be._dev[(ri, k * bs // cl)] for ri in range(be._nrows)
+                    if (ri + 1) * rl > (k + 1) * bs})
+               for k in range(be._nb))
+    return syrk + trsm
 
 
 def factor_residual(eng, sigma: float) -> float:
@@ -2327,6 +2385,7 @@ def sharded_serving_phase(ds, peaks) -> dict:
         "plain_s": p_plain_s, "bound_ms": t_bms, "bound_by": t_by,
         "tolerance": "rel 1e-4 (f32), not bitwise"}
     del La, Ta, Lb, Tb, Lt, Xt, Wt
+    report["mixed_mesh"] = mixed_mesh_check()
     peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.empty_cache()
     return {"phase": "sharded_serving", "dim": DIM, "mesh": mesh.shape,
@@ -4718,7 +4777,655 @@ def examples_phase() -> dict:
             "nvidia_smi": smi(), "seconds": time.perf_counter() - t_all}
 
 
-def main() -> int:
+# -- phase 16: the sharded backend across the cards of one host --------------
+
+NCCL_YARDSTICK = r"""
+import json, sys, time
+import torch
+import torch.cuda.nccl as nccl
+side, cards = int(sys.argv[1]), int(sys.argv[2])
+parts = [torch.randn(side, side, device=f"cuda:{i}") for i in range(cards)]
+outs = [torch.empty(side // cards, side, device=f"cuda:{i}") for i in range(cards)]
+res = {}
+for name, fn in (("reduce_scatter", lambda: nccl.reduce_scatter(parts, outs)),
+                 ("all_reduce", lambda: nccl.all_reduce(parts))):
+    times = []
+    for _ in range(6):
+        for i in range(cards):
+            torch.cuda.synchronize(i)
+        t0 = time.perf_counter()
+        fn()
+        for i in range(cards):
+            torch.cuda.synchronize(i)
+        times.append(time.perf_counter() - t0)
+    res[name + "_ms"] = sorted(times[1:])[2] * 1e3
+print(json.dumps(res))
+"""
+
+
+def rel_err32(x: torch.Tensor, ref: torch.Tensor, rows: int = 4096) -> float:
+    """:func:`rel_err` of two large float32 matrices, in float32 row chunks
+    (a difference of two float32 values within a factor of two is exact)."""
+    num = max(float((x[i:i + rows] - ref[i:i + rows]).abs().max())
+              for i in range(0, x.shape[0], rows))
+    return num / float(ref.abs().max())
+
+
+def topology() -> str:
+    """``nvidia-smi topo -m``, or what it said where the machine refuses it
+    (the link matrix then comes from the peer-access matrix alone)."""
+    run = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True)
+    return run.stdout if run.returncode == 0 else \
+        f"nvidia-smi topo -m: exit {run.returncode}: {(run.stdout + run.stderr).strip()}"
+
+
+def progress(obj) -> None:
+    """A partial result on the standard error, as a long phase goes."""
+    print(json.dumps(obj, default=str), file=sys.stderr, flush=True)
+
+
+def sync_all(devices) -> None:
+    for dev in devices:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+def walled(fn, devices, reps: int = 1):
+    """``fn()``'s result and its median wall seconds over ``reps`` calls,
+    every card synchronised before and after each."""
+    times, out = [], None
+    for _ in range(reps):
+        sync_all(devices)
+        t0 = time.perf_counter()
+        out = fn()
+        sync_all(devices)
+        times.append(time.perf_counter() - t0)
+    return out, float(np.median(times))
+
+
+def card_overlap(fn, devices) -> dict:
+    """``fn`` once under ``torch.profiler`` (after a discarded trace): each
+    card's summed device time (kernels and copies) against the wall time,
+    and their sum over the wall time, the number of cards busy on average."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    sync_all(devices)
+    with profile(activities=acts):
+        fn()
+        sync_all(devices)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync_all(devices)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy[e.device_index] = (busy.get(e.device_index, 0.0)
+                                    + e.time_range.elapsed_us() / 1e3)
+    busy = {f"cuda:{i}": ms for i, ms in sorted(busy.items())}
+    return {"wall_ms": wall_ms, "device_ms": busy,
+            "busy_share": {k: ms / wall_ms for k, ms in busy.items()},
+            "overlap": sum(busy.values()) / wall_ms}
+
+
+def block_tensors(tag: str, st) -> dict:
+    """A ShardedTensor's blocks, on the host, keyed by ``tag`` and index."""
+    return {f"{tag}{key}": blk.cpu() for key, blk in st.blocks.items()}
+
+
+def mixed_mesh_check() -> dict:
+    """The (4, 2) mesh whose rows alternate ``cuda:0`` and the host, at d
+    1024: every copy between devices that the sharded backend makes across
+    cards (the reduce-scatter of ``ingest_distributed``, the broadcast
+    tiles, the gathered columns of L, the solves' reductions, a rank-16
+    update's tile transforms on both devices, CG) on one card, each answer
+    held to a float64 solve at 1e-4."""
+    from repro_torch.core import compute_stats
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.server import FusionEngine, ShardedBackend
+
+    t0 = time.perf_counter()
+    card, host = torch.device("cuda", 0), torch.device("cpu")
+    mesh = mesh_lib.Mesh([[card, card], [host, host]] * 2, ("data", "model"))
+    g = torch.Generator("cuda").manual_seed(13)
+    A = torch.randn(4 * MIXED_ROWS, MIXED_DIM, generator=g, device="cuda")
+    b = torch.randn(4 * MIXED_ROWS, generator=g, device="cuda")
+    U = torch.randn(MIXED_RANK, MIXED_DIM, generator=g, device="cuda")
+    bu = torch.randn(MIXED_RANK, generator=g, device="cuda")
+    mesh_lib.reset_collective_bytes()
+    be = ShardedBackend(MIXED_DIM, mesh)
+    eng = FusionEngine(MIXED_DIM, backend=be, device="cuda")
+    eng.ingest_distributed(A, b)
+    check([blk.device for blk in be.gram.blocks.values()] == [card, card, host, host] * 2,
+          f"mixed mesh blocks on {[str(x.device) for x in be.gram.blocks.values()]}")
+    ref = compute_stats(A.double(), b.double())
+    errs = {"solve": rel_err(eng.solve(SIGMA), f64_solve(ref, SIGMA))}
+    eng.ingest_rows(U, bu)
+    ref = ref + compute_stats(U.double(), bu.double())
+    check(eng.cold_factorizations == 1 and eng.incremental_updates == 1,
+          "the mixed mesh's rank-16 rows did not update the cached factor")
+    errs["update"] = rel_err(eng.solve(SIGMA), f64_solve(ref, SIGMA))
+    ecg = FusionEngine.from_stats(eng.stats, backend=ShardedBackend(
+        MIXED_DIM, mesh, method="cg"))
+    errs["cg"] = rel_err(ecg.solve(SIGMA), f64_solve(ref, SIGMA))
+    moved = mesh_lib.collective_bytes()
+    check(moved["psum_scatter"] > 0 and moved["all_gather"] > 0
+          and moved["broadcast"] > 0, f"the mixed mesh moved {moved}")
+    for name, err in errs.items():
+        check(err <= 1e-4, f"mixed mesh {name} vs float64: {err} > 1e-4")
+    return {"mesh": [[str(d) for d in row] for row in mesh.devices],
+            "dim": MIXED_DIM, "rows": 4 * MIXED_ROWS, "rank": MIXED_RANK,
+            "errors_vs_f64": errs, "tolerance": 1e-4, "moved_bytes": moved,
+            "seconds": time.perf_counter() - t0}
+
+
+def per_card_kernels(cards, peaks) -> dict:
+    """K1, K2's general and panel entries and P on every card, with card 0
+    current, on the same inputs (made on card 0 and copied): each card's
+    output bitwise card 0's, and card 0's held to the plain version."""
+    from repro_torch.kernels import gram as K
+    from repro_torch.kernels import ref
+    from repro_torch.server.cholesky import panel_transform_ref
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    g = torch.Generator("cuda").manual_seed(17)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    def spd_factor(n):
+        M = randn(4 * n, n)
+        return torch.linalg.cholesky(M.T @ M / n + torch.eye(n, device="cuda")).contiguous()
+
+    cases = {}
+    n1 = CLIENTS * ROWS // 4                         # (A): a mesh client's rows
+    cases["gram_moment"] = ("K1", [n1, DIM], lambda A, b: K.gram_moment_cuda(A, b),
+                            lambda A, b: ref.gram_moment_ref(A, b),
+                            lambda: (randn(n1, DIM), randn(n1)), 1e-4)
+    for tag, (m, n, k) in MC_K2_SHAPES.items():
+        cases[f"gemm_nt_{tag}"] = (
+            "K2", [m, n, k], lambda C, A, B: K.gemm_nt_cuda(C, A, B, alpha=-1.0),
+            lambda C, A, B: ref.gemm_nt_ref(C, A, B, alpha=-1.0),
+            lambda m=m, n=n, k=k: (randn(m, n), randn(m, k), randn(n, k)), 1e-5)
+    w = PANEL + SHARD_RANK
+
+    def panel_k(L, X, T):
+        L, X = L.clone(), X.clone()
+        K.panel_gemm_cuda(L, X, 0, PANEL, T)
+        return L, X
+
+    def panel_p(L, X, T):
+        L, X = L.clone(), X.clone()
+        ref.panel_gemm_ref(L, X, 0, PANEL, T)
+        return L, X
+    for bs in MC_TILES:
+        cases[f"gemm_nt_panel_{bs}"] = (
+            "K2", [bs, PANEL, SHARD_RANK], panel_k, panel_p,
+            lambda bs=bs: (spd_factor(bs), randn(SHARD_RANK, bs),
+                           torch.linalg.qr(randn(w, w))[0].contiguous()), 1e-5)
+    for sign in (1.0, -1.0):
+        # a downdate small enough to keep the tile positive definite
+        cases[f"panel_transform_{'up' if sign > 0 else 'down'}"] = (
+            "P", [PANEL, SHARD_RANK],
+            lambda L, X, sign=sign: K.panel_transform_cuda(L, X, sign=sign),
+            lambda L, X, sign=sign: panel_transform_ref(L, X, sign=sign),
+            lambda sign=sign: (spd_factor(PANEL), randn(SHARD_RANK, PANEL)
+                               * (1.0 if sign > 0 else 0.05)), 1e-4)
+
+    out = {}
+    for name, (kid, shape, kern, plain, make, tol) in cases.items():
+        inputs = make()
+        results = []
+        for dev in cards:
+            args = [x.to(dev) for x in inputs]
+            res = kern(*args)
+            res = res if isinstance(res, tuple) else (res,)
+            results.append([r.to(cards[0]) for r in res])
+            del args, res
+        want = plain(*inputs)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(rel_err(r, w) for r, w in zip(results[0], want))
+        same = [all(torch.equal(a, b0) for a, b0 in zip(r, results[0])) for r in results]
+        check(all(same), f"{name}: the cards' outputs differ from card 0's: {same}")
+        check(err <= tol, f"{name} on card 0 vs its plain version: {err} > {tol}")
+        out[name] = {"kernel": kid, "shape": shape, "bitwise_card0": same,
+                     "rel_err_vs_plain": err, "tolerance": tol}
+        del inputs, results, want
+    torch.cuda.empty_cache()
+    return {"cases": out, "current_device": torch.cuda.current_device(),
+            "seconds": time.perf_counter() - t0}
+
+
+def collective_table(cards) -> dict:
+    """Each collective of ``launch.mesh`` on one part of MC_PART_BYTES a card:
+    bytes moved between cards (its counter), median wall time of 5 calls,
+    and the busiest card's link rate against NVLink's 450 GB/s each way; beside them NCCL's
+    reduce-scatter and all-reduce of parts of the same size (single-process
+    ``torch.cuda.nccl``), a yardstick timed in a child process that the port
+    never calls: where NCCL cannot start there, its text stands in place of
+    the times."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    n = MC_PART_BYTES // 4
+    side = int(math.isqrt(n))
+    g = torch.Generator("cuda").manual_seed(19)
+    base = [torch.randn(side, side, generator=g, device="cuda") for _ in cards]
+    parts = [p.to(dev) for p, dev in zip(base, cards)]
+    del base
+    want = mesh_lib.psum([p.to(cards[0]) for p in parts])
+    ops = {
+        "psum_scatter": lambda: mesh_lib.psum_scatter(parts),
+        "psum": lambda: mesh_lib.psum(parts, devices=cards),
+        "all_gather": lambda: mesh_lib.all_gather(parts, devices=cards),
+        "broadcast": lambda: mesh_lib.broadcast(parts[0], cards),
+    }
+    table = {}
+    for name, fn in ops.items():
+        mesh_lib.reset_collective_bytes()
+        res = fn()
+        moved = sum(mesh_lib.collective_bytes().values())
+        if name == "psum_scatter":
+            check(all(torch.equal(s.cpu(), w.cpu()) for s, w in
+                      zip(res, torch.chunk(want, len(cards)))),
+                  "psum_scatter across the cards is not the one-card sum's slices")
+            check([s.device for s in res] == list(cards), "psum_scatter placement")
+        if name == "psum":
+            check(all(torch.equal(r.cpu(), want.cpu()) for r in res),
+                  "psum across the cards is not the one-card sum")
+        del res
+        _, s = walled(fn, cards, reps=5)
+        # the busiest card's link: a broadcast's all leave card 0; the
+        # others move the same bytes into every card
+        link = moved if name == "broadcast" else moved / len(cards)
+        table[name] = {"moved_bytes": moved, "ms": s * 1e3,
+                       "busiest_link_gb_per_s": link / s / 1e9,
+                       "nvlink_gb_per_s": mesh_lib.NVLINK_BANDWIDTH / 1e9}
+    del parts, want
+    torch.cuda.empty_cache()
+    child = subprocess.run([sys.executable, "-c", NCCL_YARDSTICK, str(side), str(len(cards))],
+                           capture_output=True, text=True, timeout=PROC_TIMEOUT)
+    table["nccl"] = (json.loads(child.stdout.strip().splitlines()[-1])
+                     if child.returncode == 0 else
+                     {"not_measured": (child.stderr or child.stdout).strip()[-400:]})
+    return {"part_bytes": 4 * side * side, "cards": len(cards), **table}
+
+
+def step_times(mesh, A, b, reps: int, dim: int) -> dict:
+    """Phase 1 (``core.client_stats``: K1 on each row shard's device), the
+    reduce-scatter into the blocks (``fuse_local``), one cold factor, a
+    cached solve and a rank-64 update, each timed alone on a fresh backend
+    (median of ``reps``), every card synchronised around each."""
+    from repro_torch.core.sufficient_stats import client_stats
+    from repro_torch.server import ShardedBackend
+
+    devs = mesh.distinct_devices
+    local, t1 = walled(lambda: client_stats(A, b, mesh), devs, reps)
+    be = ShardedBackend(dim, mesh)
+    _, trs = walled(lambda: be.fuse_local(local), devs, 1)
+    del local
+    f, tf = walled(lambda: be.factor(SIGMA), devs, reps)
+    _, ts = walled(lambda: be.solve(f), devs, max(reps, 3))
+    g = torch.Generator("cuda").manual_seed(23)
+    U = torch.randn(SHARD_RANK, dim, generator=g, device="cuda")
+    _, tu = walled(lambda: be.update(f, U, 1.0), devs, reps)
+    return {"phase1_s": t1, "reduce_scatter_s": trs, "factor_s": tf,
+            "cached_solve_s": ts, "update_r64_s": tu}
+
+
+def parity_run(mesh, ds, stats, serve_device) -> tuple[dict, dict]:
+    """(A): the sharded_serving phase's calls on ``mesh``, every fused
+    block, h, count, factor block and weight vector kept on the host."""
+    from repro_torch import core, fed
+    from repro_torch.core import privacy, threefry
+    from repro_torch.kernels import gram as K
+    from repro_torch.launch.serve import serve_fusion
+    from repro_torch.server import CoalescerPolicy, FusionEngine, ShardedBackend
+
+    def launched(since):
+        now = K.launch_counts()
+        return {k: now[k] - since[k] for k in ("gemm_nt", "panel_transform")}
+
+    out, info = {}, {}
+    res = fed.run_one_shot(ds, SIGMA, mesh=mesh)
+    b0 = res.extras["engine"].backend
+    out.update(block_tensors("one_shot_G", b0.gram), one_shot_w=res.weights.cpu(),
+               one_shot_h=b0._h.cpu(), one_shot_count=b0.count.cpu())
+    info["cross_shard_bytes"] = res.comm.cross_shard_bytes
+    del res, b0
+
+    be = ShardedBackend(DIM, mesh)
+    eng = FusionEngine.from_clients(stats, backend=be,
+                                    coalesce=CoalescerPolicy(max_rank=SHARD_RANK))
+    # K2 and P as often as the layout implies, per distinct device
+    l0 = K.launch_counts()
+    out["sweep_w"] = eng.solve_batch(SIGMAS, method="chol").cpu()
+    got, want = launched(l0), len(SIGMAS) * sharded_factor_launches(be)
+    check(got["gemm_nt"] == want, f"4 factors on {mesh} launched K2 {got} times, want {want}")
+    for sg in SIGMAS:
+        out.update(block_tensors(f"factor_{sg}", eng.factor(sg).L))
+    rows_A, rows_b = ds.test_A[:STREAM_ROWS], ds.test_b[:STREAM_ROWS]
+    l0, upd0 = K.launch_counts(), eng.incremental_updates
+    for i in range(STREAM_ROWS):
+        eng.ingest_rows_async(rows_A[i:i + 1], rows_b[i:i + 1], client_id=7)
+    eng.flush()
+    got = launched(l0)
+    want = sharded_update_launches(be, eng.incremental_updates - upd0)
+    check(got == want, f"streaming on {mesh} launched {got}, want {want}")
+    info["launches_sweep_stream"] = got
+    for sg in SIGMAS:
+        out[f"stream_w_{sg}"] = eng.solve(sg).cpu()
+        out.update(block_tensors(f"stream_factor_{sg}", eng.factor(sg).L))
+    g = torch.Generator("cuda").manual_seed(5)
+    A_s = torch.randn(SHARD_SMALL_ROWS, DIM, generator=g, device="cuda")
+    b_s = torch.randn(SHARD_SMALL_ROWS, generator=g, device="cuda")
+    eng.ingest_rows(A_s, b_s, client_id="small")
+    eng.drop("small")
+    out["drop_w"] = eng.solve(SIGMA).cpu()
+    eng.restore("small")
+    out["restore_w"] = eng.solve(SIGMA).cpu()
+    out.update(block_tensors("restore_factor", eng.factor(SIGMA).L))
+    out.update(block_tensors("engine_G", be.gram))
+    out["engine_h"], out["engine_count"] = be._h.cpu(), be.count.cpu()
+    info["updates"] = eng.incremental_updates
+    info["cold_factorizations"] = eng.cold_factorizations
+    ecg = FusionEngine.from_stats(eng.stats, backend=ShardedBackend(DIM, mesh, method="cg"))
+    out["cg_w"] = ecg.solve(SIGMA).cpu()
+    info["cg_iterations"] = ecg.backend.cg_last_iters
+    del eng, be, ecg
+
+    A_all = torch.cat([A for A, _ in ds.clients])
+    b_all = torch.cat([b for _, b in ds.clients])
+    bed = ShardedBackend(DIM, mesh)
+    ed = FusionEngine(DIM, backend=bed, device="cuda")
+    ed.ingest_distributed(A_all, b_all, participation=[1.0, 0.0, 1.0, 1.0])
+    out.update(block_tensors("dist_G", bed.gram))
+    out["dist_h"], out["dist_count"] = bed._h.cpu(), bed.count.cpu()
+    out["dist_w"] = ed.solve(SIGMA).cpu()
+    del ed, bed, A_all, b_all
+
+    dsd = data_generate(1, 4, SHARD_DP_ROWS, SHARD_DP_DIM)
+    A_dp = torch.cat([A for A, _ in dsd.clients])
+    b_dp = torch.cat([b for _, b in dsd.clients])
+    nf = privacy.make_dp_noise_fn(threefry.key(PRIV_KEY), PRIV_EPS, PRIV_DELTA,
+                                  SHARD_DP_DIM)
+    s_dp = core.distributed_stats(A_dp, b_dp, mesh, client_axes=("data",), noise_fn=nf)
+    out["dp_gram"], out["dp_moment"] = s_dp.gram.cpu(), s_dp.moment.cpu()
+    info["dp_on"] = str(s_dp.gram.device)
+    del dsd, A_dp, b_dp, s_dp
+
+    srv = serve_fusion(num_clients=SHARD_SERVE_CLIENTS,
+                       samples_per_client=SHARD_SERVE_ROWS, dim=DIM,
+                       tenants=SHARD_SERVE_TENANTS, sharded_tenants=2,
+                       auto_tenants=2, threshold=DIM,
+                       sigmas_per_tenant=len(SIGMAS),
+                       queries=SHARD_SERVE_QUERIES, query_rows=8,
+                       stream_deltas=SHARD_SERVE_STREAM, coalesce_rank=32,
+                       flush_staleness_s=0.05, seed=3, device=serve_device)
+    check(srv["placements"] == {"sharded": SHARD_SERVE_TENANTS}
+          and srv["pool"]["meshes_built"] == 1
+          and srv["streaming"]["pending_after"] == 0,
+          f"serve_fusion on {serve_device}: {srv['placements']}, {srv['pool']}")
+    out["serve_exact_max_abs_err"] = torch.tensor(srv["exact_max_abs_err"])
+    out["serve_exact_max_rel_err"] = torch.tensor(srv["exact_max_rel_err"])
+    info["serve_fusion"] = {
+        "pool_qps": srv["pool_qps"], "naive_qps": srv["naive_qps"],
+        "stream_rel_err": srv["streaming"]["exact_max_rel_err"],
+        "flush_ranks": {int(r): n for r, n in srv["streaming"]["flush_ranks"].items()}}
+    check(srv["streaming"]["exact_max_rel_err"] <= 1e-4,
+          f"serve_fusion stream error {srv['streaming']['exact_max_rel_err']} > 1e-4")
+    return out, info
+
+
+def data_generate(seed: int, clients: int, rows: int, dim: int):
+    from repro_torch import data
+
+    return data.synthetic.generate(seed, num_clients=clients,
+                                   samples_per_client=rows, dim=dim, device="cuda")
+
+
+def blockwise_residuals(be, L, w, sigma: float, with_factor: bool) -> dict:
+    """Float64 residuals over the blocks, no block leaving its card whole:
+    ||(G + sigma I) w - h|| / ||h|| (w and h broadcast), and with
+    ``with_factor`` ||tril(L) tril(L)^T - (G + sigma I)||_F / ||G + sigma I||_F,
+    each block of L L^T summed over the gathered columns of L."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    bs, rl, cl, dp = be.block_size, be._rl, be._cl, be.padded
+    devs = be.mesh.distinct_devices
+    h64 = be._h.double()
+    w64 = torch.nn.functional.pad(w.double(), (0, dp - w.shape[0]))
+    wd = dict(zip(devs, mesh_lib.broadcast(w64, devs)))
+    rows = []
+    for ri in range(be._nrows):
+        parts = [(be.gram.blocks[(ri, ci)].double()
+                  @ wd[be.gram.blocks[(ri, ci)].device][ci * cl:(ci + 1) * cl])
+                 for ci in range(be._ncols)]
+        rows.append(mesh_lib.psum(parts, be.device))
+    r = torch.cat(rows) + sigma * w64 - h64
+    out = {"solve_residual": float(torch.linalg.norm(r) / torch.linalg.norm(h64))}
+    if not with_factor:
+        return out
+    acc = {key: torch.zeros(blk.shape, dtype=torch.float64, device=blk.device)
+           for key, blk in L.blocks.items()}
+    for k in range(be._nb):
+        c0 = k * bs
+        qk, lc0 = divmod(c0, cl)
+        pk, lr0 = divmod(c0, rl)
+        pieces = []
+        for ri in range(be._nrows):
+            col = L.blocks[(ri, qk)][:, lc0:lc0 + bs]
+            if ri == pk:
+                col = col.clone()
+                col[lr0:lr0 + bs] = torch.tril(col[lr0:lr0 + bs])
+            pieces.append(col)
+        cols = {dev: c.double() for dev, c in
+                zip(devs, mesh_lib.all_gather(pieces, devices=devs))}
+        for (ri, ci), a in acc.items():
+            if (ri + 1) * rl <= c0 or (ci + 1) * cl <= c0:
+                continue                 # L is zero above the panel's rows
+            col = cols[a.device]
+            a.addmm_(col[ri * rl:(ri + 1) * rl], col[ci * cl:(ci + 1) * cl].T)
+        del cols
+    num = den = 0.0
+    for (ri, ci), a in acc.items():
+        gs = be.gram.blocks[(ri, ci)].double()
+        gs.diagonal(ri * rl - ci * cl).add_(sigma)
+        num += float(torch.linalg.norm(a - gs)) ** 2
+        den += float(torch.linalg.norm(gs)) ** 2
+        del gs
+    del acc
+    out["factor_residual"] = math.sqrt(num / den)
+    return out
+
+
+def multi_card_phase(peaks) -> dict:
+    """The sharded backend across the cards of one host (see MC_* above)."""
+    from repro_torch.core import compute_stats
+    from repro_torch.fed import comm
+    from repro_torch.kernels import gram as K
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.sharding import P, ShardedTensor
+    from repro_torch.server import FusionEngine, ShardedBackend
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        return {"phase": "multi_card", "cards": count, "ran": False,
+                "why": "one card: (A) and (B) need two or more cards "
+                       "(python3 chip_smoke.py --phase multi_card on four)"}
+    t_all = time.perf_counter()
+    cards = [torch.device("cuda", i) for i in range(min(count, MC_CARDS))]
+    torch.cuda.set_device(0)
+    report = {"cards": len(cards), "names": [torch.cuda.get_device_name(d) for d in cards],
+              "nvidia_smi": smi(),
+              "topology": topology(),
+              "peer_access": [[i == j or torch.cuda.can_device_access_peer(i, j)
+                               for j in range(len(cards))] for i in range(len(cards))]}
+    report["kernels_per_card"] = per_card_kernels(cards, peaks)
+    report["collectives"] = collective_table(cards)
+    progress({"kernels_per_card": report["kernels_per_card"],
+              "collectives": report["collectives"]})
+
+    # (A) parity at sharded_serving's setup: one card, then every card
+    one = mesh_lib.make_device_mesh(SHARD_DEVICES, device=cards[0])
+    many = mesh_lib.make_device_mesh(SHARD_DEVICES, devices=cards)
+    check(many.shape == {"data": 4, "model": 2}
+          and [many.device_at({"data": i, "model": j}) for i in range(4) for j in range(2)]
+          == [cards[i * len(cards) // 4] for i in range(4) for _ in range(2)],
+          f"mesh over the cards: {many}")
+    ds = data_generate(0, CLIENTS, ROWS, DIM)
+    stats = [compute_stats(A, b) for A, b in ds.clients]
+    t0 = time.perf_counter()
+    out1, info1 = parity_run(one, ds, stats, "cuda:0")
+    t_one = time.perf_counter() - t0
+    K.reset_launch_counts()
+    mesh_lib.reset_collective_bytes()
+    t0 = time.perf_counter()
+    out4, info4 = parity_run(many, ds, stats, "cuda")
+    t_many = time.perf_counter() - t0
+    launches_a = K.launch_counts()
+    moved_a = mesh_lib.collective_bytes()
+    check(out1.keys() == out4.keys(), "the two (A) runs kept different outputs")
+    differ = {k: float((out1[k].double() - out4[k].double()).abs().max())
+              for k in out1 if not torch.equal(out1[k], out4[k])}
+    progress({"a_differ": differ, "a_info": [info1, info4]})
+    A_all = torch.cat([A for A, _ in ds.clients])
+    b_all = torch.cat([b for _, b in ds.clients])
+    times_a = {}
+    for tag, mesh in (("one_card", one), ("cards", many)):
+        A_sh = ShardedTensor.distribute(A_all, mesh, P("data"))
+        b_sh = ShardedTensor.distribute(b_all, mesh, P("data"))
+        times_a[tag] = step_times(mesh, A_sh, b_sh, 3, DIM)
+        del A_sh, b_sh
+    be_a = ShardedBackend(DIM, many)
+    be_a.fuse_distributed(A_all, b_all)
+    report["overlap_a_factor"] = card_overlap(lambda: be_a.factor(SIGMA), cards)
+    del be_a, A_all, b_all, ds, stats
+    torch.cuda.empty_cache()
+    progress({"a_steps": times_a, "overlap_a_factor": report["overlap_a_factor"]})
+    report["a"] = {"dim": DIM, "block_size": MC_TILES[0], "tensors_bitwise": len(out1),
+                   "one_card_s": t_one, "cards_s": t_many, "info_one_card": info1,
+                   "info_cards": info4, "launches": launches_a, "moved_bytes": moved_a,
+                   "steps": times_a}
+    del out1, out4
+
+    # (B) d 65536: one client of MC_BIG_ROWS rows on each card
+    big = mesh_lib.make_device_mesh(SHARD_DEVICES, devices=cards)
+    for dev in cards:
+        torch.cuda.reset_peak_memory_stats(dev)
+    blocks_A, blocks_b = {}, {}
+    for i, dev in enumerate(cards):
+        gen = torch.Generator(dev).manual_seed(MC_BIG_SEED + i)
+        blocks_A[(i, 0)] = torch.randn(MC_BIG_ROWS, MC_BIG_DIM, generator=gen, device=dev)
+        blocks_b[(i,)] = torch.randn(MC_BIG_ROWS, generator=gen, device=dev)
+    n_big = MC_BIG_ROWS * len(cards)
+    A = ShardedTensor(big, P("data"), (n_big, MC_BIG_DIM), blocks_A)
+    b = ShardedTensor(big, P("data"), (n_big,), blocks_b)
+    del blocks_A, blocks_b
+    # K1 at (B)'s shape on each card, against the plain version on its rows
+    pairs = []
+    for i in range(len(cards)):
+        G, _ = K.gram_moment_cuda(A.blocks[(i, 0)], b.blocks[(i,)])
+        pairs.append((G, A.blocks[(i, 0)].T @ A.blocks[(i, 0)]))
+    k1_big = {str(G.device): rel_err32(G, Gr) for G, Gr in pairs}
+    del pairs, G
+    progress({"k1_big": k1_big})
+    torch.cuda.empty_cache()
+    times_b = step_times(big, A, b, 1, MC_BIG_DIM)
+    progress({"b_step_times": times_b})
+    torch.cuda.empty_cache()
+    be = ShardedBackend(MC_BIG_DIM, big)
+    check(be.block_size == MC_BIG_BLOCK and be.padded == MC_BIG_DIM,
+          f"(B) layout bs {be.block_size}, padded {be.padded}")
+    eng = FusionEngine(MC_BIG_DIM, backend=be, device="cuda")
+    K.reset_launch_counts()
+    mesh_lib.reset_collective_bytes()
+    steps = {}
+    _, steps["ingest_distributed_s"] = walled(lambda: eng.ingest_distributed(A, b), cards)
+    moved_fuse = mesh_lib.collective_bytes()
+    want_rs = sum(be._rl * be._cl * 4 for key, dev in be._dev.items()
+                  for k in range(be._nrows) if be._dev[(k, 0)] != dev)
+    check(moved_fuse["psum_scatter"] == want_rs,
+          f"the reduce-scatter moved {moved_fuse['psum_scatter']} bytes, want "
+          f"{want_rs}: each card receives only its own rows of the others' Grams")
+    check(int(eng.count) == n_big, f"(B) count {int(eng.count)}")
+    del A, b
+    torch.cuda.empty_cache()
+    ws, steps["solve_batch_s"] = walled(lambda: eng.solve_batch(SIGMAS, method="chol"), cards)
+    res = {}
+    for sg, w in zip(SIGMAS, ws):
+        res[f"sweep_{sg}"] = blockwise_residuals(be, eng.factor(sg).L, w, sg,
+                                                 with_factor=sg == SIGMA)
+    _, steps["cached_solve_s"] = walled(lambda: eng.solve(SIGMA), cards, reps=3)
+    g = torch.Generator("cuda").manual_seed(MC_BIG_SEED + 100)
+    Au = torch.randn(SHARD_RANK, MC_BIG_DIM, generator=g, device="cuda")
+    bu = torch.randn(SHARD_RANK, generator=g, device="cuda")
+    upd0, cold0 = eng.incremental_updates, eng.cold_factorizations
+    _, steps["update_r64_s"] = walled(lambda: eng.ingest_rows(Au, bu), cards)
+    check(eng.incremental_updates - upd0 == len(SIGMAS) and eng.cold_factorizations
+          == cold0, f"(B) update: {eng.incremental_updates - upd0} updates, "
+          f"{eng.cold_factorizations - cold0} cold factors")
+    for sg in SIGMAS:
+        res[f"updated_{sg}"] = blockwise_residuals(be, eng.factor(sg).L, eng.solve(sg),
+                                                   sg, with_factor=sg == SIGMA)
+    launches_b = K.launch_counts()
+    moved_b = mesh_lib.collective_bytes()
+    # one K1 a client and one for the update's rows; the sweep's factors
+    # and one update of each, per distinct device as the layout implies
+    want_upd = sharded_update_launches(be, len(SIGMAS))
+    want_b = {"gram_moment": len(cards) + 1,
+              "gemm_nt": len(SIGMAS) * sharded_factor_launches(be) + want_upd["gemm_nt"],
+              "panel_transform": want_upd["panel_transform"]}
+    peak = {str(dev): torch.cuda.max_memory_allocated(dev) / 1e9 for dev in cards}
+    report["overlap_b_factor"] = card_overlap(lambda: be.factor(SIGMAS[1]), cards)
+    progress({"b_residuals": res, "b_steps": steps, "peak_gb": peak,
+              "overlap_b_factor": report["overlap_b_factor"]})
+    # every check of the phase, after (A) and (B) have both run
+    check(not differ, f"(A) on {len(cards)} cards differs from the one-card mesh: {differ}")
+    check(all(launches_b[k] == n for k, n in want_b.items()),
+          f"(B) launched {launches_b}, want {want_b}")
+    for dev, err in k1_big.items():
+        check(err <= 1e-4, f"K1 at {MC_BIG_ROWS} x {MC_BIG_DIM} on {dev}: {err} > 1e-4")
+    for name, r in res.items():
+        check(r["solve_residual"] <= MC_RESIDUAL_TOL,
+              f"(B) {name}: solve residual {r['solve_residual']} > {MC_RESIDUAL_TOL}")
+        if "factor_residual" in r:
+            check(r["factor_residual"] <= SHARD_FACTOR_TOL,
+                  f"(B) {name}: factor residual {r['factor_residual']} > {SHARD_FACTOR_TOL}")
+    for dev, gb in peak.items():
+        check(gb * 1e9 < torch.cuda.get_device_properties(0).total_memory,
+              f"(B) peak {gb} GB on {dev}")
+    record = comm.sharded_oneshot_record(MC_BIG_DIM, len(cards), be.fusion_axis_sizes)
+    report["b"] = {"dim": MC_BIG_DIM, "rows_a_card": MC_BIG_ROWS, "block_size": be.block_size,
+                   "blocks": [be._rl, be._cl], "k1_rel_err": k1_big, "residuals": res,
+                   "residual_tolerance": MC_RESIDUAL_TOL,
+                   "factor_tolerance": SHARD_FACTOR_TOL, "steps": steps,
+                   "step_times": times_b, "peak_gb": peak,
+                   "state_gb_a_card": be.gram.nbytes / len(cards) / 1e9,
+                   "launches": launches_b, "moved_bytes": moved_b,
+                   "ingest_moved_bytes": moved_fuse,
+                   "cross_shard_bytes_modelled": record.cross_shard_bytes}
+    del eng, be, ws
+    torch.cuda.empty_cache()
+    launches = {k: launches_a[k] + launches_b[k] for k in launches_a}
+    for name in ("gram_moment", "gemm_nt", "panel_transform"):
+        check(launches[name] > 0, f"kernel {name} was not launched across the cards")
+    return {"phase": "multi_card", "ran": True, **report, "launches": launches,
+            "seconds": time.perf_counter() - t_all}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="on-card smoke test of the port")
+    ap.add_argument("--phase", choices=["multi_card"],
+                    help="only the device line (the build), this phase and the "
+                         "last line: the mixed mesh check, then (A) and (B) on "
+                         "the host's cards")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -4735,6 +5442,13 @@ def main() -> int:
     # at a third of TF32 (their 3xTF32 routes)
     peaks = mesh_lib.card_peaks(name)
     emit(device_phase())
+    if args.phase == "multi_card":
+        emit({"phase": "mixed_mesh", **mixed_mesh_check()})
+        emit(multi_card_phase(peaks))
+        print(smi(), flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                     "count": torch.cuda.device_count()}})
+        return 0
     kernels_line, rows = kernel_phase(peaks)
     emit(kernels_line)
     ds, w_dense, path = main_path_phase()
@@ -4767,6 +5481,8 @@ def main() -> int:
     emit(dry)
     examples = examples_phase()
     emit(examples)
+    multi = multi_card_phase(peaks)
+    emit(multi)
     for kname, row in rows.items():
         run = (features if kname in ("sketch_gram", "rff_gram")
                else serving if kname == "swa_flash" else path)
@@ -4781,9 +5497,10 @@ def main() -> int:
         row["train_launches"] = train["launches"][kname]
         row["example_launches"] = (dry["example"]["launches"][kname]
                                    + examples["launches"][kname])
+        row["multi_card_launches"] = multi.get("launches", {}).get(kname, 0)
     order = ("name", "route", "source", "replaces", "launches", "wire_launches",
              "relay_launches", "private_launches", "sharded_launches", "zoo_launches",
-             "train_launches", "example_launches", "max_abs_err",
+             "train_launches", "example_launches", "multi_card_launches", "max_abs_err",
              "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in order if k in row} for row in rows.values()]})
     print(smi(), flush=True)

@@ -80,7 +80,9 @@ class SuffStats:
 
 
 def _count(n: int, device) -> torch.Tensor:
-    return torch.tensor(n, dtype=torch.int32, device=device)
+    # a fill on the device: no copy from the host, which would wait for the
+    # device's queued work (and serialise the cards of a mesh)
+    return torch.full((), n, dtype=torch.int32, device=device)
 
 
 def zeros_like_stats(d: int, dtype=torch.float32, *,
@@ -181,17 +183,74 @@ def streaming_update(old: SuffStats, delta_A: torch.Tensor,
 # Distributed protocol: clients = mesh shards, Phase 2 = one psum.
 # ---------------------------------------------------------------------------
 
-def distributed_stats(A: torch.Tensor, b: torch.Tensor, mesh, *,
+def _client_rows(x, k: int, n_clients: int, client_axes, dev) -> torch.Tensor:
+    """Client k's rows of ``x`` on ``dev``: its block of a row-sharded
+    :class:`~repro_torch.launch.sharding.ShardedTensor` (already on its
+    device), or its even share of a plain tensor, copied straight there."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.sharding import ShardedTensor, spec_axes
+
+    if isinstance(x, ShardedTensor):
+        if spec_axes(x.spec[0]) != tuple(client_axes) or any(x.spec[1:]):
+            raise ValueError(f"rows sharded as {x.spec}, clients along "
+                             f"{tuple(client_axes)}")
+        return mesh_lib.send(x.blocks[(k,) + (0,) * (len(x.shape) - 1)], dev)
+    rows = x.shape[0] // n_clients
+    return mesh_lib.send(x[k * rows:(k + 1) * rows], dev)
+
+
+def client_stats(A, b, mesh, *, client_axes: tuple[str, ...] = ("data",),
+                 participation=None, noise_fn=None) -> list[SuffStats]:
+    """Phase 1 on a mesh: each client's local statistics on its own device,
+    in flat client order (the per-client half of :func:`distributed_stats`).
+
+    Client k is flat (row-major) position k along ``client_axes``; its
+    device is the mesh's at those coordinates (index 0 along the other
+    axes). Its rows go straight there, from an even split of ``A`` / ``b``
+    or from their blocks when they are row-sharded ``ShardedTensor`` blocks,
+    and K1 computes its ``(G_k, h_k)`` there. ``noise_fn(k, G_k, h_k)``
+    (Algorithm 2) and the weight ``participation[k]`` (Thm 8) follow; the
+    count becomes the float weighted row count. Without ``participation``
+    the Gram is not scaled (a weight of one keeps its bits) and no d x d
+    copy is made.
+    """
+    from repro_torch.launch import mesh as mesh_lib
+
+    n_clients = mesh_lib.axis_size(mesh, client_axes)
+    if A.shape[0] % n_clients:
+        raise ValueError(f"{A.shape[0]} rows do not split over {n_clients} "
+                         f"clients along {client_axes}")
+    part = (torch.ones(n_clients, dtype=torch.float32) if participation is None
+            else torch.as_tensor(participation, dtype=torch.float32))
+    local = []
+    for k in range(n_clients):
+        dev = mesh.device_at(mesh_lib.unflatten(mesh, client_axes, k))
+        s = compute_stats(_client_rows(A, k, n_clients, client_axes, dev),
+                          _client_rows(b, k, n_clients, client_axes, dev))
+        if noise_fn is not None:
+            # DP noise covers (G, h) only; an un-noised sum of y^2 riding
+            # along would leak, so the privatized statistics drop it.
+            g_t, h_t = noise_fn(k, s.gram, s.moment)
+            s = SuffStats(g_t, h_t, s.count)
+        w = torch.full((), float(part[k]), dtype=torch.float32, device=dev)
+        gram = s.gram if participation is None else s.gram * w
+        local.append(SuffStats(gram, s.moment * w, s.count * w,
+                               yty=None if s.yty is None else s.yty * w))
+    return local
+
+
+def distributed_stats(A, b, mesh, *,
                       client_axes: tuple[str, ...] = ("data",),
                       participation=None, noise_fn=None) -> SuffStats:
     """One-Shot protocol Phases 1+2 on a mesh (``launch.mesh.Mesh``).
 
     The rows of ``A`` and ``b`` are split evenly over the shards along
-    ``client_axes``; each such shard plays one client: it computes its local
-    (G_k, h_k) (kernel K1 on the card) on its own device, and the single
-    reduction, added in flat client order, is the one communication round
-    (d^2 + d floats, Theorem 4's upload cost). The result lies on the first
-    client's device.
+    ``client_axes`` (or come row-sharded, as ``ShardedTensor`` blocks); each
+    such shard plays one client: it computes its local (G_k, h_k) (kernel
+    K1 on the card) on its own device (:func:`client_stats`), and the
+    single reduction, added in flat client order, is the one communication
+    round (d^2 + d floats, Theorem 4's upload cost). The result lies on the
+    first client's device.
 
     Args:
       client_axes: mesh axes the rows are sharded over; client k is flat
@@ -205,24 +264,8 @@ def distributed_stats(A: torch.Tensor, b: torch.Tensor, mesh, *,
     """
     from repro_torch.launch import mesh as mesh_lib
 
-    n_clients = mesh_lib.axis_size(mesh, client_axes)
-    if A.shape[0] % n_clients:
-        raise ValueError(f"{A.shape[0]} rows do not split over {n_clients} "
-                         f"clients along {client_axes}")
-    part = (torch.ones(n_clients, dtype=torch.float32) if participation is None
-            else torch.as_tensor(participation, dtype=torch.float32))
-    rows = A.shape[0] // n_clients
-    local = []
-    for k in range(n_clients):
-        dev = mesh.device_at(mesh_lib.unflatten(mesh, client_axes, k))
-        s = compute_stats(A[k * rows:(k + 1) * rows].to(dev),
-                          b[k * rows:(k + 1) * rows].to(dev))
-        if noise_fn is not None:
-            # DP noise covers (G, h) only; an un-noised sum of y^2 riding
-            # along would leak, so the privatized statistics drop it.
-            g_t, h_t = noise_fn(k, s.gram, s.moment)
-            s = SuffStats(g_t, h_t, s.count)
-        local.append(s.scale(part[k].to(dev)))
+    local = client_stats(A, b, mesh, client_axes=client_axes,
+                         participation=participation, noise_fn=noise_fn)
     dev = local[0].gram.device
     yty = (None if any(s.yty is None for s in local)
            else mesh_lib.psum([s.yty for s in local], dev))

@@ -3,8 +3,8 @@
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity and raises on anything its kernel does not take, allocates the
 outputs (and scratch) with ``torch.empty`` on the inputs' device, launches
-on PyTorch's current stream without synchronising, and raises if the launch
-returned a CUDA error. Each keeps a plain integer ``launches`` count, raised
+on that device's current stream, with that device current, without
+synchronising, and raises if the launch returned a CUDA error. Each keeps a plain integer ``launches`` count, raised
 by one where it launches its kernel and nowhere else.
 
   K1 ``gram_moment_cuda``     — (A^T A, A^T b); replaces ``gram_moment_pallas``
@@ -140,6 +140,11 @@ def _fn(name: str):
     return lib, fn
 
 
+# Kernels that address their operands with 64-bit offsets: their extents
+# (n, d) are ints, their element counts need not be (K1 on 32768 x 65536).
+_INT64_ADDRESSED = {"gram_moment"}
+
+
 def _check(name: str, tensors: dict[str, torch.Tensor], dtypes) -> torch.device:
     """Common argument checks; returns the one CUDA device of all tensors."""
     devices = {t.device for t in tensors.values()}
@@ -155,7 +160,8 @@ def _check(name: str, tensors: dict[str, torch.Tensor], dtypes) -> torch.device:
                             f"{sorted(map(str, dtypes))}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-        if t.numel() > _INT32_MAX:
+        if (max(t.shape, default=1) > _INT32_MAX if name in _INT64_ADDRESSED
+                else t.numel() > _INT32_MAX):
             raise ValueError(f"{name}: {arg} has {t.numel()} elements, more "
                              "than the kernel's int32 extents allow")
     return device
@@ -286,9 +292,10 @@ def _panel_gemm(entry, L: torch.Tensor, X: torch.Tensor, c0: int, c1: int,
     d, s = L.shape[0], L.element_size()
     bw = c1 - c0
     m, n = d - c1, bw + X.shape[0]
-    rc = fn(L.data_ptr() + (c1 * d + c0) * s, d, X.data_ptr() + c1 * s, d,
-            T.data_ptr(), None if O is None else O.data_ptr(), m, bw, n,
-            _FLOAT_DTYPES[L.dtype], stream)
+    with torch.cuda.device(L.device):
+        rc = fn(L.data_ptr() + (c1 * d + c0) * s, d, X.data_ptr() + c1 * s, d,
+                T.data_ptr(), None if O is None else O.data_ptr(), m, bw, n,
+                _FLOAT_DTYPES[L.dtype], stream)
     _raise_on("gemm_nt_panel", lib, rc)
     gemm_nt_cuda.launches += 1          # K2's count, from either entry
     if O is not None:
@@ -335,10 +342,11 @@ class _Panels:
         """P on the panel L[c0:c1, c0:c1]: L11' in place, T (bw + r square)
         at the head of its workspace."""
         bw, d, s = c1 - c0, self.d, self.L.element_size()
-        rc = self.p(self.L.data_ptr() + (c0 * d + c0) * s, d,
-                    self.X.data_ptr() + c0 * s, d, self.T.data_ptr(),
-                    self.arrivals.data_ptr(), None, bw, self.r, self.sign,
-                    self.code, self.stream)
+        with torch.cuda.device(self.L.device):
+            rc = self.p(self.L.data_ptr() + (c0 * d + c0) * s, d,
+                        self.X.data_ptr() + c0 * s, d, self.T.data_ptr(),
+                        self.arrivals.data_ptr(), None, bw, self.r, self.sign,
+                        self.code, self.stream)
         _raise_on("panel_transform", self.p_lib, rc)
         panel_transform_cuda.launches += 1
 

@@ -13,7 +13,8 @@ Modes:
     (the reference's ``serve_fusion``): every tenant is an independent
     fusion problem admitted from Thm-4 packed payloads (K1, or K3 / K4 for
     §IV-F sketched / rff tenants); ``--sharded-tenants N`` pins the first N
-    to the pool's one shared mesh (8 shards on ``--device``) and
+    to the pool's one shared mesh (8 shards over every visible card for
+    ``--device cuda``, on the one device for ``cuda:0`` or ``cpu``) and
     ``--auto-tenants M`` lets the next M follow ``server.select`` (dense:
     the port has no crossover table); queries run off cached factors against a
     naive cold solve per query, and ``--stream-deltas`` queues row deltas
@@ -181,7 +182,8 @@ def serve_fusion(*, num_clients: int = 4, samples_per_client: int = 128,
     uploaded as Thm-4 :class:`fed.PackedStats` payloads (the ledger records
     their measured bytes), its own sigma grid, and its own placement: the
     first ``sharded_tenants`` pinned to the pool's shared mesh (``mesh``,
-    or one the pool builds on ``device``), the next ``auto_tenants`` placed
+    or one the pool builds over ``device``: every visible card for
+    ``"cuda"``), the next ``auto_tenants`` placed
     by ``server.select`` (``threshold``: dense at +inf, the port's default
     without a table), the rest dense. The last ``rff_tenants`` and
     the ``sketched_tenants`` before them are §IV-F feature tenants: their
@@ -657,7 +659,8 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--queries", type=int, default=256)
     ap.add_argument("--sharded-tenants", type=int, default=2,
                     help="pin the first N tenants to the pool's shared mesh "
-                         "(8 shards on --device)")
+                         "(8 shards over every visible card for --device "
+                         "cuda, on the one device for cuda:0 or cpu)")
     ap.add_argument("--auto-tenants", type=int, default=2,
                     help="place the next M tenants by server/select.py "
                          "(dense: no crossover table)")

@@ -260,8 +260,9 @@ class ShardedTensor:
     @classmethod
     def distribute(cls, x: torch.Tensor, mesh, spec: Sequence | None = None
                    ) -> "ShardedTensor":
-        """Cut ``x`` into the spec's blocks and put each on its shard's
-        device; ``mesh`` may be a :class:`NamedSharding` (and ``spec`` then
+        """Cut ``x`` into the spec's blocks and copy each from ``x``'s
+        device straight to its shard's (``launch.mesh.send``), block by
+        block; ``mesh`` may be a :class:`NamedSharding` (and ``spec`` then
         omitted)."""
         if isinstance(mesh, NamedSharding):
             if spec is not None:
@@ -276,11 +277,12 @@ class ShardedTensor:
             coords = {}
             for i, entry in zip(index, spec):
                 coords.update(mesh_lib.unflatten(mesh, spec_axes(entry), i))
-            blocks[index] = x[sl].to(mesh.device_at(coords), copy=True)
+            blocks[index] = mesh_lib.send(x[sl], mesh.device_at(coords), copy=True)
         return cls(mesh, spec, x.shape, blocks)
 
     def full(self, device=None) -> torch.Tensor:
-        """The whole tensor on ``device`` (default: the first block's)."""
+        """The whole tensor on ``device`` (default: the first block's),
+        each block copied straight there from its shard's device."""
         counts = self.grid(self.mesh, self.spec, self.shape)
         dev = next(iter(self.blocks.values())).device if device is None \
             else torch.device(device)
@@ -288,7 +290,7 @@ class ShardedTensor:
         def assemble(prefix: tuple[int, ...]) -> torch.Tensor:
             d = len(prefix)
             if d == len(counts):
-                return self.blocks[prefix].to(dev)
+                return mesh_lib.send(self.blocks[prefix], dev)
             return torch.cat([assemble(prefix + (i,)) for i in range(counts[d])],
                              dim=d)
 

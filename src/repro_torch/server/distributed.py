@@ -10,22 +10,28 @@ materializes the fused Gram in one piece on the solve path:
     on its own device. ``d`` is padded up to the block / mesh lcm; the pad
     block of ``G + sigma I`` is ``sigma I`` and the pad of ``h`` is zero, so
     padded solves are exact on the first ``d`` coordinates. ``h`` is
-    replicated: one copy, on the mesh's first device, moved to another
-    shard's device where that shard needs it.
-  * **fusion** — ``fuse`` adds a padded dense delta block by block (the
-    same elementwise adds as the reference's). ``fuse_distributed`` runs the
-    paper's Phases 1+2 on mesh rows: each row shard computes its local
-    statistics (kernel K1 on the card), and one reduction, added in flat
-    shard order, is scattered into the block layout.
+    replicated: one copy, on the mesh's first device, broadcast to the
+    other devices where a solve needs it.
+  * **fusion** — ``fuse`` adds a dense delta block by block, each block
+    cut from the unpadded delta and sent to its shard (the same elementwise
+    adds as the reference's). ``fuse_distributed`` runs the paper's Phases
+    1+2 on mesh rows as the reference does: each row shard computes its
+    local statistics on its own device (kernel K1 on the card), and one
+    reduce-scatter, added in flat shard order, leaves each shard only its
+    own block: no device holds the fused Gram, and a client's Gram leaves
+    its device only as the blocks other devices own.
   * **solve** — a right-looking block Cholesky over the blocks. Per block
-    column: the (dp, bs) column strip is gathered (the only data that
-    leaves a shard), the bs x bs diagonal tile is factored
-    (``core.fusion.cholesky_or_nan``), the strip below it is solved against
-    the tile as a GEMM with the tile's inverse (kernel K2, ``_trsm``), and
+    column: the bs x bs diagonal tile is broadcast and factored on every
+    device holding rows of the column at or below it
+    (``core.fusion.cholesky_or_nan``), each such device solves its own row
+    shards' rows below it against the tile as a GEMM with the tile's
+    inverse (kernel K2, ``_trsm``), the column of L from the panel down is
+    gathered onto every device holding a shard at or below the panel, and
     every shard holding rows and columns at or below the panel takes its
-    trailing update ``G_ij - L_ik L_jk^T`` as one local GEMM (K2,
-    ``_syrk``: m = rl, n = cl, k = bs). Triangular solves run block by block
-    with one bs-float reduction a step, unrefined as the reference's are.
+    trailing update ``G_ij - L_ik L_jk^T`` on its rows from the panel down
+    as one local GEMM (K2: m <= rl, n = cl, k = bs). Triangular solves run block by block
+    on the diagonal tile's device, with one bs-float reduction and one
+    bs-float broadcast a step, unrefined as the reference's are.
   * **CG** — where padding would more than double ``d``, ``method="auto"``
     takes matrix-free Jacobi-preconditioned conjugate gradients on the
     blocks.
@@ -41,9 +47,12 @@ materializes the fused Gram in one piece on the solve path:
 
 Work that every shard of the reference computes redundantly (the tile's
 factor and inverse, the panel transform) runs once per distinct device of
-the mesh. On a mesh whose shards share one device the collectives copy
-nothing: what is measured is the algorithm and its kernels, not an
-interconnect.
+the mesh. Everything else runs on the device of the block it touches, and
+the loops over devices issue their work without reading a value back, so
+the cards of a mesh run at once. Every copy between devices goes through
+``launch.mesh``'s collectives, which count the bytes; on a mesh whose
+shards share one device they copy nothing. The sums are the one-device
+mesh's, in the same order, so a mesh over several cards gives its bits.
 """
 from __future__ import annotations
 
@@ -55,7 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.fusion import cholesky_or_nan
-from repro_torch.core.sufficient_stats import SuffStats, distributed_stats
+from repro_torch.core.sufficient_stats import SuffStats, client_stats
 from repro_torch.kernels import gram as gram_kernel
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref
@@ -229,24 +238,33 @@ class ShardedBackend:
         client axes only (``fed.comm.sharded_oneshot_record``)."""
         return {str(a): int(self.mesh.shape[a]) for a in self._row_axes}
 
-    def _pad_gram(self, G: torch.Tensor) -> torch.Tensor:
-        pad = self.padded - self._dim
-        return F.pad(G.to(self._dtype), (0, pad, 0, pad))
-
     def _pad_vec(self, h: torch.Tensor) -> torch.Tensor:
         return F.pad(h.to(self._dtype), (0, self.padded - self._dim))
 
     def _block(self, G: torch.Tensor, ri: int, ci: int) -> torch.Tensor:
+        """Block (ri, ci) of ``G`` zero-padded to (dp, dp), cut from the
+        unpadded ``G`` (a view where the block lies inside it)."""
         rl, cl = self._rl, self._cl
-        return G[ri * rl:(ri + 1) * rl, ci * cl:(ci + 1) * cl]
+        blk = G[ri * rl:(ri + 1) * rl, ci * cl:(ci + 1) * cl].to(self._dtype)
+        if blk.shape == (rl, cl):
+            return blk
+        return F.pad(blk, (0, cl - blk.shape[1], 0, rl - blk.shape[0]))
+
+    def _columns(self, G: torch.Tensor, ci: int) -> torch.Tensor:
+        """Column block ci of ``G`` zero-padded to (dp, dp): (dp, cl)."""
+        d, cl = self._dim, self._cl
+        col = G[:, ci * cl:(ci + 1) * cl].to(self._dtype)
+        if col.shape == (self.padded, cl):
+            return col
+        return F.pad(col, (0, cl - col.shape[1], 0, self.padded - d))
 
     def fuse(self, delta: SuffStats, sign: float = 1.0) -> None:
         if delta.dim != self._dim:
             raise ValueError(f"stats dim {delta.dim} != backend dim {self._dim}")
         s = 1.0 if sign > 0 else -1.0
-        dg = self._pad_gram(delta.gram)
+        dg = delta.gram
         self._G = ShardedTensor(self.mesh, self.spec, self._G.shape, {
-            (ri, ci): blk + s * self._block(dg, ri, ci).to(blk.device)
+            (ri, ci): blk + s * mesh_lib.send(self._block(dg, ri, ci), blk.device)
             for (ri, ci), blk in self._G.blocks.items()})
         self._h = self._h + s * self._pad_vec(delta.moment).to(self.device)
         dc = torch.as_tensor(delta.count).to(self.device, torch.int32)
@@ -262,8 +280,9 @@ class ShardedBackend:
     def set_stats(self, stats: SuffStats) -> None:
         if stats.dim != self._dim:
             raise ValueError(f"stats dim {stats.dim} != backend dim {self._dim}")
-        self._G = ShardedTensor.distribute(
-            self._pad_gram(stats.gram).to(self.device), self.mesh, self.spec)
+        self._G = ShardedTensor(self.mesh, self.spec, self._G.shape, {
+            key: mesh_lib.send(self._block(stats.gram, *key), dev, copy=True)
+            for key, dev in self._dev.items()})
         self._h = self._pad_vec(stats.moment).to(self.device)
         self._count = torch.as_tensor(stats.count).to(self.device, torch.int32)
         self._diag = None
@@ -299,25 +318,47 @@ class ShardedBackend:
 
     # -- on-mesh fusion (Phases 1+2, reduce-scattered into the block layout) --
 
-    def fuse_distributed(self, A: torch.Tensor, b: torch.Tensor, *,
-                         participation=None, noise_fn=None) -> None:
-        """Fold mesh rows in: shard-local statistics, one reduction.
+    def fuse_distributed(self, A, b, *, participation=None,
+                         noise_fn=None) -> None:
+        """Fold mesh rows in: shard-local statistics, one reduce-scatter.
 
-        ``core.distributed_stats`` over the row (client) axes: each row
-        shard computes its local ``(G_k, h_k)`` (kernel K1 on the card),
-        applies ``noise_fn(k, G_k, h_k)`` (Algorithm 2) and the Thm-8 weight
-        ``participation[k]``, and the sum, added in flat shard order, is
-        fused into the blocks. On this single-controller mesh the
-        reference's reduce-scatter is the same sum cut into blocks, so the
-        bits are its. The count is the participation-weighted row count,
-        rounded.
+        Each row (client) shard computes its local ``(G_k, h_k)`` on its own
+        device (``core.client_stats``: kernel K1 on the card), applies
+        ``noise_fn(k, G_k, h_k)`` (Algorithm 2) and the Thm-8 weight
+        ``participation[k]``, and :meth:`fuse_local` reduce-scatters them
+        into the blocks. ``A`` and ``b`` are plain tensors (split evenly)
+        or row-sharded ``ShardedTensor`` blocks.
         """
         if A.shape[-1] != self._dim:
             raise ValueError(f"A has dim {A.shape[-1]}, backend {self._dim}")
-        s = distributed_stats(A, b, self.mesh, client_axes=self._row_axes,
-                              participation=participation, noise_fn=noise_fn)
-        self.fuse(SuffStats(s.gram, s.moment,
-                            torch.round(s.count.to(torch.float32))))
+        self.fuse_local(client_stats(A, b, self.mesh, client_axes=self._row_axes,
+                                     participation=participation,
+                                     noise_fn=noise_fn))
+
+    def fuse_local(self, local: Sequence[SuffStats]) -> None:
+        """Phase 2 of the row shards' statistics (one a row shard, in flat
+        order, each on its own device): as the reference's ``psum_scatter``
+        over the row axes, block (ri, ci) of the padded sum is added in flat
+        shard order on block (ri, ci)'s device from block (ri, ci) of each
+        ``G_k``, so no device holds the fused Gram and a ``G_k`` leaves its
+        device only as the blocks other devices own. ``h`` and the count are
+        reduced onto the mesh's first device; the count, a weighted row
+        count, is rounded."""
+        if len(local) != self._nrows:
+            raise ValueError(f"{len(local)} row shards' statistics, mesh has "
+                             f"{self._nrows}")
+        blocks = dict(self._G.blocks)
+        for ci in range(self._ncols):
+            cols = [self._columns(s.gram, ci) for s in local]
+            devices = [self._dev[(ri, ci)] for ri in range(self._nrows)]
+            for ri, blk in enumerate(mesh_lib.psum_scatter(cols, devices=devices)):
+                blocks[(ri, ci)] = blocks[(ri, ci)] + blk
+        self._G = ShardedTensor(self.mesh, self.spec, self._G.shape, blocks)
+        dh = mesh_lib.psum([self._pad_vec(s.moment) for s in local], self.device)
+        dc = mesh_lib.psum([s.count.to(torch.float32) for s in local], self.device)
+        self._h = self._h + dh
+        self._count = self._count + torch.round(dc).to(torch.int32)
+        self._diag = None
 
     # -- factorization + solves ----------------------------------------------
 
@@ -367,86 +408,118 @@ class ShardedBackend:
         return [blocks[(ri, qk)][:, lc0:lc0 + self.block_size]
                 for ri in range(self._nrows)]
 
-    def _trsm(self, Lkk: torch.Tensor, below: torch.Tensor) -> torch.Tensor:
-        """Panel solve X @ Lkk^T = below as a GEMM against the inverted tile
-        (K2 on the card); Lkk's diagonal is >= sqrt(sigma), so the small
-        triangular inverse is well conditioned."""
+    def _trsm(self, Linv: torch.Tensor, below: torch.Tensor) -> torch.Tensor:
+        """Panel solve X @ Lkk^T = below as a GEMM against the tile's
+        inverse (K2 on the card)."""
+        return kernel_ops.gemm_nt(torch.zeros_like(below), below, Linv, alpha=1.0)
+
+    def _tile_inverse(self, Lkk: torch.Tensor) -> torch.Tensor:
+        """Lkk^{-1}, contiguous for K2; Lkk's diagonal is >= sqrt(sigma), so
+        the small triangular inverse is well conditioned."""
         eye = torch.eye(Lkk.shape[0], dtype=Lkk.dtype, device=Lkk.device)
         Linv = torch.linalg.solve_triangular(Lkk, eye, upper=False)
         if not Linv.is_contiguous():
             Linv = Linv.contiguous()
             self.k2_copies += 1
-        return kernel_ops.gemm_nt(torch.zeros_like(below), below, Linv, alpha=1.0)
+        return Linv
 
     def _chol(self, sigma: float) -> ShardedTensor:
         """Right-looking block Cholesky of G + sigma I over the blocks."""
-        bs, rl, cl, dp = self.block_size, self._rl, self._cl, self.padded
+        bs, rl, cl = self.block_size, self._rl, self._cl
         Gl = {}
         for (ri, ci), blk in self._G.blocks.items():
             g = blk.clone()
-            rows = torch.arange(ri * rl, (ri + 1) * rl, device=g.device)
-            cols = torch.arange(ci * cl, (ci + 1) * cl, device=g.device)
-            eq = rows[:, None] == cols[None, :]
-            g[eq] += sigma
+            g.diagonal(ri * rl - ci * cl).add_(sigma)   # the global diagonal
             Gl[(ri, ci)] = g
         Ll = {key: torch.zeros_like(g) for key, g in Gl.items()}
 
         for k in range(self._nb):
             c0 = k * bs
             qk, lc0 = divmod(c0, cl)
+            pk, lr0 = divmod(c0, rl)
             parts = self._strip_parts(Gl, k)
-            Lcols = {}
-            for dev in self.mesh.distinct_devices:
-                # the strip gathered: the only data that leaves a shard
-                C = mesh_lib.all_gather(parts, dev)                    # (dp, bs)
-                Lkk = cholesky_or_nan(C[c0:c0 + bs])
-                pieces = [torch.zeros((c0, bs), dtype=C.dtype, device=dev), Lkk]
-                if c0 + bs < dp:
-                    pieces.append(self._trsm(Lkk, C[c0 + bs:]))
-                Lcols[dev] = torch.cat(pieces)
-            for (ri, ci), g in Gl.items():
-                Lcol = Lcols[g.device]
-                mine = Lcol[ri * rl:(ri + 1) * rl]
-                if ci == qk:
-                    Ll[(ri, ci)][:, lc0:lc0 + bs] = mine
-                # Lcol is zero above row c0: a shard whose rows or columns
-                # all lie above the panel takes an exactly-zero update, and
-                # one wholly above the diagonal is never read again
-                if ((ri + 1) * rl <= c0 or (ci + 1) * cl <= c0
-                        or (ri + 1) * rl <= ci * cl):
-                    continue
-                lc = Lcol[ci * cl:(ci + 1) * cl]
-                Gl[(ri, ci)] = kernel_ops.gemm_nt(g, mine, lc, alpha=-1.0)
+            # rl is a multiple of bs: the tile lies in row shard pk, and the
+            # shards after it lie wholly below the tile
+            rows = range(pk, self._nrows)
+            owners = list(dict.fromkeys(self._dev[(ri, qk)] for ri in rows))
+            # the tile, factored (and inverted) once on each device holding
+            # rows of the panel's column at or below it; each of those
+            # devices solves its own rows below the tile in one TRSM
+            tile = parts[pk][lr0:lr0 + bs]
+            pieces = {}
+            for dev, t in zip(owners, mesh_lib.broadcast(tile, owners)):
+                mine = [ri for ri in rows if self._dev[(ri, qk)] == dev]
+                Lkk = cholesky_or_nan(t.contiguous())
+                below = {ri: parts[ri][max(c0 + bs - ri * rl, 0):] for ri in mine}
+                below = {ri: p for ri, p in below.items() if len(p)}
+                if below:
+                    solved = self._trsm(self._tile_inverse(Lkk), torch.cat(list(below.values())))
+                    below = dict(zip(below, solved.split([len(p) for p in below.values()])))
+                for ri in mine:
+                    pieces[ri] = torch.cat(([Lkk] if ri == pk else [])
+                                           + ([below[ri]] if ri in below else []))
+            # the column of L from row c0 down, gathered onto each device
+            # holding a shard at or below the panel
+            users = list(dict.fromkeys(self._dev[(ri, ci)] for ri in rows
+                                       for ci in range(self._ncols)))
+            Lcs = dict(zip(users, mesh_lib.all_gather([pieces[ri] for ri in rows],
+                                                      devices=users)))
+            for ri in rows:
+                a = max(ri * rl, c0) - ri * rl          # the shard's first row at or below c0
+                for ci in range(self._ncols):
+                    g = Gl[(ri, ci)]
+                    Lc = Lcs[g.device]
+                    mine = Lc[ri * rl + a - c0:(ri + 1) * rl - c0]
+                    if ci == qk:
+                        Ll[(ri, ci)][a:, lc0:lc0 + bs] = mine
+                    # a shard whose columns all lie above the panel takes an
+                    # exactly-zero update, and one wholly above the diagonal
+                    # is never read again
+                    if (ci + 1) * cl <= c0 or (ri + 1) * rl <= ci * cl:
+                        continue
+                    lc = Lc[max(ci * cl - c0, 0):(ci + 1) * cl - c0]
+                    if ci * cl < c0:                    # L's rows above c0 are zero
+                        lc = F.pad(lc, (0, 0, c0 - ci * cl, 0))
+                    out = kernel_ops.gemm_nt(g[a:], mine, lc, alpha=-1.0)
+                    if a:
+                        g[a:] = out
+                    else:
+                        Gl[(ri, ci)] = out
         return ShardedTensor(self.mesh, self.spec, self._G.shape, Ll)
 
     def _update(self, L: ShardedTensor, X: torch.Tensor, sign: float
                 ) -> ShardedTensor:
-        """Blocked rank-r up/downdate of L by X (r, dp), over the blocks."""
+        """Blocked rank-r up/downdate of L by X (r, dp), over the blocks.
+
+        Row shard ri keeps its rows of the update vectors, (rl, r), on the
+        device of the block it updates; only the tile and the tile's rows of
+        X are broadcast, to build the tile's transform on every device."""
         bs, rl, cl = self.block_size, self._rl, self._cl
+        devices = self.mesh.distinct_devices
         Ll = {key: blk.clone() for key, blk in L.blocks.items()}
+        xs = [X[:, ri * rl:(ri + 1) * rl].T for ri in range(self._nrows)]
         for k in range(self._nb):
             c0 = k * bs
             qk, lc0 = divmod(c0, cl)
             pk, lr0 = divmod(c0, rl)
             strips = self._strip_parts(Ll, k)
+            xs[pk] = mesh_lib.send(xs[pk], Ll[(pk, qk)].device)
             tile = strips[pk][lr0:lr0 + bs]
-            X1 = X[:, c0:c0 + bs]
+            X1 = xs[pk][lr0:lr0 + bs].T                             # (r, bs)
             transforms = {}
-            for dev in self.mesh.distinct_devices:
+            for dev, t, x1 in zip(devices, mesh_lib.broadcast(tile, devices),
+                                  mesh_lib.broadcast(X1, devices)):
                 self.k2_copies += 1          # T transposed for K2's B operand
-                Lkk_new, T = tile_transform(tile.to(dev), X1.to(dev), sign=sign)
+                Lkk_new, T = tile_transform(t, x1, sign=sign)
                 transforms[dev] = (Lkk_new, T.T.contiguous())
-            new_x = []
             for ri in range(self._nrows):
-                Xloc = X[:, ri * rl:(ri + 1) * rl].T                   # (rl, r)
                 if (ri + 1) * rl <= c0:
-                    # rows above the panel: zero strip, X unchanged
-                    new_x.append(Xloc)
-                    continue
+                    continue                 # rows above the panel: X unchanged
                 blk = Ll[(ri, qk)]
                 Lkk_new, TT = transforms[blk.device]
                 strip = strips[ri]
-                Z = torch.cat([strip, Xloc.to(blk.device)], dim=1)     # (rl, bs + r)
+                Xloc = mesh_lib.send(xs[ri], blk.device)               # (rl, r)
+                Z = torch.cat([strip, Xloc], dim=1)                    # (rl, bs + r)
                 Zn = kernel_ops.gemm_nt(torch.zeros_like(Z), Z, TT, alpha=1.0)
                 g = torch.arange(ri * rl, (ri + 1) * rl, device=blk.device)
                 below = (g >= c0 + bs)[:, None]
@@ -454,64 +527,70 @@ class ShardedBackend:
                 if ri == pk:
                     new_strip[lr0:lr0 + bs] = Lkk_new
                 blk[:, lc0:lc0 + bs] = new_strip
-                new_x.append(torch.where(below, Zn[:, bs:], Xloc.to(blk.device)))
-            # re-replicate the transformed update vectors
-            X = mesh_lib.all_gather(new_x, self.device).T
+                xs[ri] = torch.where(below, Zn[:, bs:], Xloc)
         return ShardedTensor(self.mesh, self.spec, L.shape, Ll)
 
-    def _diag_tiles(self, L: ShardedTensor) -> list[torch.Tensor]:
-        """The nb diagonal bs x bs tiles, on the mesh's first device."""
+    def _diag_tile(self, L: ShardedTensor, k: int) -> torch.Tensor:
+        """The k-th bs x bs diagonal tile of L, a view on its shard's device."""
         bs, rl, cl = self.block_size, self._rl, self._cl
-        tiles = []
-        for k in range(self._nb):
-            c0 = k * bs
-            pk, qk = c0 // rl, c0 // cl
-            blk = L.blocks[(pk, qk)]
-            tiles.append(blk[c0 - pk * rl:c0 - pk * rl + bs,
-                             c0 - qk * cl:c0 - qk * cl + bs].to(self.device))
-        return tiles
+        c0 = k * bs
+        pk, qk = c0 // rl, c0 // cl
+        return L.blocks[(pk, qk)][c0 - pk * rl:c0 - pk * rl + bs,
+                                  c0 - qk * cl:c0 - qk * cl + bs]
 
     def _tri_solve(self, L: ShardedTensor, h: torch.Tensor) -> torch.Tensor:
-        """w = (L L^T)^{-1} h by block forward / back substitution: per block
-        row one local (bs, cl) matvec a shard and one bs-float reduction."""
+        """w = (L L^T)^{-1} h by block forward / back substitution. Step k
+        runs on the diagonal tile's device: one local (bs, cl) matvec a
+        shard, one bs-float reduction onto that device, and the solved
+        bs floats broadcast into every device's copy of the iterate."""
         bs, rl, cl = self.block_size, self._rl, self._cl
-        diag = self._diag_tiles(L)
+        devices = self.mesh.distinct_devices
+        hs = dict(zip(devices, mesh_lib.broadcast(h, devices)))
         # Forward: L y = h. Entries of y past block k are still zero, so the
         # row block's matvec sums exactly the factored columns.
-        y = torch.zeros_like(h)
+        ys = {dev: torch.zeros_like(hs[dev]) for dev in devices}
         for k in range(self._nb):
             c0 = k * bs
             pk, lr0 = divmod(c0, rl)
+            tile = self._diag_tile(L, k)
             parts = [L.blocks[(pk, ci)][lr0:lr0 + bs]
-                     @ y[ci * cl:(ci + 1) * cl].to(L.blocks[(pk, ci)].device)
+                     @ ys[L.blocks[(pk, ci)].device][ci * cl:(ci + 1) * cl]
                      for ci in range(self._ncols)]
-            s = mesh_lib.psum(parts, self.device)
-            y[c0:c0 + bs] = torch.linalg.solve_triangular(
-                diag[k], (h[c0:c0 + bs] - s)[:, None], upper=False)[:, 0]
+            s = mesh_lib.psum(parts, tile.device)
+            yk = torch.linalg.solve_triangular(
+                tile, (hs[tile.device][c0:c0 + bs] - s)[:, None], upper=False)[:, 0]
+            for dev, v in zip(devices, mesh_lib.broadcast(yk, devices)):
+                ys[dev][c0:c0 + bs] = v
         # Backward: L^T w = y over block rows in reverse.
-        x = torch.zeros_like(h)
+        xs = {dev: torch.zeros_like(hs[dev]) for dev in devices}
         for k in reversed(range(self._nb)):
             c0 = k * bs
             qk, lc0 = divmod(c0, cl)
+            tile = self._diag_tile(L, k)
             parts = [L.blocks[(ri, qk)][:, lc0:lc0 + bs].T
-                     @ x[ri * rl:(ri + 1) * rl].to(L.blocks[(ri, qk)].device)
+                     @ xs[L.blocks[(ri, qk)].device][ri * rl:(ri + 1) * rl]
                      for ri in range(self._nrows)]
-            s = mesh_lib.psum(parts, self.device)
-            x[c0:c0 + bs] = torch.linalg.solve_triangular(
-                diag[k].T, (y[c0:c0 + bs] - s)[:, None], upper=True)[:, 0]
-        return x
+            s = mesh_lib.psum(parts, tile.device)
+            xk = torch.linalg.solve_triangular(
+                tile.T, (ys[tile.device][c0:c0 + bs] - s)[:, None], upper=True)[:, 0]
+            for dev, v in zip(devices, mesh_lib.broadcast(xk, devices)):
+                xs[dev][c0:c0 + bs] = v
+        return xs[self.device]
 
     def _matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """G @ x over the blocks: per shard a local matvec, summed over the
-        column shards, gathered over the row shards."""
+        """G @ x over the blocks: x broadcast, per shard a local matvec,
+        summed over the column shards on the row's device, gathered over
+        the row shards."""
         rl, cl = self._rl, self._cl
+        devices = self.mesh.distinct_devices
+        xd = dict(zip(devices, mesh_lib.broadcast(x, devices)))
         rows = []
         for ri in range(self._nrows):
             parts = []
             for ci in range(self._ncols):
                 blk = self._G.blocks[(ri, ci)]
-                parts.append(blk @ x[ci * cl:(ci + 1) * cl].to(blk.device))
-            rows.append(mesh_lib.psum(parts, self.device))
+                parts.append(blk @ xd[blk.device][ci * cl:(ci + 1) * cl])
+            rows.append(mesh_lib.psum(parts, self._dev[(ri, 0)]))
         return mesh_lib.all_gather(rows, self.device)
 
     # -- CG fallback -----------------------------------------------------------
@@ -523,9 +602,9 @@ class ShardedBackend:
             for (ri, ci), blk in self._G.blocks.items():
                 lo, hi = max(ri * rl, ci * cl), min((ri + 1) * rl, (ci + 1) * cl)
                 if lo < hi:
-                    d[lo:hi] = torch.diagonal(
+                    d[lo:hi] = mesh_lib.send(torch.diagonal(
                         blk[lo - ri * rl:hi - ri * rl, lo - ci * cl:hi - ci * cl]
-                    ).to(self.device)
+                    ), self.device)
             self._diag = d
         return self._diag
 

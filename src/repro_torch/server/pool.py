@@ -15,8 +15,9 @@ registry and scheduling layer:
     ``"auto"`` (``server.select``: an explicit ``threshold=`` or a table's
     crossover decides; the port has no default table, so without one
     ``"auto"`` resolves dense). All sharded tenants share ONE mesh, built
-    lazily on the pool's device at the first sharded placement
-    (``meshes_built``): K sharded tenants cost one mesh, and a pool that
+    lazily at the first sharded placement (``meshes_built``) over the
+    pool's device, or over every visible card when that device is
+    ``"cuda"`` with no index (``launch.mesh.spread_devices``): K sharded tenants cost one mesh, and a pool that
     places everything dense builds none. Sharded tenants solve under their
     lock and stay out of cross-tenant stacks (their backend declines the
     operand snapshot).
@@ -184,8 +185,10 @@ class EnginePool:
                  tier: str = "root", device="cuda", dtype=torch.float32):
         """Args:
           mesh: mesh shared by every sharded tenant; built lazily
-            (``launch.mesh.make_device_mesh(mesh_devices)`` on ``device``)
-            when omitted and a tenant places sharded.
+            (``launch.mesh.make_device_mesh(mesh_devices)`` over
+            ``launch.mesh.spread_devices(device)``: every visible card for
+            ``"cuda"``, the one device for ``"cuda:0"`` or ``"cpu"``) when
+            omitted and a tenant places sharded.
           threshold / table: forwarded to ``server.select`` for ``"auto"``
             placement (an explicit threshold beats a table's crossover).
           max_warm: LRU bound on tenants with resident factor caches
@@ -302,8 +305,9 @@ class EnginePool:
             if self._mesh is None:
                 from repro_torch.launch import mesh as mesh_lib
 
-                self._mesh = mesh_lib.make_device_mesh(self._mesh_devices,
-                                                       device=self.device)
+                devices = mesh_lib.spread_devices(self.device)
+                self._mesh = mesh_lib.make_device_mesh(
+                    self._mesh_devices, devices=devices[:self._mesh_devices])
                 self.meshes_built += 1
             return self._mesh
 

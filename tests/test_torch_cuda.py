@@ -1597,3 +1597,97 @@ def test_psum_scatter_places_each_slice_on_its_shard(card):
         assert [s.device for s in sl] == devices
         for s, want in zip(sl, torch.chunk(total, 2, dim=dim)):
             assert torch.equal(s.cpu(), want.cpu())
+
+
+# -- the sharded backend across the cards of one host ------------------------
+
+@pytest.fixture
+def cards():
+    """Every card of the host, at least two (the mesh's rows spread over
+    them); skips below two."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    torch.cuda.set_device(0)
+    return [torch.device("cuda", i) for i in range(min(torch.cuda.device_count(), 4))]
+
+
+def _sharded_run(mesh, d, stats, rows):
+    """Fuse, factor, solve, a rank-r update, a drop and CG on ``mesh``; the
+    blocks, h, count, factor blocks and weights, on the host."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    dev0 = mesh.distinct_devices[0]
+    on = {k: core.SuffStats(s.gram.to(dev0), s.moment.to(dev0), s.count.to(dev0))
+          for k, s in stats.items()}
+    eng = server.FusionEngine.from_clients(
+        on, backend=server.ShardedBackend(d, mesh), max_update_rank=d)
+    out = {"w0": eng.solve(0.1)}
+    out.update({f"L0{k}": b for k, b in eng.factor(0.1).L.blocks.items()})
+    eng.ingest_rows(rows.to(dev0), rows[:, 0].to(dev0))
+    out["w1"] = eng.solve(0.1)
+    out.update({f"L1{k}": b for k, b in eng.factor(0.1).L.blocks.items()})
+    eng.drop(2)
+    out["w2"] = eng.solve(0.1)
+    be = eng.backend
+    out.update({f"G{k}": b for k, b in be.gram.blocks.items()})
+    out["h"], out["count"] = be._h, be.count
+    A = torch.cat([rows] * 4).to(dev0)
+    dist = server.ShardedBackend(d, mesh)
+    dist.fuse_distributed(A, A[:, 1].contiguous())
+    out.update({f"D{k}": b for k, b in dist.gram.blocks.items()})
+    cg = server.FusionEngine.from_stats(eng.stats, backend=server.ShardedBackend(
+        d, mesh, method="cg"))
+    out["wcg"] = cg.solve(0.1)
+    devices = {str(b.device) for b in be.gram.blocks.values()}
+    return {k: v.cpu() for k, v in out.items()}, devices, mesh_lib.collective_bytes()
+
+
+@pytest.mark.parametrize("d", [48, 256])
+def test_sharded_backend_across_cards_is_the_one_card_bits(cards, d):
+    """The (4, 2) mesh with its rows on the cards against the (4, 2) mesh on
+    one card: every block, factor block and weight bit for bit (the same
+    adds in the same order, the same kernels on the same card model)."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    A, b = _randn((4 * d + 48, d)), _randn((4 * d + 48,), seed=1)
+    cuts = [0, 4 * d, 4 * d + 16, 4 * d + 32, 4 * d + 48]
+    stats = {k: core.compute_stats(A[cuts[k]:cuts[k + 1]], b[cuts[k]:cuts[k + 1]])
+             for k in range(4)}
+    rows = _randn((24, d), seed=3)
+    mesh_lib.reset_collective_bytes()
+    one, dev1, moved1 = _sharded_run(mesh_lib.make_device_mesh(8, device=cards[0]),
+                                     d, stats, rows)
+    assert dev1 == {"cuda:0"} and set(moved1.values()) == {0}
+    many, devn, moved = _sharded_run(mesh_lib.make_device_mesh(8, devices=cards),
+                                     d, stats, rows)
+    assert devn == {str(c) for c in cards}
+    assert moved["psum_scatter"] > 0 and moved["all_gather"] > 0
+    differ = [k for k in one if not torch.equal(one[k], many[k])]
+    assert not differ, differ
+
+
+def test_p_and_k2_on_another_card_than_the_current(cards):
+    """P, K2's panel entry and the composed tile transform on cuda:1 while
+    cuda:0 is current: each launch runs on its tensors' card, bitwise the
+    same call on cuda:0."""
+    from repro_torch.server.distributed import composed_panel_transform
+
+    assert torch.cuda.current_device() == 0
+    M = _randn((256, 64), seed=4)
+    L = torch.linalg.cholesky(M.T @ M / 64 + torch.eye(64, dtype=M.dtype)).contiguous()
+    X = _randn((16, 64), seed=5)
+    T = torch.linalg.qr(_randn((48, 48), seed=6))[0].contiguous()
+    got = {}
+    for dev in (cards[0], cards[1]):
+        L11, X1 = L[:32, :32].contiguous().to(dev), X[:, :32].contiguous().to(dev)
+        Lp, Tp = gram.panel_transform_cuda(L11, X1, sign=1.0)
+        Lk, Xk = L.to(dev), X.to(dev)
+        gram.panel_gemm_cuda(Lk, Xk, 0, 32, T.to(dev))
+        Lc, Tc = composed_panel_transform(L.to(dev), X.to(dev), sign=1.0)
+        torch.cuda.synchronize(dev)
+        assert Lp.device == Lk.device == Lc.device == dev
+        got[dev.index] = [t.cpu() for t in (Lp, Tp, Lk, Xk, Lc, Tc)]
+    assert torch.cuda.current_device() == 0
+    assert all(torch.equal(a, b) for a, b in zip(got[0], got[1]))
+    Lr, Tr = cholesky.panel_transform_ref(L[:32, :32], X[:, :32], sign=1.0)
+    assert _rel(got[1][1], Tr) <= 1e-4

@@ -198,8 +198,8 @@ class TestCollectives:
         devices = mesh_lib.make_cpu_mesh(4).devices.reshape(-1)
         assert all(p.device == d for p, d in zip(parts, devices))
         total = mesh_lib.psum(parts)
-        for device in (None, "cpu"):
-            sl = mesh_lib.psum_scatter(parts, device=device, dim=dim)
+        for devices in (None, ["cpu"] * 4):
+            sl = mesh_lib.psum_scatter(parts, dim=dim, devices=devices)
             assert len(sl) == 4
             for i, s in enumerate(sl):
                 assert s.device == parts[i].device
