@@ -353,6 +353,7 @@ TRAIN_CLI = ("--arch", "yi-9b", "--reduced", "--steps", "20", "--batch", "8",
 # EXAMPLE_CLIENTS clients' features; K5 twice a layer a step (remat) and
 # once a layer a client, K1 once (the centralized head).
 DRYRUN_COSTED = (("yi-9b", "train_4k"),)
+DRYRUN_POD = ("yi-9b", "train_4k")       # its cost record on pod1's 16 x 16 mesh
 EXAMPLE_STEPS, EXAMPLE_CLIENTS, EXAMPLE_ROWS = 200, 8, 16
 # The examples (the examples phase), last: quickstart, private_federation
 # and serve_batched in process at their defaults (the reference's 20
@@ -424,7 +425,14 @@ MIXED_DIM, MIXED_ROWS, MIXED_RANK = 1024, 2048, 16
 # card's peak memory; the reduce-scatter's bytes exactly each card's own
 # rows of the other cards' Grams. Phase 1, the reduce-scatter, a factor, a
 # cached solve and an update are timed alone at (A) on one card and on the
-# cards, and at (B).
+# cards, and at (B). (C) the one-shot probe of private_probe_phase on the
+# (4, 2) mesh of the cards: gemma3-27b at full width cut to MODEL_STAGES
+# stages, built on card 0 and copied to the other cards (probe.replicas,
+# the broadcast's bytes 3 x the model's), one client a card through K5 in
+# every layer of its card's replica (the launches counted a card), the
+# features, fused (G, h) and head held bitwise against the same probe on
+# the (4, 2) mesh of card 0 (reported) and the head to the float64 central
+# head at 1e-3, private_probe_phase's limit.
 MC_CARDS = 4
 MC_BIG_DIM, MC_BIG_ROWS, MC_BIG_BLOCK, MC_BIG_SEED = 65536, 32768, 4096, 21
 MC_RESIDUAL_TOL = 1e-5
@@ -4420,12 +4428,14 @@ def train_phase(peaks) -> dict:
 def dryrun_phase(peaks, serving: dict, zoo: dict, train: dict) -> dict:
     """(a) the dry-run's memory sweep of the whole matrix on the one-card
     mesh as a process (33 OK, 7 SKIP), the cost mode of ``DRYRUN_COSTED``
-    and the roofline's table; (b) the dry-run's parameter bytes of every
-    model the script built at full width (gemma3-27b's cut, the zoo's runs,
-    yi-9b's training cut), and for training AdamW's and the arguments'
-    bytes, equal to the byte to what the phases measured; (c) the roofline
-    of the train phase's own step (yi-9b at 8 layers, B 2 x 4096) beside its
-    measured time, not a gate; (d) the probe example in process, its
+    and the roofline's table, and ``DRYRUN_POD``'s cost record on pod1 in
+    process with its collective bytes by kind; (b) the dry-run's parameter
+    bytes of every model the script built at full width (gemma3-27b's cut,
+    the zoo's runs, yi-9b's training cut), and for training AdamW's and the
+    arguments' bytes, equal to the byte to what the phases measured; (c)
+    the roofline of the train phase's own step (yi-9b at 8 layers, B 2 x
+    4096) beside its measured time, not a gate; (d) the probe example in
+    process, its
     one-shot head within 1e-3 of the centralized one and its K1 and K5
     launches pinned, K1 and K5 then held to their plain versions at its
     shapes."""
@@ -4486,6 +4496,30 @@ def dryrun_phase(peaks, serving: dict, zoo: dict, train: dict) -> dict:
             matrix[f"{rec['arch']} {rec['shape']}"] = row
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+
+    # (a') one cost record on the 16 x 16 mesh, in process: the collectives
+    # DTensor's propagation issues on a fake process group (no kernel, no
+    # card collective), extrapolated to full depth by the roofline
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    pod = dryrun.run_combo(DRYRUN_POD[0], DRYRUN_POD[1], mesh_name="pod1")
+    pod_launches = K.launch_counts()
+    steps["cost_pod1_s"] = time.perf_counter() - t0
+    check(all(n == 0 for n in pod_launches.values()),
+          f"the pod1 cost record launched {pod_launches}")
+    check(not torch.distributed.is_initialized(), "the dry-run left its process group")
+    # the counts follow DTensor's rules, so they go with their torch version
+    pod_line = {"arch": DRYRUN_POD[0], "shape": DRYRUN_POD[1], "mesh": "pod1 (16, 16)",
+                "torch": pod["torch"], "wall_s": steps["cost_pod1_s"]}
+    for n in dryrun.COST_STAGES:
+        c = pod[f"cost_{n}stage"]
+        check(c["collectives"]["total"] > 0 and "all-gather" in c["collectives"],
+              f"pod1 {n}-stage collectives {c['collectives']}")
+        pod_line[f"cost_{n}stage"] = c
+    r = roofline.analyze(pod)
+    check(r.coll_bytes > 0 and r.collective_s is None, f"pod1 roofline {r}")
+    pod_line.update(coll_bytes_full_depth=r.coll_bytes, coll_by_kind_full_depth=r.coll_by_kind)
+    progress({"dryrun_pod1": pod_line})
 
     # (b) the dry-run's bytes against the models the phases built
     card = dryrun.make_named_mesh("card")
@@ -4580,6 +4614,7 @@ def dryrun_phase(peaks, serving: dict, zoo: dict, train: dict) -> dict:
     torch.cuda.empty_cache()
     return {"phase": "dryrun", "mesh": "card (1, 1)", "hbm_bytes": mesh_lib.HBM_BYTES,
             "sweep": counts, "costed": [list(c) for c in DRYRUN_COSTED],
+            "pod1_collectives": pod_line,
             "matrix": matrix, "roofline_table": table.strip().splitlines(),
             "exact_bytes": exact, "step_roofline": step_roofline, "example": example_line,
             "steps_s": steps, "nvidia_smi": smi(), "seconds": time.perf_counter() - t_all}
@@ -5242,8 +5277,166 @@ def blockwise_residuals(be, L, w, sigma: float, with_factor: bool) -> dict:
     return out
 
 
+def probe_across_cards(cards) -> tuple[dict, dict]:
+    """(C): the one-shot probe of ``private_probe_phase`` (gemma3-27b at full
+    width cut to MODEL_STAGES stages, its PROBE_* clients and targets) on the
+    (4, 2) mesh of the cards, row i on card i, each client's features
+    through a replica of card 0's model on its card (``probe.replicas``);
+    against the same probe on the (4, 2) mesh of card 0, bitwise where it
+    can be, and against the float64 central head. Returns the report and
+    the K5 launches of the run across the cards."""
+    from repro_torch import configs
+    from repro_torch.core import probe
+    from repro_torch.kernels import gram as K
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import blocks
+
+    t_all = time.perf_counter()
+    for dev in cards:
+        torch.cuda.reset_peak_memory_stats(dev)
+    cfg = dataclasses.replace(configs.get(MODEL_ARCH), num_stages=MODEL_STAGES)
+    lm, _, _, param_bytes = seeded_model(cfg, MODEL_SEED, MODEL_BATCH, MODEL_PROMPT)
+    n_rows = PROBE_CLIENTS * PROBE_PROMPTS * PROBE_LEN
+
+    def features(model, tokens):
+        x = model.embed(tokens)
+        for layer in model.all_layers():
+            x = blocks.apply_layer(layer, x, cfg)
+        return model.final_norm(x).reshape(-1, cfg.d_model)
+
+    rng = np.random.default_rng(PROBE_SEED)
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (PROBE_PROMPTS, PROBE_LEN))
+                                .astype(np.int32)).cuda() for _ in range(PROBE_CLIENTS)]
+    w_true = torch.from_numpy(rng.standard_normal((cfg.d_model, PROBE_TARGETS))
+                              .astype(np.float32)).cuda()
+    feats, ys = [], []
+    for toks in prompts:              # private_probe_phase's targets, client by client
+        f = features(lm, toks)
+        noise = torch.from_numpy(rng.standard_normal((f.shape[0], PROBE_TARGETS))
+                                 .astype(np.float32)).cuda()
+        ys.append(f.float() @ w_true + 0.01 * noise)
+        feats.append(f)
+    tokens, Y = torch.cat(prompts), torch.cat(ys)
+    F = torch.cat(feats).double()
+    G64 = F.T @ F
+    lam = torch.linalg.eigvalsh(G64)
+    sigma = max((float(lam[-1]) - PROBE_KAPPA * float(lam[0])) / (PROBE_KAPPA - 1), 0.0)
+    w64 = torch.linalg.solve(G64 + sigma * torch.eye(cfg.d_model, dtype=torch.float64,
+                                                     device="cuda"), F.T @ Y.double())
+    del F, G64, lam, feats, ys
+
+    # the one-card (4, 2) mesh of card 0
+    one = mesh_lib.make_device_mesh(SHARD_DEVICES, device=cards[0])
+    feats_one = []
+
+    def on_card0(x):
+        feats_one.append(features(lm, x))
+        return feats_one[-1]
+    r_one = probe.one_shot_probe(on_card0, tokens, Y, sigma=sigma, mesh=one)
+    torch.cuda.synchronize(cards[0])
+
+    # a replica on each other card, broadcast from card 0's model
+    mesh_lib.reset_collective_bytes()
+    reps, replicate_s = walled(lambda: probe.replicas(lm, cards), cards)
+    moved = mesh_lib.collective_bytes()
+    check(list(reps) == cards and reps[cards[0]] is lm,
+          f"replicas on {list(reps)}, want one on each of {cards}")
+    check(moved["broadcast"] == (len(cards) - 1) * param_bytes,
+          f"the replicas moved {moved['broadcast']} bytes, want {len(cards) - 1} x "
+          f"{param_bytes}")
+    for dev, rep in reps.items():
+        check(all(p.device == dev for p in rep.parameters()),
+              f"the replica for {dev} has parameters elsewhere")
+    check(all(torch.equal(p.to(cards[0]), q) for p, q in
+              zip(reps[cards[-1]].parameters(), lm.parameters())),
+          f"the replica on {cards[-1]} does not hold card 0's bits")
+
+    many = mesh_lib.make_device_mesh(SHARD_DEVICES, devices=cards)
+    feats_many, events = [], {}
+
+    def on_its_card(x):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with torch.cuda.device(x.device):
+            start.record()
+            feats_many.append(features(reps[x.device], x))
+            end.record()
+        events[str(x.device)] = (start, end)
+        return feats_many[-1]
+
+    # K5's launches a card: each call of the attention's forward that takes
+    # the kernel (a card's tensors), tallied by the device of its tensors
+    per_card = {str(d): 0 for d in cards}
+    forward = ops._swa_forward
+
+    def tallied(q, *args):
+        if ops.on_card(q.device, "swa_attention"):
+            per_card[str(q.device)] += 1
+        return forward(q, *args)
+
+    K.reset_launch_counts()
+    ops._swa_forward = tallied
+    try:
+        r_many, probe_s = walled(lambda: probe.one_shot_probe(
+            on_its_card, tokens, Y, sigma=sigma, mesh=many), cards)
+    finally:
+        ops._swa_forward = forward
+    launches = K.launch_counts()
+    features_ms = {dev: s.elapsed_time(e) for dev, (s, e) in events.items()}
+    n_layers = cfg.num_layers
+    want = {str(d): n_layers * sum(many.device_at({"data": k}) == d
+                                   for k in range(PROBE_CLIENTS)) for d in cards}
+    check(per_card == want, f"K5 launches a card {per_card}, want {want}")
+    check(launches["swa_flash"] == PROBE_CLIENTS * n_layers
+          and all(n == 0 for k, n in launches.items() if k != "swa_flash"),
+          f"(C) launched {launches}")
+    check(int(r_many.stats.count) == n_rows, f"(C) count {int(r_many.stats.count)}")
+    check([f.device for f in feats_many] == [many.device_at({"data": k})
+                                             for k in range(PROBE_CLIENTS)],
+          "(C) a client's features are not on its row's card")
+    err64 = float(torch.linalg.norm(r_many.weights.double() - w64) / torch.linalg.norm(w64))
+    check(err64 <= 1e-3, f"(C) head vs the float64 central head: {err64} > 1e-3")
+
+    def rel(a, b):
+        a, b = a.double(), b.to(a.device).double()
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+    pairs = {**{f"features_{k}": (a, b) for k, (a, b) in
+                enumerate(zip(feats_many, feats_one))},
+             "gram": (r_many.stats.gram, r_one.stats.gram),
+             "moment": (r_many.stats.moment, r_one.stats.moment),
+             "head": (r_many.weights, r_one.weights)}
+    bitwise = {k: torch.equal(a.to(b.device), b) for k, (a, b) in pairs.items()}
+    differ = {k: rel(a, b) for k, (a, b) in pairs.items()}
+
+    # the fusion and the solve again, timed apart, on the run's features
+    stats = [probe._feature_stats(f, Y[i * f.shape[0]:(i + 1) * f.shape[0]].to(f.device))
+             for i, f in enumerate(feats_many)]
+    fused, fuse_s = walled(lambda: probe.SuffStats(
+        mesh_lib.psum([s.gram for s in stats], cards[0]),
+        mesh_lib.psum([s.moment for s in stats], cards[0]),
+        mesh_lib.psum([s.count for s in stats], cards[0])), cards)
+    _, solve_s = walled(lambda: probe.solve_head(fused, sigma), cards)
+    del stats, fused
+    overlap = card_overlap(lambda: [features(reps[d], p.to(d))
+                                    for d, p in zip(cards, prompts)], cards)
+    peak = {str(d): torch.cuda.max_memory_allocated(d) / 1e9 for d in cards}
+    del reps, lm, r_one, r_many, feats_one, feats_many, prompts, tokens, Y, w64
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": n_layers, "param_bytes": param_bytes,
+            "clients": PROBE_CLIENTS, "rows": n_rows, "sigma": sigma,
+            "head_vs_f64_central": err64, "bitwise": all(bitwise.values()),
+            "bitwise_by_tensor": bitwise, "max_rel_diff": differ,
+            "broadcast_bytes": moved["broadcast"], "replicate_s": replicate_s,
+            "probe_s": probe_s, "features_ms_by_card": features_ms,
+            "fuse_s": fuse_s, "solve_s": solve_s, "k5_launches_by_card": per_card,
+            "card_overlap": overlap, "peak_gb": peak,
+            "seconds": time.perf_counter() - t_all}, launches
+
+
 def multi_card_phase(peaks) -> dict:
-    """The sharded backend across the cards of one host (see MC_* above)."""
+    """The sharded backend and the one-shot probe across the cards of one
+    host (see MC_* above)."""
     from repro_torch.core import compute_stats
     from repro_torch.fed import comm
     from repro_torch.kernels import gram as K
@@ -5254,7 +5447,7 @@ def multi_card_phase(peaks) -> dict:
     count = torch.cuda.device_count()
     if count < 2:
         return {"phase": "multi_card", "cards": count, "ran": False,
-                "why": "one card: (A) and (B) need two or more cards "
+                "why": "one card: (A), (B) and (C) need two or more cards "
                        "(python3 chip_smoke.py --phase multi_card on four)"}
     t_all = time.perf_counter()
     cards = [torch.device("cuda", i) for i in range(min(count, MC_CARDS))]
@@ -5410,8 +5603,12 @@ def multi_card_phase(peaks) -> dict:
                    "cross_shard_bytes_modelled": record.cross_shard_bytes}
     del eng, be, ws
     torch.cuda.empty_cache()
-    launches = {k: launches_a[k] + launches_b[k] for k in launches_a}
-    for name in ("gram_moment", "gemm_nt", "panel_transform"):
+
+    # (C) the one-shot probe with a gemma3-27b replica on each card
+    report["c"], launches_c = probe_across_cards(cards)
+    progress({"c": report["c"]})
+    launches = {k: launches_a[k] + launches_b[k] + launches_c[k] for k in launches_a}
+    for name in ("gram_moment", "gemm_nt", "panel_transform", "swa_flash"):
         check(launches[name] > 0, f"kernel {name} was not launched across the cards")
     return {"phase": "multi_card", "ran": True, **report, "launches": launches,
             "seconds": time.perf_counter() - t_all}
@@ -5423,8 +5620,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="on-card smoke test of the port")
     ap.add_argument("--phase", choices=["multi_card"],
                     help="only the device line (the build), this phase and the "
-                         "last line: the mixed mesh check, then (A) and (B) on "
-                         "the host's cards")
+                         "last line: the mixed mesh check, then (A), (B) and "
+                         "(C) on the host's cards")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",

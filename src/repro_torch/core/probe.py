@@ -12,14 +12,18 @@ The Gram of the features is a float32 ``torch.matmul`` (TF32 off,
 solved by Cholesky. With ``mesh=`` the rows are split over the mesh's
 client axes, the feature function runs on each row shard on that shard's
 device, and the shards' feature statistics are added in flat shard order:
-the one fusion round.
+the one fusion round. A backbone the feature function closes over lives
+on one device; :func:`replicas` puts a copy of it on each other device of
+the mesh (JAX copies a closed-over backbone onto every device itself).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable
 
 import torch
+from torch import nn
 
 from repro_torch.core.fusion import cholesky_or_nan
 from repro_torch.core.sufficient_stats import SuffStats
@@ -41,9 +45,10 @@ def _feature_stats(feats: torch.Tensor, targets: torch.Tensor) -> SuffStats:
     F = feats.to(torch.float32)
     gram = F.T @ F
     moment = F.T @ targets.to(torch.float32)
-    return SuffStats(gram, moment,
-                     torch.tensor(feats.shape[0], dtype=torch.int32,
-                                  device=feats.device))
+    # torch.full, not torch.tensor: a copy from the host would wait for the
+    # device's queued work, and serialise the shards of a mesh of cards
+    return SuffStats(gram, moment, torch.full((), feats.shape[0], dtype=torch.int32,
+                                              device=feats.device))
 
 
 def solve_head(stats: SuffStats, sigma: float) -> torch.Tensor:
@@ -53,6 +58,35 @@ def solve_head(stats: SuffStats, sigma: float) -> torch.Tensor:
     L = cholesky_or_nan(reg)
     w = torch.cholesky_solve(H[:, None] if H.ndim == 1 else H, L)
     return w[:, 0] if H.ndim == 1 else w
+
+
+def replicas(module: nn.Module, devices) -> dict[torch.device, nn.Module]:
+    """One frozen copy of ``module`` on each distinct device of ``devices``
+    (a list of devices, or a ``launch.mesh.Mesh``): ``module`` itself on
+    its own device, elsewhere a copy whose parameters and buffers are its
+    bits, broadcast from its device (``launch.mesh.broadcast``, so the
+    bytes count in ``collective_bytes()``). On a mesh of one device
+    nothing is copied. The port's counterpart of JAX's copying a
+    closed-over backbone onto every device of a ``shard_map``."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    if hasattr(devices, "distinct_devices"):
+        devices = devices.distinct_devices
+    home = next(module.parameters()).device
+    others = [d for d in dict.fromkeys(mesh_lib._device(d) for d in devices) if d != home]
+    out = {home: module}
+    if not others:
+        return out
+    tensors = list(module.parameters()) + list(module.buffers())
+    copies = {id(t): mesh_lib.broadcast(t.detach(), others) for t in tensors}
+    for i, dev in enumerate(others):
+        memo = {}
+        for t in module.parameters():
+            memo[id(t)] = nn.Parameter(copies[id(t)][i], requires_grad=False)
+        for t in module.buffers():
+            memo[id(t)] = copies[id(t)][i]
+        out[dev] = copy.deepcopy(module, memo).eval()
+    return out
 
 
 def one_shot_probe(
@@ -76,6 +110,11 @@ def one_shot_probe(
         feature function may give several feature rows an input row, as
         per-token features of a prompt), each shard's features and
         statistics are computed on its device, and one reduction fuses them.
+        ``feature_fn`` is called with each shard's rows on that shard's
+        device; a backbone on one device runs there through its copy from
+        :func:`replicas`: ``reps = replicas(model, mesh)`` and then
+        ``feature_fn = lambda x: features(reps[x.device], x)``. The shards'
+        statistics are added in flat shard order on shard 0's device.
     """
     if mesh is None:
         stats = _feature_stats(feature_fn(inputs), targets)

@@ -89,28 +89,29 @@ class _SWAAttention(torch.autograd.Function):
     for a kernel. Only q, k and v are saved; the scores are recomputed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window, causal):
+    def forward(ctx, q, k, v, window, causal, block_q):
         ctx.save_for_backward(q, k, v)
-        ctx.window, ctx.causal = window, causal
-        return _swa_forward(q, k, v, window, causal)
+        ctx.window, ctx.causal, ctx.block_q = window, causal, block_q
+        return _swa_forward(q, k, v, window, causal, block_q)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
         with record_function("attn.bwd"):
             dq, dk, dv = ref.swa_attention_bwd(q, k, v, do, window=ctx.window,
-                                               causal=ctx.causal)
-        return dq, dk, dv, None, None
+                                               causal=ctx.causal, block_q=ctx.block_q)
+        return dq, dk, dv, None, None, None
 
 
-def _swa_forward(q, k, v, window, causal):
+def _swa_forward(q, k, v, window, causal, block_q):
     if on_card(q.device, "swa_attention"):
         return gram_kernel.swa_flash_cuda(q, k, v, window=window, causal=causal)
-    return ref.swa_attention_ref(q, k, v, window=window, causal=causal)
+    return ref.swa_attention_ref(q, k, v, window=window, causal=causal, block_q=block_q)
 
 
 def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  window: int | None, causal: bool = True) -> torch.Tensor:
+                  window: int | None, causal: bool = True,
+                  block_q: int | None = None) -> torch.Tensor:
     """Sliding-window (or full, ``window=None``) attention over a sequence:
     K5 on CUDA, plain on CPU.
 
@@ -119,11 +120,13 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     S itself, so a non-causal ragged S is exact too. The call carries a
     gradient (:class:`_SWAAttention`) where autograd records (grad mode on
     and an input that requires grad); otherwise the output has no
-    ``grad_fn`` and nothing saved outlives the call.
+    ``grad_fn`` and nothing saved outlives the call. ``block_q`` is the
+    query rows a step of the plain version and of the backward
+    (``ref.SWA_BLOCK_Q`` when None); K5 tiles by itself.
     """
     if window is not None and window < 1:
         raise ValueError(f"swa_attention: window must be None or >= 1, got {window}")
-    return _SWAAttention.apply(q, k, v, window, causal)
+    return _SWAAttention.apply(q, k, v, window, causal, block_q or ref.SWA_BLOCK_Q)
 
 
 def synchronize(t: torch.Tensor) -> None:

@@ -66,7 +66,7 @@ def panel_gemm_ref(L: torch.Tensor, X: torch.Tensor, c0: int, c1: int,
     X[:, c1:] = Zn[:, bw:].T
 
 
-_SWA_BLOCK_Q = 256    # query rows per step: a (B, H, 256, S) float32 score block
+SWA_BLOCK_Q = 256     # query rows per step: a (B, H, 256, S) float32 score block
 
 
 def _block_probs(qb: torch.Tensor, kb: torch.Tensor, q0: int, k0: int,
@@ -88,14 +88,16 @@ def _block_probs(qb: torch.Tensor, kb: torch.Tensor, q0: int, k0: int,
 
 
 def swa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      window: int | None, causal: bool = True) -> torch.Tensor:
+                      window: int | None, causal: bool = True,
+                      block_q: int = SWA_BLOCK_Q) -> torch.Tensor:
     """Masked-softmax attention in float32: the plain version of K5.
 
     q: (B, S, H, hd); k, v: (B, S, H_kv, hd), query head h reading KV head
     h // (H / H_kv). A pair (q, k) is kept iff q - k >= 0 (causal) and
     q - k < window (when set); dropped pairs score -1e30, as in the
-    reference. Queries go 256 at a time, so no (B, H, S, S) score tensor is
-    ever built. Returns (B, S, H, hd) in q's dtype.
+    reference. Queries go ``block_q`` at a time, so no (B, H, S, S) score
+    tensor is built unless ``block_q >= S``. Returns (B, S, H, hd) in q's
+    dtype.
     """
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
@@ -104,8 +106,8 @@ def swa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf = k.float().permute(0, 2, 1, 3)                      # (B, Hkv, S, hd)
     vf = v.float().permute(0, 2, 1, 3)
     out = torch.empty_like(qg)                               # (B, Hkv, G, S, hd)
-    for q0 in range(0, S, _SWA_BLOCK_Q):
-        q1 = min(q0 + _SWA_BLOCK_Q, S)
+    for q0 in range(0, S, block_q):
+        q1 = min(q0 + block_q, S)
         # every block reads all S keys (the backward reads only those kept)
         p = _block_probs(qg[:, :, :, q0:q1], kf, q0, 0, window, causal, scale)
         out[:, :, :, q0:q1] = torch.einsum("bkgqs,bksd->bkgqd", p, vf)
@@ -114,13 +116,13 @@ def swa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def swa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       do: torch.Tensor, *, window: int | None,
-                      causal: bool = True
+                      causal: bool = True, block_q: int = SWA_BLOCK_Q
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`swa_attention_ref`'s attention for the output
     gradient ``do`` (B, S, H, hd), in float32 inside and returned in the
     inputs' dtypes.
 
-    The scores are recomputed 256 queries at a time, each block reading
+    The scores are recomputed ``block_q`` queries at a time, each block reading
     only the keys its mask can keep: [max(0, q0 - window + 1), q1) when
     causal, up to S when not. Per block, with P the masked softmax,
     dV += P^T dO, dP = dO V^T, dS = P . (dP - rowsum(dP . P)), dQ = dS K
@@ -139,8 +141,8 @@ def swa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty_like(qg)                                # (B, Hkv, G, S, hd)
     dk = torch.zeros_like(kf)
     dv = torch.zeros_like(vf)
-    for q0 in range(0, S, _SWA_BLOCK_Q):
-        q1 = min(q0 + _SWA_BLOCK_Q, S)
+    for q0 in range(0, S, block_q):
+        q1 = min(q0 + block_q, S)
         k0 = 0 if window is None else max(0, q0 - window + 1)
         k1 = q1 if causal else S
         qb, dob = qg[:, :, :, q0:q1], dog[:, :, :, q0:q1]

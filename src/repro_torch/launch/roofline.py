@@ -14,8 +14,13 @@ and sets three per-chip terms beside each other:
     collective_s = 0 on one card; n/a (null) on a mesh of more
 
 The chip count is the record's mesh (``devices``; a record without one is a
-card's), not a fixed pod. ``memory_s`` comes from the analytic HBM model
-(:func:`analytic_hbm_bytes`, the reference's napkin model at the record's
+card's), not a fixed pod. On a mesh the records carry collective bytes
+(the dry-run's count of DTensor's collectives on rank 0, which depends on
+the torch version the record names: a table takes records of one),
+extrapolated the same way into ``coll_bytes`` and ``coll_by_kind``; ``collective_s`` stays
+null there, since the port has no interconnect figure for a 256- or
+512-card mesh (``NVLINK_BANDWIDTH`` is one host's). ``memory_s`` comes from
+the analytic HBM model (:func:`analytic_hbm_bytes`, the reference's napkin model at the record's
 shard counts); the HLO-bytes term of the reference has no counterpart here
 (no compiler; "n/a"). ``dominant`` is taken over the terms that exist.
 MODEL_FLOPS = 6 N D (train) / 2 N_active D (inference) per chip-step, and
@@ -23,7 +28,7 @@ MODEL_FLOPS / counted FLOPs is the ``useful`` share (the plain attention
 counts every (query, key) pair, masked ones included, as the reference's
 one-chunk cost programs do).
 
-  PYTHONPATH=src python -m repro_torch.launch.roofline [--dir DIR]   (the card's records)
+  PYTHONPATH=src python -m repro_torch.launch.roofline [--dir DIR] [--mesh card|pod1|pod2]
 """
 from __future__ import annotations
 
@@ -48,7 +53,7 @@ class Roofline:
     flops: float                 # per chip, extrapolated to full depth
     bytes_: float | None         # HLO bytes: none without a compiler
     est_bytes: float             # analytic HBM traffic estimate, per chip
-    coll_bytes: float | None     # null where the port has no partitioner
+    coll_bytes: float | None     # collective bytes per chip, extrapolated
     coll_by_kind: dict | None
     compute_s: float
     memory_s: float | None       # from HLO bytes: none
@@ -178,7 +183,7 @@ def analyze(rec: dict) -> Roofline | None:
     memory_s = None if bytes_ is None else bytes_ / mesh_lib.HBM_BANDWIDTH
     est_memory_s = est_bytes / mesh_lib.HBM_BANDWIDTH
     # one card moves nothing between chips; the port has no interconnect
-    # model for more (ROADMAP item 18)
+    # figure for a mesh of 256 or 512 cards
     collective_s = 0.0 if coll == 0 else None
     terms = {"compute": compute_s, "memory": est_memory_s, "collective": collective_s}
     dominant = max((k for k, v in terms.items() if v is not None), key=terms.get)
@@ -204,11 +209,19 @@ def _suggestion(dominant: str, rec: dict) -> str:
 
 
 def load_all(mesh: str = "card", directory=DRYRUN_DIR) -> list[Roofline]:
-    out = []
+    """The rows of ``mesh``'s records in ``directory``. Records of two
+    torch versions are refused: DTensor's rules, and with them the
+    collective bytes, change between versions."""
+    out, versions = [], set()
     for p in sorted(pathlib.Path(directory).glob(f"*_{mesh}.json")):
-        r = analyze(json.loads(p.read_text()))
+        rec = json.loads(p.read_text())
+        r = analyze(rec)
         if r:
+            versions.add(rec.get("torch"))
             out.append(r)
+    if len(versions) > 1:
+        raise ValueError(f"{directory}: {mesh} records of torch "
+                         f"{sorted(map(str, versions))}; dry-run them with one")
     return out
 
 
@@ -220,15 +233,21 @@ def _num(x: float | None) -> str:
     return "n/a" if x is None else f"{x:.3g}"
 
 
+def _kinds(by_kind: dict | None) -> str:
+    if not by_kind:
+        return "n/a" if by_kind is None else "-"
+    return ", ".join(f"{k} {v:.3g}" for k, v in sorted(by_kind.items()))
+
+
 def markdown_table(rows: list[Roofline]) -> str:
     hdr = ("| arch | shape | chips | flops/chip | HLO bytes | est bytes | coll B | "
-           "compute | mem(HLO) | mem(est) | coll | bound | useful |\n"
-           "|---|---|---|---|---|---|---|---|---|---|---|---|---|\n")
+           "coll B by kind | compute | mem(HLO) | mem(est) | coll | bound | useful |\n"
+           "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|\n")
     fmt = []
     for r in rows:
         fmt.append(
             f"| {r.arch} | {r.shape} | {r.chips} | {r.flops:.3g} | {_num(r.bytes_)} | "
-            f"{r.est_bytes:.3g} | {_num(r.coll_bytes)} | "
+            f"{r.est_bytes:.3g} | {_num(r.coll_bytes)} | {_kinds(r.coll_by_kind)} | "
             f"{_ms(r.compute_s, '.1f')} | {_ms(r.memory_s, '.0f')} | "
             f"{_ms(r.est_memory_s, '.1f')} | {_ms(r.collective_s, '.1f')} | "
             f"**{r.dominant}** | {r.useful_ratio:.2f} |")
@@ -238,13 +257,14 @@ def markdown_table(rows: list[Roofline]) -> str:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dir", default=str(DRYRUN_DIR))
+    ap.add_argument("--mesh", default="card", choices=("card", "pod1", "pod2"))
     args = ap.parse_args(argv)
     directory = pathlib.Path(args.dir)
-    rows = load_all("card", directory)
+    rows = load_all(args.mesh, directory)
     table = markdown_table(rows)
     print(table)
-    (directory / "roofline_card.md").write_text(table)
-    with (directory / "roofline_card.csv").open("w", newline="") as f:
+    (directory / f"roofline_{args.mesh}.md").write_text(table)
+    with (directory / f"roofline_{args.mesh}.csv").open("w", newline="") as f:
         w = csv.DictWriter(f, fieldnames=[
             "arch", "shape", "chips", "flops", "bytes", "est_bytes", "coll_bytes",
             "compute_s", "memory_s", "est_memory_s", "collective_s",
@@ -258,7 +278,7 @@ def main(argv=None) -> None:
                         "collective_s": r.collective_s, "dominant": r.dominant,
                         "model_flops": r.model_flops, "useful_ratio": r.useful_ratio,
                         "note": r.note})
-    print(f"wrote {directory}/roofline_card.md and .csv ({len(rows)} rows)")
+    print(f"wrote {directory}/roofline_{args.mesh}.md and .csv ({len(rows)} rows)")
 
 
 if __name__ == "__main__":

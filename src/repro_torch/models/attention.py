@@ -39,6 +39,9 @@ class Attention(nn.Module):
         self.wv = layers.weight((d, cfg.kv_dim), dtype, device)
         self.wo = layers.weight((cfg.q_dim, d), dtype, device)
         self.bq = self.bk = self.bv = None
+        # query rows a step of the plain attention and its backward (None:
+        # ``kernels.ref``'s); a program that costs the step sets it per model
+        self.query_block: int | None = None
         if cfg.qkv_bias:
             self.bq = layers.weight((cfg.q_dim,), dtype, device)
             self.bk = layers.weight((cfg.kv_dim,), dtype, device)
@@ -83,7 +86,7 @@ def _self_attention(attn: Attention, x: torch.Tensor, cfg: ArchConfig,
     q, k, v = project_qkv(attn, x, cfg, positions)
     out = ops.swa_attention(q, k, v,
                             window=cfg.window if kind == "swa" else None,
-                            causal=kind != "full_bidir")
+                            causal=kind != "full_bidir", block_q=attn.query_block)
     return out.reshape(B, S, cfg.q_dim) @ attn.wo, k, v
 
 

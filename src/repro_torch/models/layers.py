@@ -169,9 +169,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Token-mean CE; the log-softmax in float32 whatever the logits' dtype.
     With a ``mask`` the mean is over the positions it sets (at least one)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    # logz and the gold logit keep the class axis (size 1) until they meet,
+    # so the gather's result has the logits' rank and layout: on logits
+    # sharded along the classes it stays a rank-3 partial term, not a
+    # dropped axis whose layout has to be found again
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    gold = logits.gather(-1, labels.long()[..., None])
     if mask is None:
         return torch.mean(logz - gold)
-    mask = mask.float()
+    mask = mask.float()[..., None]
     return ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)

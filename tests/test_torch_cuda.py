@@ -1691,3 +1691,48 @@ def test_p_and_k2_on_another_card_than_the_current(cards):
     assert all(torch.equal(a, b) for a, b in zip(got[0], got[1]))
     Lr, Tr = cholesky.panel_transform_ref(L[:32, :32], X[:, :32], sign=1.0)
     assert _rel(got[1][1], Tr) <= 1e-4
+
+
+def test_probe_replica_on_the_mixed_mesh(card):
+    """``probe.replicas`` of a reduced gemma3 on cuda:0 over the mesh whose
+    rows alternate cuda:0 and the host: the host's copy holds the card's
+    bits (the broadcast's bytes are the model's), and the probe with each
+    row shard's features through its device's replica matches the
+    one-device probe at 1e-4, K5 running the card's two clients."""
+    from repro_torch import configs
+    from repro_torch.core import probe
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import blocks
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(configs.get_reduced("gemma3-27b"), dtype="float32")
+    dev, host = torch.device("cuda", 0), torch.device("cpu")
+    lm = M.init_params(cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    mesh = mesh_lib.Mesh([[dev, dev], [host, host]] * 2, ("data", "model"))
+    mesh_lib.reset_collective_bytes()
+    reps = probe.replicas(lm, mesh)
+    assert list(reps) == [dev, host] and reps[dev] is lm
+    assert mesh_lib.collective_bytes()["broadcast"] == sum(
+        p.numel() * p.element_size() for p in lm.parameters())
+    for (n, p), (m, q) in zip(lm.named_parameters(), reps[host].named_parameters()):
+        assert n == m and q.device == host and not q.requires_grad
+        assert torch.equal(p.cpu(), q)
+
+    def features(model, tokens):
+        x = model.embed(tokens)
+        for layer in model.all_layers():
+            x = blocks.apply_layer(layer, x, cfg)
+        return model.final_norm(x).reshape(-1, cfg.d_model)
+
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 32)).astype(np.int32)).to(dev)
+    y = torch.from_numpy(rng.standard_normal((8 * 32, 3)).astype(np.float32)).to(dev)
+    gram.reset_launch_counts()
+    r = probe.one_shot_probe(lambda t: features(reps[t.device], t), toks, y, sigma=1.0,
+                             mesh=mesh)
+    attn = sum(s.attn in ("full", "swa") for s in
+               cfg.stage_pattern * cfg.num_stages + cfg.tail_pattern)
+    assert gram.launch_counts()["swa_flash"] == 2 * attn     # the card's two clients
+    r0 = probe.one_shot_probe(lambda t: features(lm, t), toks, y, sigma=1.0)
+    assert r.weights.is_cuda and int(r.stats.count) == 8 * 32
+    assert _rel(r.weights, r0.weights) <= 1e-4

@@ -11,7 +11,8 @@
   meta equal an analytic count, term by term (matmul parameters x tokens,
   the plain attention's all-keys pairs; a training step's backward reads
   only the keys its causal mask keeps); a mesh's figure is the count over
-  its devices, with collectives null.
+  its devices; its collectives DTensor's bytes (tests/
+  test_torch_dryrun_collectives.py holds them to XLA's).
 - Roofline: tests/test_launch.py's ``TestRooflineMath`` on the port, and
   ``analytic_hbm_bytes`` / ``_model_flops`` against the reference's at
   1e-12 (hubert-xlarge's expected value from the port's parameter count).
@@ -210,24 +211,35 @@ def test_train_step_flops_term_by_term(S):
 
 
 def test_cost_records_per_chip_and_no_kernel_launched():
-    """A mesh's record is the whole count over its devices, collectives
-    null (no partitioner); the card's collectives are 0. Meta runs launch
-    no kernel (the plain versions take them)."""
+    """A mesh's FLOPs are the whole count over its devices, its collectives
+    DTensor's bytes by the reference's kind names (more at 4 stages than
+    at 2); the card's collectives are 0. Meta runs launch no kernel (the
+    plain versions take them) and leave no process group."""
     gram.reset_launch_counts()
     card = dryrun.run_combo("yi-9b", "decode_32k", mesh_name="card")
     pod = dryrun.run_combo("yi-9b", "decode_32k", mesh_name="pod1")
     assert all(n == 0 for n in gram.launch_counts().values())
+    assert not torch.distributed.is_initialized()
+    kinds = {"all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+             "collective-permute", "total"}
     for n in dryrun.COST_STAGES:
         c, p = card[f"cost_{n}stage"], pod[f"cost_{n}stage"]
         assert p["flops"] * 256 == c["flops"] > 0
-        assert c["collectives"] == {"total": 0} and p["collectives"] is None
+        assert c["collectives"] == {"total": 0} and "replicated_ops" not in c
+        coll = p["collectives"]
+        assert coll["total"] > 0 and set(coll) <= kinds
+        assert coll["total"] == sum(v for k, v in coll.items() if k != "total")
+        assert isinstance(p["replicated_ops"], dict)
         assert c["bytes"] is None and p["bytes"] is None
+    assert pod["cost_4stage"]["collectives"]["total"] > pod["cost_2stage"]["collectives"]["total"]
     r = roofline.analyze(card)
     assert r.chips == 1 and r.collective_s == 0.0 and r.memory_s is None
     rp = roofline.analyze(pod)
-    assert rp.chips == 256 and rp.collective_s is None and rp.coll_bytes is None
+    assert rp.chips == 256 and rp.collective_s is None and rp.coll_bytes > 0
+    assert rp.coll_bytes == pytest.approx(sum(rp.coll_by_kind.values()), rel=1e-12)
     assert rp.dominant in ("compute", "memory")
     assert rp.flops * 256 == pytest.approx(r.flops, rel=1e-12)
+    assert f"{rp.coll_bytes:.3g}" in roofline.markdown_table([rp])
 
 
 # -- roofline -------------------------------------------------------------------
@@ -275,10 +287,30 @@ class TestRooflineMath:
         assert r == pytest.approx(6 * cfg.active_param_count() * 256 * 4096 / 256)
 
     def test_dominant_over_the_terms_that_exist(self):
-        r = roofline.analyze(self._record())
-        assert r.collective_s is None     # collectives but no interconnect model
+        rec = {**self._record(), "devices": 256, "mesh_shape": {"data": 16, "model": 16}}
+        r = roofline.analyze(rec)
+        n = configs.get("yi-9b").num_stages
+        # a pod record's collective bytes, but no interconnect figure for them
+        assert r.chips == 256 and r.coll_bytes == pytest.approx(8 + (n - 2) * 3)
+        assert r.coll_by_kind == {"all-reduce": pytest.approx(8 + (n - 2) * 3)}
+        assert r.collective_s is None
         assert r.dominant in ("compute", "memory")
         assert r.step_time_bound_s() == max(r.compute_s, r.est_memory_s)
+
+
+def test_roofline_refuses_records_of_two_torch_versions(tmp_path):
+    """Each record names the torch that made it; a table of records from
+    two versions is refused, one version's is read."""
+    rec = dryrun.run_combo("yi-9b", "decode_32k", mesh_name="card")
+    assert rec["torch"] == torch.__version__
+    for arch, version in (("yi-9b", "2.11.0"), ("qwen2-72b", "2.11.0")):
+        (tmp_path / f"{arch}_decode_32k_card.json").write_text(
+            json.dumps({**rec, "arch": arch, "torch": version}))
+    assert len(roofline.load_all("card", tmp_path)) == 2
+    (tmp_path / "qwen2-72b_decode_32k_card.json").write_text(
+        json.dumps({**rec, "arch": "qwen2-72b", "torch": "2.13.0"}))
+    with pytest.raises(ValueError, match="torch"):
+        roofline.load_all("card", tmp_path)
 
 
 @pytest.fixture

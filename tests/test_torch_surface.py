@@ -45,7 +45,9 @@ DEVIATIONS = {
     "launch/dryrun.py::build_lowered": "lowers a program with jax.jit; the port's dry-run "
                                        "builds meta tensors",
     "launch/dryrun.py::parse_collectives": "reads collectives from compiled HLO text; the "
-                                           "port has no compiler output",
+                                           "port has no compiler output and counts the "
+                                           "same bytes by count_collectives from "
+                                           "DTensor's collectives",
     "launch/mesh.py::ICI_LINK_BANDWIDTH": "the TPU v5e's ICI link rate; one H100 has no "
                                           "interconnect in the roofline",
     "launch/roofline.py::CHIPS": "the TPU pod's 256 chips; the port's chip count is the "
